@@ -1,0 +1,232 @@
+"""CLIP-style ModifiedResNet50 retrieval encoder (PyTorch).
+
+Counterpart of ``art_sbir_tpu/models/resnet.py`` (reference
+``models.py:191-379``): a 3-conv stem with avgpool, anti-aliased
+bottlenecks (the stride is an AvgPool after conv2; the downsample is
+avgpool -> 1x1 conv -> BN), and a single-query multi-head attention pool
+producing the ``output_dim`` (1024) embedding.
+
+* The public input is NHWC (uint8 or float), as in the JAX package; it is
+  cast to the compute dtype and viewed as NCHW, which gives the
+  ``channels_last`` layout the convolutions run in.
+* ``compute_dtype`` plays flax's ``dtype``: convolutions, projections and
+  the attention run in it (bf16 when serving); parameters and BN running
+  statistics stay float32. BN in eval mode applies its float32
+  scale/shift folded into the compute dtype; in train mode it normalizes
+  in float32.
+* State-dict keys keep the reference torch layout (``conv1.weight``,
+  ``layer1.0.downsample.0.weight``, ``attnpool.q_proj.weight``, ...), so a
+  reference ``.pth`` loads natively.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from art_sbir_tpu_torch.core.device import resolve_device
+from art_sbir_tpu_torch.models.layers import BN_MOMENTUM
+
+
+class Conv2d(nn.Conv2d):
+    """Bias-free conv whose float32 weight is cast to the input's dtype."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
+        super().__init__(cin, cout, kernel, stride=stride,
+                         padding=kernel // 2, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+class Linear(nn.Linear):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d (momentum ``BN_MOMENTUM``, eps 1e-5) with float32 state."""
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=1e-5, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x.float()).to(x.dtype)
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * scale
+        return torch.addcmul(shift.to(x.dtype)[None, :, None, None], x,
+                             scale.to(x.dtype)[None, :, None, None])
+
+
+class Bottleneck(nn.Module):
+    """All convs stride 1; spatial reduction by AvgPool2d(stride) after
+    conv2 (reference ``models.py:191-236``)."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        out = planes * self.expansion
+        self.conv1 = Conv2d(inplanes, planes, 1)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3)
+        self.bn2 = BatchNorm2d(planes)
+        self.avgpool = nn.AvgPool2d(stride) if stride > 1 else nn.Identity()
+        self.conv3 = Conv2d(planes, out, 1)
+        self.bn3 = BatchNorm2d(out)
+        self.downsample = None
+        if stride > 1 or inplanes != out:
+            self.downsample = nn.Sequential(OrderedDict([
+                ("-1", nn.AvgPool2d(stride) if stride > 1 else nn.Identity()),
+                ("0", Conv2d(inplanes, out, 1)),
+                ("1", BatchNorm2d(out)),
+            ]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(self.avgpool(out)))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class AttentionPool2d(nn.Module):
+    """Single-query (mean-token) multi-head QKV pooling with a learned
+    positional embedding (reference ``models.py:239-272``). The embedding
+    is added in the token dtype; the softmax runs in float32."""
+
+    def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int,
+                 output_dim: int):
+        super().__init__()
+        self.positional_embedding = nn.Parameter(
+            torch.randn(spacial_dim ** 2 + 1, embed_dim) / embed_dim ** 0.5)
+        self.q_proj = Linear(embed_dim, embed_dim)
+        self.k_proj = Linear(embed_dim, embed_dim)
+        self.v_proj = Linear(embed_dim, embed_dim)
+        self.c_proj = Linear(embed_dim, output_dim)
+        self.num_heads = num_heads
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[:2]
+        tokens = x.flatten(2).transpose(1, 2)  # (B, HW, C)
+        tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        tokens = tokens + self.positional_embedding[None].to(tokens.dtype)
+        h = self.num_heads
+        hd = c // h
+        # only the mean token is ever a query (the reference queries x[:1])
+        q = self.q_proj(tokens[:, :1]).reshape(b, 1, h, hd) * hd ** -0.5
+        k = self.k_proj(tokens).reshape(b, -1, h, hd)
+        v = self.v_proj(tokens).reshape(b, -1, h, hd)
+        attn = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
+        pooled = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, c)
+        return self.c_proj(pooled)
+
+
+class ModifiedResNet(nn.Module):
+    """The CLIP RN50 visual tower (reference ``models.py:275-360``).
+    ``forward``: NHWC (B, S, S, 3) -> float32 (B, output_dim)."""
+
+    def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
+                 output_dim: int = 1024, heads: int = 32,
+                 input_resolution: int = 224, width: int = 64,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.layers = tuple(layers)
+        self.conv1 = Conv2d(3, width // 2, 3, stride=2)
+        self.bn1 = BatchNorm2d(width // 2)
+        self.conv2 = Conv2d(width // 2, width // 2, 3)
+        self.bn2 = BatchNorm2d(width // 2)
+        self.conv3 = Conv2d(width // 2, width, 3)
+        self.bn3 = BatchNorm2d(width)
+        self.avgpool = nn.AvgPool2d(2)
+        inplanes = width
+        for stage, blocks in enumerate(self.layers, start=1):
+            planes = width * 2 ** (stage - 1)
+            mods = []
+            for i in range(blocks):
+                mods.append(Bottleneck(inplanes, planes,
+                                       2 if (i == 0 and stage > 1) else 1))
+                inplanes = planes * Bottleneck.expansion
+            setattr(self, f"layer{stage}", nn.Sequential(*mods))
+        self.attnpool = AttentionPool2d(input_resolution // 32, width * 32,
+                                        heads, output_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)  # channels_last
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        x = F.relu(self.bn3(self.conv3(x)))
+        x = self.avgpool(x)
+        for stage in range(1, len(self.layers) + 1):
+            x = getattr(self, f"layer{stage}")(x)
+        return self.attnpool(x).float()
+
+
+class ModifiedResNetWithClassification(ModifiedResNet):
+    """Adds 1-2 float32 linear classifier heads on the embedding (reference
+    ``models.py:363-379``). Returns (feature, logits[, logits2])."""
+
+    def __init__(self, num_classes: int = 125, num_classes2: int = 0, **kw):
+        super().__init__(**kw)
+        out = self.attnpool.c_proj.out_features
+        self.classifier = nn.Linear(out, num_classes)
+        self.classifier2 = (nn.Linear(out, num_classes2) if num_classes2
+                            else None)
+
+    def forward(self, x: torch.Tensor):
+        feature = super().forward(x)
+        logits = self.classifier(feature)
+        if self.classifier2 is None:
+            return feature, logits
+        return feature, logits, self.classifier2(feature)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded fresh init from an explicit CPU ``torch.Generator`` (the same
+    weights on every device): conv and linear weights N(0, 1/fan_in)
+    (flax's lecun scale), zero biases, identity BatchNorm, positional
+    embedding N(0, 1)/sqrt(C)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen)
+
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            fan_in = mod.weight[0].numel()
+            mod.weight.copy_(randn(mod.weight.shape) / fan_in ** 0.5)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.BatchNorm2d):
+            mod.reset_parameters()
+        elif isinstance(mod, AttentionPool2d):
+            pe = mod.positional_embedding
+            pe.copy_(randn(pe.shape) / pe.shape[1] ** 0.5)
+    return model
+
+
+def create_encoder(with_classification: bool = False, num_classes: int = 125,
+                   num_classes2: int = 0,
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   device: str | torch.device | None = None, seed: int = 0,
+                   **kw) -> nn.Module:
+    """Factory mirroring the reference model choices (``utils.py:132-206``):
+    a seeded fresh init on ``device`` (the card unless ``device='cpu'``),
+    in eval mode. ``kw``: layers, output_dim, heads, input_resolution,
+    width."""
+    dev = resolve_device(device)
+    if with_classification:
+        model = ModifiedResNetWithClassification(
+            num_classes=num_classes, num_classes2=num_classes2,
+            compute_dtype=compute_dtype, **kw)
+    else:
+        model = ModifiedResNet(compute_dtype=compute_dtype, **kw)
+    return init_weights(model, seed).to(dev).eval()

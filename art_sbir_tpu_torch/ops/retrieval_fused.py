@@ -1,0 +1,355 @@
+"""K1: fused pairwise distance + rank-of-positive + top-k over the gallery.
+
+Counterpart of ``art_sbir_tpu/ops/retrieval_pallas.py`` (the f32
+``precision='highest'`` single-device form of ``_kernel``). The kernel is
+hand-written CUDA for Hopper, ``csrc/fused_retrieval.cu``; its note says
+what bounds it and how it is built. It is compiled with ``nvcc`` at first
+use into ``art_sbir_tpu_torch/_build/`` and loaded with ``ctypes``.
+
+Contract (as the TPU kernel's): squared eps-folded euclidean distances
+(``qq' = |q|^2 + 2 eps sum q + D eps^2``, ``gg' = |g|^2 - 2 eps sum g``,
+``d = max(qq' + gg' - 2 q.g, 0)``) or cosine ``1 - q.g / max(|q||g|,
+1e-8)``; the rank of the positive counts columns strictly closer than the
+positive's own distance plus exact ties at a smaller index, never the
+positive's column; the top-k is ascending with the earliest column
+winning ties; the sentinel is value 3e38 at index N.
+
+One difference from the TPU kernel: the positive's distance comes from the
+same arithmetic as its column in each route (the plain version gathers it
+from its distance matrix, the CUDA kernel computes it with the sweep's FMA
+chain), not from a separate elementwise sum, so a duplicate of the
+positive ties with it exactly, as in ``ops/distance.py::rank_of_positive``.
+On the CPU, ``torch.sum`` and ``torch.matmul`` round the same dot product
+differently, so an elementwise sum would miss such ties that the JAX
+package's kernel finds.
+
+:func:`fused_sweep` runs the plain PyTorch version for a tensor on the
+CPU and the CUDA kernel for a tensor on the card; there is no fallback
+between them. The CUDA kernel is exact by construction and reports
+``exact = 1`` on every row; :func:`retrieve_fused` keeps the per-row
+certificate contract all the same and recomputes flagged rows with
+:func:`~art_sbir_tpu_torch.ops.distance.retrieve_chunked`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from art_sbir_tpu_torch.core.device import ieee_f32
+from art_sbir_tpu_torch.ops.distance import (COSINE_EPS, PAIRWISE_EPS,
+                                             retrieve_chunked)
+
+BIG = 3.0e38  # sentinel value: worse than any distance
+K_MAX = 128
+_TQ = 32  # queries per block; csrc/fused_retrieval.cu TQ
+_TN = 128  # gallery rows per tile; csrc/fused_retrieval.cu TN
+_BLOCKS_PER_SM = 4  # gallery splits fill the card this many blocks deep
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "fused_retrieval.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_METRICS = {"euclidean": 0, "cosine": 1}
+
+
+class LaunchCounters:
+    """Plain integer counts: ``launches`` of the CUDA kernel and
+    ``fallback_rows`` recomputed by the exact route after a failed
+    certificate. Thread-safe (the micro-batcher and HTTP handler threads
+    both search)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.launches = 0
+        self.fallback_rows = 0
+
+    def add(self, launches: int = 0, fallback_rows: int = 0) -> None:
+        with self._lock:
+            self.launches += launches
+            self.fallback_rows += fallback_rows
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+            self.fallback_rows = 0
+
+
+counters = LaunchCounters()
+
+
+# ------------------------------------------------------------------ build
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: K1 is compiled from "
+                       f"{SOURCE} on the machine with the card")
+
+
+def build_library() -> Path:
+    """Compile the kernel into ``_build/`` (once per source and flags) and
+    return the shared library's path. The compiler's report (registers,
+    shared memory, spills) is kept beside it as ``.log``."""
+    digest = hashlib.sha256(
+        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libfused_retrieval_{digest}.so"
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+_lib_lock = threading.Lock()
+_kernel_fn = None
+
+
+def _kernel():
+    global _kernel_fn
+    with _lib_lock:
+        if _kernel_fn is None:
+            fn = ctypes.CDLL(str(build_library())).k1_fused_retrieval
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [ptr] * 5 + [i32] * 7 + [ptr] * 8 + [ptr]
+            fn.restype = i32
+            _kernel_fn = fn
+        return _kernel_fn
+
+
+# ------------------------------------------------------------- the sweep
+
+def fused_sweep_reference(q, qq, pos, g, gg, *, k: int, metric: str,
+                          with_ranks: bool):
+    """Plain PyTorch version of the sweep (the CPU route, and the card's
+    yardstick for the kernel). Inputs as :func:`fused_sweep_cuda`;
+    returns (ranks (Q,), vals (Q, k), idx (Q, k), exact (Q,))."""
+    ieee_f32()
+    cross = q @ g.T
+    if metric == "euclidean":
+        d = torch.clamp(qq + gg - 2.0 * cross, min=0.0)
+    else:
+        d = 1.0 - cross / torch.clamp(qq * gg, min=COSINE_EPS)
+    nq, n = d.shape
+    if with_ranks:
+        col = torch.arange(n, device=d.device)[None, :]
+        d2pos = torch.gather(d, 1, torch.clamp(pos.long(), 0, n - 1))
+        hit = (d < d2pos) | ((d == d2pos) & (col < pos))
+        hit = hit & (d < BIG) & (col != pos)
+        ranks = torch.sum(hit, dim=1).to(torch.int32)
+    else:
+        ranks = torch.zeros(nq, dtype=torch.int32, device=d.device)
+    vals, order = torch.sort(d, dim=1, stable=True)
+    vals, idx = vals[:, :k], order[:, :k].to(torch.int32)
+    keep = vals < BIG  # a column at or past the sentinel never enters
+    vals = torch.where(keep, vals, BIG)
+    idx = torch.where(keep, idx, n)
+    return ranks, vals, idx, torch.ones(nq, dtype=torch.int32, device=d.device)
+
+
+def _splits(q_rows: int, n_rows: int, device: torch.device) -> int:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    q_tiles = -(-q_rows // _TQ)
+    n_tiles = -(-n_rows // _TN)
+    return max(1, min(n_tiles, -(-_BLOCKS_PER_SM * sms // q_tiles)))
+
+
+def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
+                     with_ranks: bool):
+    """Launch K1 on the card. ``q`` (Q, D) and ``g`` (N, D) float32,
+    ``qq`` (Q, 1) float32, ``pos`` (Q, 1) int32, ``gg`` (1, N) float32;
+    all contiguous on one CUDA device, D % 4 == 0."""
+    dev = g.device
+    nq, d = q.shape
+    n = g.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    for name, t, dtype, shape in (
+            ("q", q, f32, (nq, d)), ("qq", qq, f32, (nq, 1)),
+            ("pos", pos, i32, (nq, 1)),
+            ("g", g, f32, (n, d)), ("gg", gg, f32, (1, n))):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"K1 input {name}: want contiguous {dtype} {shape} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if d % 4 or q.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError(f"K1 reads float4 rows: D={d} must be a multiple "
+                         "of 4 and q, g 16-byte aligned")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"K1 takes 1 <= k <= {K_MAX}, got {k}")
+    ranks = torch.empty(nq, dtype=i32, device=dev)
+    vals = torch.empty((nq, k), dtype=f32, device=dev)
+    idx = torch.empty((nq, k), dtype=i32, device=dev)
+    exact = torch.empty(nq, dtype=i32, device=dev)
+    if nq == 0:
+        return ranks, vals, idx, exact
+    s = _splits(nq, n, dev)
+    d2pos = torch.empty(nq, dtype=f32, device=dev)
+    part_v = torch.empty((nq, s, k), dtype=f32, device=dev)
+    part_i = torch.empty((nq, s, k), dtype=i32, device=dev)
+    part_r = torch.empty((nq, s), dtype=i32, device=dev)
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), qq.data_ptr(), pos.data_ptr(), g.data_ptr(),
+                 gg.data_ptr(), nq, n, d, k, _METRICS[metric],
+                 int(with_ranks), s, d2pos.data_ptr(), part_v.data_ptr(),
+                 part_i.data_ptr(), part_r.data_ptr(), ranks.data_ptr(),
+                 vals.data_ptr(), idx.data_ptr(), exact.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    counters.add(launches=1)
+    return ranks, vals, idx, exact
+
+
+def fused_sweep(q, qq, pos, g, gg, *, k: int, metric: str,
+                with_ranks: bool):
+    """The plain version for CPU tensors, the CUDA kernel for CUDA ones."""
+    if g.device.type == "cpu":
+        return fused_sweep_reference(q, qq, pos, g, gg, k=k, metric=metric,
+                                     with_ranks=with_ranks)
+    if g.device.type == "cuda":
+        return fused_sweep_cuda(q, qq, pos, g, gg, k=k, metric=metric,
+                                with_ranks=with_ranks)
+    raise ValueError(f"K1 has no route for device {g.device}")
+
+
+def _check_metric(metric: str) -> None:
+    if metric not in _METRICS:
+        raise ValueError(f"unknown metric {metric!r} (euclidean|cosine)")
+
+
+def query_norms(queries, metric):
+    """(Q, 1) query norms in the op order of the TPU kernel's
+    ``_prep_norms``: the eps-folded squared norm ``|q|^2 + 2 eps sum q +
+    D eps^2`` for euclidean, the plain L2 norm for cosine. (Its third
+    output, the positive's distance, comes from each route's own
+    arithmetic here: see the module docstring.)"""
+    _check_metric(metric)
+    q32 = queries.float()
+    if metric == "cosine":
+        return torch.linalg.vector_norm(q32, dim=1, keepdim=True)
+    eps = PAIRWISE_EPS
+    return (torch.sum(q32 * q32, dim=1, keepdim=True)
+            + 2.0 * eps * torch.sum(q32, dim=1, keepdim=True)
+            + queries.shape[1] * eps * eps)
+
+
+def gallery_norms(gallery, metric):
+    """(1, N) gallery norms in the TPU kernel's op order: ``|g|^2 - 2 eps
+    sum g`` for euclidean (so ``||q - g + eps||^2 = qq' + gg' - 2 q.g``),
+    the plain L2 norm for cosine. An engine over an immutable gallery
+    computes them once and passes them to every search."""
+    _check_metric(metric)
+    g32 = gallery.float()
+    if metric == "cosine":
+        return torch.linalg.vector_norm(g32, dim=1)[None, :]
+    return (torch.sum(g32 * g32, dim=1)
+            - 2.0 * PAIRWISE_EPS * torch.sum(g32, dim=1))[None, :]
+
+
+def _check_precision(precision: str) -> None:
+    if precision != "highest":
+        raise NotImplementedError(
+            f"K1 precision={precision!r}: only the float32 'highest' form is "
+            "ported; the bf16 'default' stream is still to port (ROADMAP.md)")
+
+
+def retrieve_fused_core(queries: torch.Tensor, gallery: torch.Tensor,
+                        pos_idx: torch.Tensor, k: int = 10,
+                        precision: str = "highest",
+                        metric: str = "euclidean", with_ranks: bool = True,
+                        gg: torch.Tensor | None = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """One sweep: (ranks, topk_sq_values, topk_indices, exact).
+    ``with_ranks=False`` skips the rank count and returns zero ranks (the
+    serving path ranks nothing). ``gg``: the gallery's
+    :func:`gallery_norms` for ``metric``, computed here when absent."""
+    _check_precision(precision)
+    if k > gallery.shape[0]:
+        raise ValueError(
+            f"k={k} exceeds gallery size {gallery.shape[0]}: unfilled top-k "
+            "slots would hold the sentinel. Clamp k to min(k, len(gallery)).")
+    if k > K_MAX:
+        raise ValueError(f"k must be <= {K_MAX}, got {k}")
+    with torch.no_grad():
+        qq = query_norms(queries, metric)
+        if gg is None:
+            gg = gallery_norms(gallery, metric)
+        pos2d = pos_idx.to(torch.int32).reshape(-1, 1).contiguous()
+        return fused_sweep(queries.float().contiguous(), qq, pos2d,
+                           gallery.float().contiguous(), gg, k=k,
+                           metric=metric, with_ranks=with_ranks)
+
+
+def retrieve_fused(queries: torch.Tensor, gallery: torch.Tensor,
+                   pos_idx: torch.Tensor, k: int = 10,
+                   precision: str = "highest", metric: str = "euclidean",
+                   with_ranks: bool = True, device_get: bool = False,
+                   gg: torch.Tensor | None = None):
+    """(ranks, topk_values, topk_indices) over the gallery.
+
+    ``metric='euclidean'`` reports *squared* eps-folded distances (take
+    sqrt for the exact route's values); ``'cosine'`` reports
+    ``1 - cos_sim``. Rows whose certificate failed are recomputed with
+    :func:`retrieve_chunked` and counted in ``counters.fallback_rows``.
+    ``device_get=True`` returns numpy arrays. ``gg`` as in
+    :func:`retrieve_fused_core`.
+    """
+    ranks, vals, idx, exact = retrieve_fused_core(
+        queries, gallery, pos_idx, k=k, precision=precision, metric=metric,
+        with_ranks=with_ranks, gg=gg)
+    if device_get:
+        ranks, vals, idx, exact_h = (t.cpu().numpy()
+                                     for t in (ranks, vals, idx, exact))
+    else:
+        exact_h = exact.cpu().numpy()
+    if exact_h.all():
+        return ranks, vals, idx
+    bad = np.nonzero(exact_h == 0)[0]
+    counters.add(fallback_rows=len(bad))
+    bad_t = torch.as_tensor(bad, device=queries.device)
+    with torch.no_grad():
+        rb, vb, ib = retrieve_chunked(
+            queries[bad_t], gallery, pos_idx[bad_t], k=k,
+            precision=precision, metric=metric,
+            chunk=min(256, max(1, len(bad))))
+    if metric == "euclidean":  # the exact route reports sqrt'd distances
+        vb = torch.square(vb)
+    if device_get:
+        if with_ranks:  # else keep the kernel's zero ranks
+            ranks[bad] = rb.cpu().numpy()
+        vals[bad] = vb.cpu().numpy()
+        idx[bad] = ib.cpu().numpy()
+        return ranks, vals, idx
+    if with_ranks:
+        ranks[bad_t] = rb.to(ranks.dtype)
+    vals[bad_t] = vb
+    idx[bad_t] = ib.to(idx.dtype)
+    return ranks, vals, idx
+
+
+def retrieve_fused_sharded(*args, **kwargs):
+    raise NotImplementedError(
+        "the sharded form of K1 (gallery rows over several cards) is still "
+        "to port (ROADMAP.md)")

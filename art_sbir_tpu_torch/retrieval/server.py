@@ -1,0 +1,429 @@
+"""Serving engine: a resident gallery and micro-batched queries.
+
+Counterpart of ``art_sbir_tpu/retrieval/server.py`` (the exact route, the
+K1 route and capacity mode; the int8, IVF and IVF-PQ routes and the
+row-sharded gallery are still to port):
+
+* **Batch buckets.** Query batches are padded to powers of two up to
+  ``max_batch`` and the pad rows' results are dropped.
+* **Micro-batching.** :class:`MicroBatcher` coalesces concurrent requests
+  into one :meth:`RetrievalEngine.search_arrays` call.
+* **Routes.** An immutable gallery of at least
+  ``rank.FUSED_GALLERY_THRESHOLD`` rows streams each batch through the
+  fused kernel K1 (:mod:`art_sbir_tpu_torch.ops.retrieval_fused`); smaller
+  and capacity galleries take the exact route: ``pairwise_distance`` then
+  ``top_k`` under the live-row mask.
+* **Online updates** (``capacity=``): the gallery is a fixed-capacity
+  buffer with a live-row mask. Adds and removals build a new
+  (gallery, mask) pair and publish it under the engine lock, so a search
+  running on another thread keeps the consistent pair it took.
+* **One device thread.** The HTTP server runs the device work of every
+  endpoint on the micro-batcher's thread (:meth:`MicroBatcher.call`).
+  PyTorch keeps cuDNN's execution plans and the CUDA library handles per
+  thread, so the first dispatch on a fresh thread, such as a new handler
+  thread per connection, pays their set-up again (about 0.1 s at full
+  width on an H100, PERF.md).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from art_sbir_tpu_torch.core.device import resolve_device
+from art_sbir_tpu_torch.data.loader import decode_bytes
+from art_sbir_tpu_torch.ops.distance import pairwise_distance, top_k
+from art_sbir_tpu_torch.ops.retrieval_fused import (K_MAX, gallery_norms,
+                                                    retrieve_fused)
+from art_sbir_tpu_torch.retrieval import rank
+from art_sbir_tpu_torch.retrieval.embed import (load_image_features,
+                                                save_image_features)
+
+
+def _buckets(max_batch: int) -> List[int]:
+    out, b = [], 1
+    while b < max_batch:
+        out.append(b)
+        b *= 2
+    out.append(max_batch)
+    return out
+
+
+@dataclass
+class ServerStats:
+    requests: int = 0
+    batches: int = 0
+    batched_requests: int = 0  # requests that shared a dispatch
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record(self, batch_size: int) -> None:
+        with self.lock:
+            self.requests += batch_size
+            self.batches += 1
+            if batch_size > 1:
+                self.batched_requests += batch_size
+
+    def snapshot(self) -> Dict[str, float]:
+        with self.lock:
+            return {
+                "requests": self.requests,
+                "batches": self.batches,
+                "batched_requests": self.batched_requests,
+                "mean_batch": (self.requests / self.batches
+                               if self.batches else 0.0),
+            }
+
+
+class RetrievalEngine:
+    """Owns the resident gallery.
+
+    ``forward_fn``: uint8 (B, S, S, 3) tensor on ``device`` -> (B, D)
+    embeddings (or a tuple whose first item they are), preprocessing
+    inside. ``query_forward_fn`` (optional) embeds search queries instead:
+    a per-modality-BN run passes an encoder with sketch-population running
+    stats here while the gallery and ``/add`` rows keep ``forward_fn``.
+    ``capacity``: enable online :meth:`add_images` / :meth:`remove`.
+    ``device``: the card unless ``'cpu'`` is passed.
+    """
+
+    def __init__(self, forward_fn: Callable[[torch.Tensor], torch.Tensor],
+                 gallery_features, image_paths: Sequence[Path | str], *,
+                 metric: str = "euclidean", image_size: int = 224,
+                 resize_mode: str = "square", k_max: int = 10,
+                 max_batch: int = 32, capacity: Optional[int] = None,
+                 query_forward_fn: Optional[Callable] = None,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        n0 = int(gallery_features.shape[0])
+        if n0 == 0 and capacity is None:
+            raise ValueError("cannot serve an empty gallery "
+                             "(pass capacity= to start an online index)")
+        if len(image_paths) != n0:
+            raise ValueError(f"{len(image_paths)} paths vs {n0} feature rows")
+        self.image_paths = [str(p) for p in image_paths]
+        self.metric = metric
+        self.image_size = image_size
+        self.resize_mode = resize_mode
+        self.max_batch = max_batch
+        self.buckets = _buckets(max_batch)
+        self._forward = forward_fn
+        self._query_forward = query_forward_fn or forward_fn
+        self.per_modality_bn = query_forward_fn is not None
+        self._lock = threading.Lock()  # guards gallery/mask/n_valid/paths
+
+        feats = torch.as_tensor(gallery_features).to(self.device,
+                                                     torch.float32)
+        self.capacity = capacity
+        if capacity is not None:
+            if capacity < max(n0, 1):
+                raise ValueError(f"capacity {capacity} < initial gallery {n0}")
+            self.gallery = torch.zeros((capacity, feats.shape[1]),
+                                       dtype=torch.float32, device=self.device)
+            self.gallery[:n0] = feats
+            self.k_max = min(k_max, capacity)
+        else:
+            self.gallery = feats.contiguous()
+            self.k_max = min(k_max, n0)
+        rows = int(self.gallery.shape[0])
+        self._mask = torch.arange(rows, device=self.device) < n0
+        self.n_valid = n0
+        self._next = n0  # next never-used slot
+        self._free: List[int] = []  # tombstoned slots, reused by adds
+
+        # the JAX package's routing rule (see retrieval/rank.py)
+        self.use_fused = (capacity is None
+                          and metric in ("euclidean", "cosine")
+                          and rows >= rank.FUSED_GALLERY_THRESHOLD
+                          and self.k_max <= K_MAX)
+        # the K1 route's gallery norms: the gallery never changes
+        self._gg = (gallery_norms(self.gallery, metric) if self.use_fused
+                    else None)
+
+    # ------------------------------------------------------------ queries
+
+    def _embed(self, fwd: Callable, images_u8: np.ndarray) -> torch.Tensor:
+        with torch.no_grad():
+            emb = fwd(torch.from_numpy(images_u8).to(self.device))
+        if isinstance(emb, (tuple, list)):  # classification models
+            emb = emb[0]
+        return emb.float()
+
+    def embed_queries(self, images_u8: np.ndarray) -> torch.Tensor:
+        """QUERY modality (sketches)."""
+        return self._embed(self._query_forward, images_u8)
+
+    def embed_gallery(self, images_u8: np.ndarray) -> torch.Tensor:
+        """GALLERY modality (photos): ``/add`` rows match the resident
+        gallery's embedding geometry."""
+        return self._embed(self._forward, images_u8)
+
+    def _pad(self, images_u8: np.ndarray) -> np.ndarray:
+        b = images_u8.shape[0]
+        bucket = next((x for x in self.buckets if x >= b), b)
+        if bucket == b:
+            return images_u8
+        pad = np.zeros((bucket - b, *images_u8.shape[1:]), np.uint8)
+        return np.concatenate([images_u8, pad])
+
+    def decode(self, data: bytes) -> np.ndarray:
+        """Image bytes (PNG/JPEG/...) -> uint8 (S, S, 3) query."""
+        return decode_bytes(data, self.image_size, self.resize_mode)
+
+    def search_arrays(self, images_u8: np.ndarray
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """uint8 (B, S, S, 3) -> (top-k distances, top-k indices), padded
+        to the enclosing bucket on the device, sliced back on the host."""
+        b = images_u8.shape[0]
+        with self._lock:  # a consistent (gallery, mask) pair
+            gallery, mask = self.gallery, self._mask
+        emb = self.embed_queries(self._pad(images_u8))
+        if self.use_fused:
+            pos = torch.zeros(emb.shape[0], dtype=torch.int32,
+                              device=self.device)  # unused when serving
+            _, vals, idx = retrieve_fused(emb, gallery, pos, k=self.k_max,
+                                          metric=self.metric,
+                                          with_ranks=False, device_get=True,
+                                          gg=self._gg)
+            if self.metric == "euclidean":  # K1 reports squared distances
+                vals = np.sqrt(vals)
+        else:
+            with torch.no_grad():
+                dist = pairwise_distance(emb, gallery, metric=self.metric)
+                vals, idx = top_k(dist, self.k_max, valid=mask)
+            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        return vals[:b], idx[:b]
+
+    def embed_items(self, items: Sequence[Tuple[bytes, str]]
+                    ) -> torch.Tensor:
+        """The ``/add`` path's decode + gallery embedding, (b, D)."""
+        imgs = np.stack([self.decode(data) for data, _ in items])
+        return self.embed_gallery(self._pad(imgs))[:len(items)]
+
+    def add_images(self, items: Sequence[Tuple[bytes, str]]) -> List[int]:
+        """Online index update: decode + embed each (image_bytes, path)
+        and write it into a free slot, tombstoned slots first. Requires
+        ``capacity`` mode. Returns the assigned slots."""
+        if self.capacity is None:
+            raise ValueError("immutable index: construct with capacity= "
+                             "to enable add_images")
+        if not items:
+            return []
+        emb = self.embed_items(items)
+        b = len(items)
+        with self._lock:
+            if self.n_valid + b > self.capacity:
+                raise ValueError(
+                    f"index full: {self.n_valid}+{b} > {self.capacity}")
+            slots = []
+            for _ in range(b):
+                slot = self._free.pop() if self._free else self._next
+                if slot == self._next:
+                    self._next += 1
+                slots.append(slot)
+            at = torch.tensor(slots, device=self.device)
+            gallery = self.gallery.clone()
+            gallery[at] = emb
+            mask = self._mask.clone()
+            mask[at] = True
+            for i, slot in enumerate(slots):
+                if slot < len(self.image_paths):
+                    self.image_paths[slot] = items[i][1]
+                else:
+                    self.image_paths.append(items[i][1])
+            self.gallery, self._mask = gallery, mask
+            self.n_valid += b
+        return slots
+
+    def remove(self, paths: Sequence[str]) -> List[int]:
+        """Tombstone the slots serving these paths (first match each);
+        their rows leave results at once and later adds reuse the slots.
+        Returns the freed slots."""
+        if self.capacity is None:
+            raise ValueError("immutable index: construct with capacity= "
+                             "to enable remove")
+        with self._lock:
+            mask = self._mask.clone()
+            freed: List[int] = []
+            try:
+                for p in paths:
+                    try:
+                        slot = self.image_paths.index(p)
+                    except ValueError:
+                        raise KeyError(f"path not in index: {p}") from None
+                    self.image_paths[slot] = None  # tombstone
+                    mask[slot] = False
+                    self._free.append(slot)
+                    freed.append(slot)
+            finally:  # paths freed before a missing one stay freed
+                self._mask = mask
+                self.n_valid -= len(freed)
+        return freed
+
+    def save(self, model_name: str = "ServedIndex",
+             dataset_name: str = "online",
+             root: Path | str = Path("data/image_features")) -> str:
+        """Persist the live rows as a standard gallery feature cache.
+        Returns the cache folder name."""
+        with self._lock:
+            gallery, mask = self.gallery, self._mask
+            paths = list(self.image_paths)
+        live = torch.nonzero(mask).flatten()
+        feats = gallery[live].cpu().numpy()
+        return save_image_features(
+            model_name, dataset_name, [paths[i] for i in live.tolist()],
+            feats, root=root)
+
+    def search(self, image_bytes: bytes, k: Optional[int] = None) -> Dict:
+        """Single query -> {paths, distances}. Synchronous; for the
+        coalescing path use :class:`MicroBatcher`."""
+        vals, idx = self.search_arrays(self.decode(image_bytes)[None])
+        return self._result(vals[0], idx[0], k)
+
+    def health_stats(self) -> Dict:
+        with self._lock:
+            return {
+                "status": "ok",
+                "gallery_size": int(self.n_valid),
+                "capacity": self.capacity,
+                "metric": self.metric,
+                "image_size": self.image_size,
+                "k_max": self.k_max,
+                "per_modality_bn": self.per_modality_bn,
+            }
+
+    def _result(self, vals: np.ndarray, idx: np.ndarray,
+                k: Optional[int]) -> Dict:
+        # int() validates a request-supplied k here, in the caller's
+        # request, not inside a shared batch
+        k = self.k_max if k is None else min(int(k), self.k_max)
+        vals, idx = vals[:k], idx[:k]
+        live = np.isfinite(vals)  # masked (empty) slots rank at +inf
+        return {
+            "paths": [self.image_paths[int(i)] for i in idx[live]],
+            "distances": [float(v) for v in vals[live]],
+        }
+
+
+class MicroBatcher:
+    """Coalesces concurrent single queries into one device dispatch.
+
+    The first request in an empty queue opens a ``window_ms`` window;
+    every request arriving inside it (up to ``engine.max_batch``) rides
+    one :meth:`RetrievalEngine.search_arrays` call. Each caller blocks
+    only on its own result.
+    """
+
+    def __init__(self, engine: RetrievalEngine, window_ms: float = 2.0):
+        self.engine = engine
+        self.window_s = window_ms / 1e3
+        self.stats = ServerStats()
+        self._q: "queue.Queue[Optional[tuple]]" = queue.Queue()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="retrieval-microbatch")
+        self._thread.start()
+
+    def search(self, image_bytes: bytes, k: Optional[int] = None,
+               timeout: Optional[float] = 600.0) -> Dict:
+        """Thread-safe; blocks until this query's results are ready."""
+        img = self.engine.decode(image_bytes)  # decode on the caller thread
+        return self._wait(self._submit(img, k), timeout)
+
+    def call(self, fn: Callable[[], object],
+             timeout: Optional[float] = 600.0):
+        """Run ``fn()`` on the dispatch thread, between batches, and return
+        its result (or raise its exception). See the module docstring."""
+        return self._wait(self._submit(fn, None), timeout)
+
+    def _submit(self, payload, k) -> tuple:
+        item = (payload, k, threading.Event(), [None])
+        self._q.put(item)
+        return item
+
+    @staticmethod
+    def _wait(item: tuple, timeout: Optional[float]):
+        _, _, ev, slot = item
+        if not ev.wait(timeout):
+            raise TimeoutError("retrieval dispatch timed out")
+        if isinstance(slot[0], BaseException):
+            raise slot[0]
+        return slot[0]
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._thread.join(timeout=10)
+
+    def _collect(self) -> Optional[List[tuple]]:
+        first = self._q.get()
+        if first is None:
+            return None
+        batch = [first]
+        waited = False
+        # drain what is queued; on first emptiness wait out the window
+        # once, drain again, then dispatch
+        while len(batch) < self.engine.max_batch:
+            try:
+                nxt = self._q.get_nowait()
+            except queue.Empty:
+                if waited:
+                    break
+                waited = True
+                if self.window_s > 0:
+                    time.sleep(self.window_s)
+                continue
+            if nxt is None:
+                self._q.put(None)  # re-post the shutdown sentinel
+                break
+            batch.append(nxt)
+        return batch
+
+    def _run(self) -> None:
+        while True:
+            batch = self._collect()
+            if batch is None:
+                return
+            queries = []
+            for item in batch:
+                if not callable(item[0]):
+                    queries.append(item)
+                    continue
+                fn, _, ev, slot = item
+                try:
+                    slot[0] = fn()
+                except Exception as e:  # raised again in the caller
+                    slot[0] = e
+                ev.set()
+            if not queries:
+                continue
+            batch = queries
+            imgs = np.stack([b[0] for b in batch])
+            try:
+                vals, idx = self.engine.search_arrays(imgs)
+            except Exception as e:  # the whole dispatch failed
+                for _, _, ev, slot in batch:
+                    slot[0] = e
+                    ev.set()
+                continue
+            self.stats.record(len(batch))
+            # one request's bad parameters (a non-int k) fail only that
+            # request; a slot is never touched after its event is set
+            for i, (_, k, ev, slot) in enumerate(batch):
+                try:
+                    slot[0] = self.engine._result(vals[i], idx[i], k)
+                except Exception as e:
+                    slot[0] = e
+                ev.set()
+
+
+def engine_from_feature_cache(forward_fn: Callable, folder_name: str,
+                              root: Path | str = Path("data/image_features"),
+                              **kw) -> RetrievalEngine:
+    """An engine over a saved gallery cache (``.npy`` or reference CSV)."""
+    paths, feats = load_image_features(folder_name, root)
+    return RetrievalEngine(forward_fn, feats.astype(np.float32), paths, **kw)
