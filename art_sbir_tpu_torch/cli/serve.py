@@ -1,12 +1,14 @@
 """Retrieval serving CLI: a long-lived HTTP service on the card.
 
     python -m art_sbir_tpu_torch.cli.serve -f <run> --features <cache> [--warmup]
+        [--quantize [--rerank_factor 4] [--rerank_dtype float32|bfloat16]]
 
 Counterpart of ``art_sbir_tpu/cli/serve.py``. The query encoder is
 restored from ``<models_root>/<run>.pt`` (a seeded fresh init when it is
 missing) and runs in bf16; the gallery is a saved feature cache under
 ``--feature_root``, resident on the card. The HTTP layer is stdlib
-``ThreadingHTTPServer``.
+``ThreadingHTTPServer``. ``--quantize`` serves through the int8 candidate
+scan and an exact rerank (K2 on the card).
 
 Endpoints
 ---------
@@ -112,6 +114,9 @@ def build_engine(args):
         k_max=getattr(args, "k_max", 10),
         max_batch=getattr(args, "max_batch", 32),
         capacity=getattr(args, "capacity", None),
+        quantize=getattr(args, "quantize", False),
+        rerank_factor=getattr(args, "rerank_factor", 4),
+        rerank_dtype=getattr(args, "rerank_dtype", "float32"),
         query_forward_fn=query_forward, device=device)
     return engine, MicroBatcher(engine, window_ms=args.window_ms)
 
@@ -126,10 +131,10 @@ def _png(arr_u8: np.ndarray) -> bytes:
 
 def warmup(engine, batcher=None) -> None:
     """Run every path a request can take once before binding the port
-    (cuDNN's algorithm choice per batch bucket, K1's build and first
-    launch): the search per bucket and, for capacity engines, the
-    gallery embedding per bucket and the ``/add`` path's decode +
-    embedding. Nothing is written into the index, so a capacity engine
+    (cuDNN's algorithm choice per batch bucket, the build and first
+    launch of the route's kernel, K1 or K2): the search per bucket and,
+    for capacity engines, the gallery embedding per bucket and the
+    ``/add`` path's decode + embedding. Nothing is written into the index, so a capacity engine
     that starts full is warmed the same way and no slot moves. With
     ``batcher``, all of it runs on the batcher's thread, where the server
     runs its device work: cuDNN's plans are kept per thread."""
@@ -239,6 +244,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--k_max", type=int, default=10)
     p.add_argument("--capacity", type=int, default=None,
                    help="fixed index capacity; enables online POST /add")
+    p.add_argument("--quantize", action="store_true",
+                   help="int8 candidate scan + exact rerank (ops/quant.py; "
+                        "immutable indexes)")
+    p.add_argument("--rerank_factor", type=int, default=4,
+                   help="quantized candidate count = factor * k_max")
+    p.add_argument("--rerank_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="bfloat16 keeps the rerank gallery resident in "
+                        "bf16 (0.75 B/elem total vs 1.25 f32) at ~1e-2 "
+                        "relative value rounding; quantized mode only")
     p.add_argument("--max_batch", type=int, default=32)
     p.add_argument("--window_ms", type=float, default=2.0)
     p.add_argument("--bn_stats", default="auto",
@@ -261,7 +276,7 @@ def main(argv=None):
           f"http://{args.host}:{httpd.server_address[1]} "
           f"(metric={engine.metric}, k_max={engine.k_max}, "
           f"max_batch={engine.max_batch}, device={engine.device}, "
-          f"route={'K1' if engine.use_fused else 'exact'})", flush=True)
+          f"route={engine.route})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -1,0 +1,120 @@
+"""Building, loading and counting the port's hand-written CUDA kernels.
+
+A kernel's source ``csrc/<name>.cu`` and the shared headers ``csrc/*.cuh``
+are compiled by ``nvcc`` for ``sm_90a`` at first use into
+``art_sbir_tpu_torch/_build/``, keyed by a hash of the sources and flags,
+and the library is loaded with ``ctypes``. The compiler's report
+(registers, shared memory, spills) is kept beside it as ``.log``. Each
+source exports one C function that launches on the given stream, does
+not synchronise and returns ``cudaGetLastError()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BLOCKS_PER_SM = 4  # gallery splits fill the card this many blocks deep
+
+
+class LaunchCounters:
+    """Plain integer counts: ``launches`` of a CUDA kernel and
+    ``fallback_rows`` recomputed by the plain route after a failed
+    certificate. Thread-safe (the micro-batcher and HTTP handler threads
+    both search)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.launches = 0
+        self.fallback_rows = 0
+
+    def add(self, launches: int = 0, fallback_rows: int = 0) -> None:
+        with self._lock:
+            self.launches += launches
+            self.fallback_rows += fallback_rows
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+            self.fallback_rows = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the kernels under "
+                       f"{CSRC} are compiled on the machine with the card")
+
+
+class CudaKernel:
+    """One ``csrc/<name>.cu`` source and its exported C ``symbol``.
+    ``argtypes`` are ctypes types: ``c_void_p`` for every pointer and the
+    stream, ``c_int`` for every int. ``label`` names the kernel in
+    errors."""
+
+    def __init__(self, name: str, symbol: str, argtypes: Sequence,
+                 label: str):
+        self.source = CSRC / f"{name}.cu"
+        self.name, self.symbol, self.label = name, symbol, label
+        self.argtypes = list(argtypes)
+        self._lock = threading.Lock()
+        self._fn = None
+
+    def build(self) -> Path:
+        """Compile into ``_build/`` (once per sources and flags) and return
+        the shared library's path."""
+        blob = self.source.read_bytes() + b"".join(
+            p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(
+            blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"lib{self.name}_{digest}.so"
+        if out.is_file():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            capture_output=True, text=True)
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {self.source.name} "
+                               f"({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+        return out
+
+    def launch(self, *args) -> None:
+        """Call the C entry point (building it at first use); raise if the
+        launch was refused."""
+        with self._lock:
+            if self._fn is None:
+                fn = getattr(ctypes.CDLL(str(self.build())), self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._fn = fn
+        err = self._fn(*args)
+        if err:
+            raise RuntimeError(f"{self.label} launch failed: CUDA error {err}")
+
+
+def grid_splits(q_tiles: int, n_tiles: int, device: torch.device) -> int:
+    """Gallery splits of a two-pass sweep: enough blocks to fill the card
+    ``BLOCKS_PER_SM`` deep, at most one split per gallery tile."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(n_tiles, -(-BLOCKS_PER_SM * sms // q_tiles)))

@@ -34,19 +34,23 @@
 //     1 - cross / max(qq*gg, 1e-8)), counts rank hits as `_hit` does
 //     against the positive's distance, and each warp keeps, per query, a
 //     sorted running top-k in shared memory, ordered by (value, index) with
-//     strict <. The block writes a partial (Q, S, k) top-k and (Q, S) rank
-//     counts.
+//     strict < (topk::warp_offer). The block writes a partial (Q, S, k)
+//     top-k and (Q, S) rank counts.
 //  2. k1_merge, one block per query: k rounds of a block-wide (value, index)
-//     minimum over the S*k candidates, plus the sum of the rank partials.
+//     minimum over the S*k candidates (topk::merge_topk), plus the sum of
+//     the rank partials. Both selections live in topk_select.cuh, shared
+//     with K2.
 //
 // The result is exact by construction, so `exact` is 1 on every row.
 // Sentinel: value 3e38 with index N, as on the TPU.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "topk_select.cuh"
 
 namespace {
+
+using topk::BIG;
+using topk::FULL;
+using topk::KMAX;
 
 constexpr int TQ = 32;        // queries per block (must match ops/retrieval_fused.py)
 constexpr int TN = 128;       // gallery rows per tile (must match ops/retrieval_fused.py)
@@ -55,14 +59,7 @@ constexpr int THREADS = 128;  // 8 query groups x 16 row groups
 constexpr int QPT = 4;        // queries per thread
 constexpr int CPT = 8;        // gallery rows per thread
 constexpr int LD = DK + 1;    // padded shared row: conflict-free column reads
-constexpr int KMAX = 128;
 constexpr int MERGE_THREADS = 256;
-constexpr float BIG = 3.0e38f;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ bool key_less(float va, int ia, float vb, int ib) {
-  return va < vb || (va == vb && ia < ib);
-}
 
 // One column's distance from its cross term, in the TPU kernel's op order
 // (explicit round-to-nearest intrinsics: no contraction into FMAs).
@@ -199,36 +196,7 @@ k1_partial(const float* __restrict__ q, const float* __restrict__ qq,
                            (v < d2p || (v == d2p && n < pq));
           hits += __popc(__ballot_sync(FULL, hit));
         }
-        unsigned m = __ballot_sync(
-            FULL, valid && key_less(v, n, tv[base + k - 1], ti[base + k - 1]));
-        while (m) {
-          const int src = __ffs(m) - 1;
-          m &= m - 1;
-          const float cv = __shfl_sync(FULL, v, src);
-          const int ci = __shfl_sync(FULL, n, src);
-          if (!key_less(cv, ci, tv[base + k - 1], ti[base + k - 1])) continue;
-          int p = 0;  // insertion position: entries ordered before (cv, ci)
-          for (int j0 = 0; j0 < k; j0 += 32) {
-            const int j = j0 + lane;
-            p += __popc(__ballot_sync(
-                FULL, j < k && key_less(tv[base + j], ti[base + j], cv, ci)));
-          }
-          float nv[KMAX / 32];
-          int ni[KMAX / 32];
-#pragma unroll
-          for (int u = 0; u < KMAX / 32; ++u) {
-            const int j = lane + 32 * u;
-            if (j < k && j > p) { nv[u] = tv[base + j - 1]; ni[u] = ti[base + j - 1]; }
-          }
-          __syncwarp();
-#pragma unroll
-          for (int u = 0; u < KMAX / 32; ++u) {
-            const int j = lane + 32 * u;
-            if (j < k && j > p) { tv[base + j] = nv[u]; ti[base + j] = ni[u]; }
-            if (j == p) { tv[base + j] = cv; ti[base + j] = ci; }
-          }
-          __syncwarp();
-        }
+        topk::warp_offer(tv + base, ti + base, k, v, n, valid);
       }
       if (lane == 0) rs[qr] += hits;
     }
@@ -252,23 +220,15 @@ k1_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
          const int* __restrict__ part_r, int S, int k, int N,
          int* __restrict__ ranks, float* __restrict__ vals,
          int* __restrict__ idx, int* __restrict__ exact) {
-  __shared__ float wv[MERGE_THREADS / 32];
-  __shared__ int wi[MERGE_THREADS / 32];
   __shared__ int wr[MERGE_THREADS / 32];
-  __shared__ float prev_v;
-  __shared__ int prev_i;
 
   const int qi = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int M = S * k;
-  const float* pv = part_v + static_cast<size_t>(qi) * M;
-  const int* pi = part_i + static_cast<size_t>(qi) * M;
 
   int r = 0;
   for (int e = tid; e < S; e += MERGE_THREADS) r += part_r[static_cast<size_t>(qi) * S + e];
   for (int off = 16; off > 0; off >>= 1) r += __shfl_down_sync(FULL, r, off);
   if (lane == 0) wr[warp] = r;
-  if (tid == 0) { prev_v = -INFINITY; prev_i = INT32_MIN; }
   __syncthreads();
   if (tid == 0) {
     int total = 0;
@@ -276,35 +236,11 @@ k1_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
     ranks[qi] = total;
     exact[qi] = 1;
   }
-
-  for (int j = 0; j < k; ++j) {
-    const float lv = prev_v;
-    const int li = prev_i;
-    float bv = INFINITY;
-    int bi = INT32_MAX;
-    for (int e = tid; e < M; e += MERGE_THREADS) {
-      const float v = pv[e];
-      const int i = pi[e];
-      if (key_less(lv, li, v, i) && key_less(v, i, bv, bi)) { bv = v; bi = i; }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(FULL, bv, off);
-      const int oi = __shfl_down_sync(FULL, bi, off);
-      if (key_less(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-    }
-    if (lane == 0) { wv[warp] = bv; wi[warp] = bi; }
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < MERGE_THREADS / 32; ++w)
-        if (key_less(wv[w], wi[w], bv, bi)) { bv = wv[w]; bi = wi[w]; }
-      if (bi == INT32_MAX) { bv = BIG; bi = N; }  // only sentinels remain
-      vals[static_cast<size_t>(qi) * k + j] = bv;
-      idx[static_cast<size_t>(qi) * k + j] = bi;
-      prev_v = bv;
-      prev_i = bi;
-    }
-    __syncthreads();
-  }
+  const size_t M = static_cast<size_t>(S) * k;
+  topk::merge_topk<MERGE_THREADS>(part_v + qi * M, part_i + qi * M,
+                                  static_cast<int>(M), k, N,
+                                  vals + static_cast<size_t>(qi) * k,
+                                  idx + static_cast<size_t>(qi) * k);
 }
 
 }  // namespace

@@ -1,0 +1,207 @@
+"""Int8-quantized retrieval with exact re-ranking.
+
+Counterpart of ``art_sbir_tpu/ops/quant.py``, with its contract:
+
+* Euclidean: ``d^2 = |q|^2 - 2 q.g + |g|^2``. The row norms ``|g|^2`` are
+  exact float32 sums taken at quantization time and ``|q|^2`` is
+  rank-constant, so only the cross term is approximated, as ``q.g ~= s_q *
+  s_g * (q8 . g8)`` with symmetric per-row scales ``s = max|x| / 127`` and
+  an exact integer sum of int8 products.
+* Cosine: rows are L2-normalized before quantization, so the same int8 dot
+  approximates the cosine similarity and ``-dot`` ranks like ``1 - sim``.
+* Candidates: the ``rerank_factor * k`` best rows by the approximate score
+  (the earlier index wins ties, as ``lax.top_k``), sorted by gallery index,
+  then re-ranked exactly on the gathered float32 rows with the library
+  row-wise distances and a stable sort, so exact-distance ties rank by
+  gallery index as on the exact route.
+
+The candidate scan runs through :mod:`art_sbir_tpu_torch.ops.quant_fused`:
+its plain version inside :func:`retrieve_quantized`, and K2 (CUDA) on the
+card inside :func:`retrieve_quantized_fused`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from art_sbir_tpu_torch.ops import quant_fused
+from art_sbir_tpu_torch.ops.distance import cosine_distance, euclidean_distance
+
+_METRICS = ("euclidean", "cosine")
+# The streamed route's largest candidate budget: the JAX package's, whose
+# kernel holds 8 * 128 candidates at its default depth
+R_CAP = 8 * 128
+
+
+class QuantGallery(NamedTuple):
+    """Int8 gallery + exact float32 row norms (euclidean) or zeros
+    (cosine)."""
+
+    q8: torch.Tensor       # (N, D) int8
+    scale: torch.Tensor    # (N,) float32 per-row symmetric scale
+    sq_norm: torch.Tensor  # (N,) float32 exact |g|^2 (zeros for cosine)
+    metric: str
+
+
+def _symmetric_quantize(rows: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rows,) -> (int8 rows, per-row scale), symmetric max-abs/127, round
+    half to even as ``jnp.round``."""
+    scale = torch.clamp(torch.amax(torch.abs(rows), dim=1), min=1e-12) / 127.0
+    q8 = torch.clamp(torch.round(rows / scale[:, None]), -127, 127)
+    return q8.to(torch.int8), scale
+
+
+def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=1, keepdim=True),
+                           min=1e-12)
+
+
+def quantize_gallery(gallery: torch.Tensor, metric: str = "euclidean"
+                     ) -> QuantGallery:
+    """Symmetric per-row int8 quantization; cosine pre-normalizes rows."""
+    if metric not in _METRICS:
+        raise ValueError(f"unknown metric {metric!r}; one of {_METRICS}")
+    with torch.no_grad():
+        g = gallery.float()
+        if metric == "cosine":
+            g = _l2_normalize(g)
+        q8, scale = _symmetric_quantize(g)
+        sq = (torch.sum(g * g, dim=1) if metric == "euclidean"
+              else torch.zeros(g.shape[0], dtype=torch.float32,
+                               device=g.device))
+    return QuantGallery(q8, scale, sq, metric)
+
+
+def _quantize_queries(qf: torch.Tensor, metric: str):
+    return _symmetric_quantize(_l2_normalize(qf) if metric == "cosine"
+                               else qf)
+
+
+def _quant_core(queries: torch.Tensor, g8: torch.Tensor,
+                g_scale: torch.Tensor, g_sq: torch.Tensor,
+                gallery_f32: torch.Tensor, *, metric: str, k: int, r: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain int8 scan: top-``r`` candidates by approximate score,
+    sorted by gallery index, then the exact rerank."""
+    with torch.no_grad():
+        qf = queries.float()
+        q8, s_q = _quantize_queries(qf, metric)
+        _, cand, _ = quant_fused.quant_candidates_reference(
+            q8, s_q, g8, g_scale, g_sq, r=r, metric=metric)
+        cand = torch.sort(cand, dim=1).values
+        return _rerank(qf, cand, gallery_f32, metric, k)
+
+
+def _rerank(qf, cand, gallery_f32, metric, k):
+    """Exact rerank of index-sorted candidates on gathered float32 rows
+    (stable argsort: ties by gallery index).
+
+    Gather FIRST, cast the (Q, R, D) rows after: casting a bf16-resident
+    gallery before the gather would materialize a full float32 copy of it
+    on every call."""
+    rows = gallery_f32[cand.long()].float()
+    qx = qf[:, None, :]  # un-normalized, like the exact path
+    if metric == "euclidean":
+        exact = euclidean_distance(qx, rows)
+    else:
+        exact = cosine_distance(qx, rows)
+    order = torch.argsort(exact, dim=1, stable=True)[:, :k]
+    return torch.gather(exact, 1, order), torch.gather(cand, 1, order)
+
+
+def retrieve_quantized(queries: torch.Tensor, qg: QuantGallery,
+                       gallery_f32: torch.Tensor, k: int = 10,
+                       rerank_factor: int = 8
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(top-k values, int32 indices): int8 candidate scan + exact float32
+    rerank. ``gallery_f32`` (float32 or bf16 rows) is used only for the
+    (Q, R, D) candidate gather, R = ``rerank_factor * k``. Values match the
+    exact path's contract (eps-folded distances / 1 - cos)."""
+    k = min(k, qg.q8.shape[0])
+    r = min(max(rerank_factor * k, k), qg.q8.shape[0])
+    return _quant_core(queries, qg.q8, qg.scale, qg.sq_norm, gallery_f32,
+                       metric=qg.metric, k=k, r=r)
+
+
+def retrieve_quantized_chunked(queries: torch.Tensor, qg: QuantGallery,
+                               gallery_f32: torch.Tensor, k: int = 10,
+                               rerank_factor: int = 8, chunk: int = 256
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Query-chunked :func:`retrieve_quantized`: each chunk materializes a
+    (chunk, N) approximate-score matrix instead of a (Q, N) one."""
+    nq = queries.shape[0]
+    if nq == 0:
+        ke = min(k, qg.q8.shape[0])
+        dev = qg.q8.device
+        return (torch.zeros((0, ke), dtype=torch.float32, device=dev),
+                torch.zeros((0, ke), dtype=torch.int32, device=dev))
+    outs = [retrieve_quantized(queries[i:i + chunk], qg, gallery_f32, k=k,
+                               rerank_factor=rerank_factor)
+            for i in range(0, nq, chunk)]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def retrieve_quantized_fused(queries: torch.Tensor, qg: QuantGallery,
+                             gallery_f32: torch.Tensor, k: int = 10,
+                             rerank_factor: int = 8,
+                             device_get: bool = False):
+    """Streamed int8 candidate scan (K2 on the card) + exact float32 rerank.
+
+    Same contract as :func:`retrieve_quantized`, with O(Q) state instead
+    of the (Q, N) approximate-score matrix, and at most ``R_CAP``
+    candidates. Rows whose certificate failed are recomputed with
+    :func:`retrieve_quantized`, padded to a power of two, and counted in
+    ``quant_fused.counters.fallback_rows``; K2 is exact by construction
+    and certifies every row. ``device_get=True`` returns numpy arrays."""
+    n = qg.q8.shape[0]
+    k = min(k, n)
+    r = min(max(rerank_factor * k, k), n, R_CAP)
+    with torch.no_grad():
+        qf = queries.float()
+        q8, s_q = _quantize_queries(qf, qg.metric)
+        _, cand, cert = quant_fused.quant_candidates_fused(
+            q8, s_q, qg.q8, qg.scale, qg.sq_norm, r=r, metric=qg.metric)
+        cand = torch.sort(cand, dim=1).values
+        vals, idx = _rerank(qf, cand, gallery_f32, qg.metric, k)
+    if device_get:
+        vals, idx, cert_h = (t.cpu().numpy() for t in (vals, idx, cert))
+    else:
+        cert_h = cert.cpu().numpy()
+    if cert_h.all():
+        return vals, idx
+    bad = np.nonzero(cert_h == 0)[0]
+    nbad = len(bad)
+    quant_fused.counters.add(fallback_rows=nbad)
+    pad = 1 << (nbad - 1).bit_length() if nbad > 1 else 1
+    pad = min(pad, qf.shape[0])
+    sel = np.pad(bad, (0, pad - nbad), mode="edge")
+    vb, ib = retrieve_quantized(
+        queries[torch.as_tensor(sel, device=queries.device)], qg,
+        gallery_f32, k=k, rerank_factor=rerank_factor)
+    if device_get:
+        vals[bad] = vb[:nbad].cpu().numpy()
+        idx[bad] = ib[:nbad].cpu().numpy()
+        return vals, idx
+    bad_t = torch.as_tensor(bad, device=vals.device)
+    vals[bad_t] = vb[:nbad]
+    idx[bad_t] = ib[:nbad]
+    return vals, idx
+
+
+def retrieve_quantized_sharded(*args, **kwargs):
+    raise NotImplementedError(
+        "the sharded int8 route (gallery rows over several cards) is still "
+        "to port (ROADMAP.md)")
+
+
+def topk_overlap(idx_a, idx_b) -> float:
+    """Mean per-query overlap |A ∩ B| / k between two (Q, k) index sets —
+    the recall-quality metric for approximate modes."""
+    a, b = (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            for x in (idx_a, idx_b))
+    inter = [len(set(ra) & set(rb)) for ra, rb in zip(a, b)]
+    return float(np.mean(inter)) / a.shape[1]

@@ -1,0 +1,151 @@
+"""K2: the streaming int8 candidate scan.
+
+Counterpart of ``quant_candidates_fused`` and ``_quant_jit`` in
+``art_sbir_tpu/ops/retrieval_pallas.py`` (the TPU kernel
+``_quant_kernel``). The kernel is hand-written CUDA for Hopper,
+``csrc/quant_candidates.cu``; its note says what bounds it. It is compiled
+with ``nvcc`` at first use into ``art_sbir_tpu_torch/_build/`` and loaded
+with ``ctypes`` (:mod:`art_sbir_tpu_torch.core.cuda_build`).
+
+Contract: for each query, the ``r`` gallery rows with the smallest
+approximate score of :func:`art_sbir_tpu_torch.ops.quant._quant_core`,
+``g_sq - 2 * float(q8 . g8) * (s_q * g_scale)`` (euclidean) or ``-float(q8
+. g8) * (s_q * g_scale)`` (cosine), as (scores, int32 indices) ascending by
+(score, index): among equal scores the smaller index wins, as in
+``lax.top_k``. The third output is the per-row certificate of the TPU
+kernel; both routes here are exact by construction and return ones.
+
+:func:`quant_candidates_fused` runs the plain PyTorch version for tensors
+on the CPU and the CUDA kernel for tensors on the card; there is no
+fallback between them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from art_sbir_tpu_torch.core.cuda_build import (CudaKernel, LaunchCounters,
+                                                grid_splits)
+
+R_MAX = 128  # the CUDA kernel's candidate budget
+F32_EXACT_DIM = 1040  # D * 127**2 < 2**24: a float32 sum of int8 products is exact
+_TQ = 32  # queries per block; csrc/quant_candidates.cu TQ
+_TN = 128  # gallery rows per tile; csrc/quant_candidates.cu TN
+_VEC = 16  # bytes per staging load; csrc/quant_candidates.cu VEC
+_METRICS = {"euclidean": 0, "cosine": 1}
+
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = CudaKernel("quant_candidates", "k2_quant_candidates",
+                    [_ptr] * 5 + [_i32] * 6 + [_ptr] * 5 + [_ptr], label="K2")
+counters = LaunchCounters()
+
+
+def int8_cross(q8: torch.Tensor, g8: torch.Tensor) -> torch.Tensor:
+    """(Q, D) x (N, D) int8 -> (Q, N) exact cross term ``q8 . g8``.
+
+    On the CPU an int32 matrix product. On the card ``torch.matmul`` has
+    no integer path (and ``torch._int_mm`` wants more than 16 rows), so
+    the product runs in float32, which is exact while D * 127^2 < 2^24;
+    a wider D raises rather than rounds."""
+    if q8.device.type == "cpu":
+        return q8.int() @ g8.int().T
+    if q8.shape[1] > F32_EXACT_DIM:
+        raise ValueError(
+            f"D={q8.shape[1]} > {F32_EXACT_DIM}: a float32 sum of int8 "
+            "products would round; the int8 scan on the card takes D <= "
+            f"{F32_EXACT_DIM}")
+    return q8.float() @ g8.float().T
+
+
+def approx_scores(q8, s_q, g8, g_scale, g_sq, metric: str) -> torch.Tensor:
+    """(Q, N) approximate scores in ``_quant_core``'s float32 op order."""
+    dot = int8_cross(q8, g8).float() * (s_q[:, None] * g_scale[None, :])
+    if metric == "euclidean":
+        return g_sq[None, :] - 2.0 * dot  # |q|^2 is rank-constant
+    return -dot  # 1 - sim ranks like -sim
+
+
+def quant_candidates_reference(q8, s_q, g8, g_scale, g_sq, *, r: int,
+                               metric: str):
+    """Plain PyTorch version (the CPU route, and the card's yardstick for
+    the kernel): (scores (Q, r), indices (Q, r) int32, ones (Q,) int32),
+    ascending by (score, index)."""
+    approx = approx_scores(q8, s_q, g8, g_scale, g_sq, metric)
+    vals, order = torch.sort(approx, dim=1, stable=True)
+    ones = torch.ones(q8.shape[0], dtype=torch.int32, device=q8.device)
+    return vals[:, :r], order[:, :r].to(torch.int32), ones
+
+
+def quant_candidates_cuda(q8, s_q, g8, g_scale, g_sq, *, r: int, metric: str):
+    """Launch K2 on the card. ``q8`` (Q, D) and ``g8`` (N, D) int8, 16-byte
+    aligned with D % 16 == 0; ``s_q`` (Q,), ``g_scale`` and ``g_sq`` (N,)
+    float32; all contiguous on one CUDA device; 1 <= r <= min(128, N)."""
+    dev = g8.device
+    nq, d = q8.shape
+    n = g8.shape[0]
+    f32, i32, i8 = torch.float32, torch.int32, torch.int8
+    for name, t, dtype, shape in (
+            ("q8", q8, i8, (nq, d)), ("s_q", s_q, f32, (nq,)),
+            ("g8", g8, i8, (n, d)), ("g_scale", g_scale, f32, (n,)),
+            ("g_sq", g_sq, f32, (n,))):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"K2 input {name}: want contiguous {dtype} {shape} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if d % _VEC or q8.data_ptr() % _VEC or g8.data_ptr() % _VEC:
+        raise ValueError(f"K2 reads 16-byte rows: D={d} must be a multiple "
+                         "of 16 and q8, g8 16-byte aligned")
+    if r > R_MAX:
+        raise NotImplementedError(
+            f"K2 on the card takes r <= {R_MAX}, got r={r}; a larger "
+            "candidate budget is still to port (ROADMAP.md)")
+    if not 1 <= r <= n:
+        raise ValueError(f"K2 takes 1 <= r <= N={n}, got {r}")
+    vals = torch.empty((nq, r), dtype=f32, device=dev)
+    idx = torch.empty((nq, r), dtype=i32, device=dev)
+    exact = torch.empty(nq, dtype=i32, device=dev)
+    if nq == 0:
+        return vals, idx, exact
+    s = grid_splits(-(-nq // _TQ), -(-n // _TN), dev)
+    part_v = torch.empty((nq, s, r), dtype=f32, device=dev)
+    part_i = torch.empty((nq, s, r), dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        KERNEL.launch(q8.data_ptr(), s_q.data_ptr(), g8.data_ptr(),
+                      g_scale.data_ptr(), g_sq.data_ptr(), nq, n, d, r,
+                      _METRICS[metric], s, part_v.data_ptr(),
+                      part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                      exact.data_ptr(), stream)
+    counters.add(launches=1)
+    return vals, idx, exact
+
+
+def kernel_takes(device: torch.device, r: int, dim: int) -> bool:
+    """Whether K2 runs for a gallery on ``device`` with ``r`` candidates
+    per query and ``dim`` columns: on the card, r <= 128 and 16-byte
+    rows. The serving engine routes by it."""
+    return device.type == "cuda" and r <= R_MAX and dim % _VEC == 0
+
+
+def quant_candidates_fused(q8, s_q, g8, g_scale, g_sq, r: int,
+                           metric: str = "euclidean"):
+    """(approx_scores, cand_idx, exact): each row's ``r`` best gallery
+    indices by the int8 approximate score.
+
+    Inputs are pre-quantized (``ops.quant.quantize_gallery`` /
+    ``_symmetric_quantize``)."""
+    if metric not in _METRICS:
+        raise ValueError(f"unknown metric {metric!r} (euclidean|cosine)")
+    n = g8.shape[0]
+    if r > n:
+        raise ValueError(f"r={r} exceeds gallery size {n}")
+    if g8.device.type == "cpu":
+        return quant_candidates_reference(q8, s_q, g8, g_scale, g_sq, r=r,
+                                          metric=metric)
+    if g8.device.type == "cuda":
+        return quant_candidates_cuda(q8, s_q, g8, g_scale, g_sq, r=r,
+                                     metric=metric)
+    raise ValueError(f"K2 has no route for device {g8.device}")

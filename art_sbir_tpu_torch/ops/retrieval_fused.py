@@ -34,17 +34,13 @@ certificate contract all the same and recomputes flagged rows with
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from art_sbir_tpu_torch.core.cuda_build import (CudaKernel, LaunchCounters,
+                                                grid_splits)
 from art_sbir_tpu_torch.core.device import ieee_f32
 from art_sbir_tpu_torch.ops.distance import (COSINE_EPS, PAIRWISE_EPS,
                                              retrieve_chunked)
@@ -53,88 +49,12 @@ BIG = 3.0e38  # sentinel value: worse than any distance
 K_MAX = 128
 _TQ = 32  # queries per block; csrc/fused_retrieval.cu TQ
 _TN = 128  # gallery rows per tile; csrc/fused_retrieval.cu TN
-_BLOCKS_PER_SM = 4  # gallery splits fill the card this many blocks deep
-
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "fused_retrieval.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _METRICS = {"euclidean": 0, "cosine": 1}
 
-
-class LaunchCounters:
-    """Plain integer counts: ``launches`` of the CUDA kernel and
-    ``fallback_rows`` recomputed by the exact route after a failed
-    certificate. Thread-safe (the micro-batcher and HTTP handler threads
-    both search)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.launches = 0
-        self.fallback_rows = 0
-
-    def add(self, launches: int = 0, fallback_rows: int = 0) -> None:
-        with self._lock:
-            self.launches += launches
-            self.fallback_rows += fallback_rows
-
-    def reset(self) -> None:
-        with self._lock:
-            self.launches = 0
-            self.fallback_rows = 0
-
-
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = CudaKernel("fused_retrieval", "k1_fused_retrieval",
+                    [_ptr] * 5 + [_i32] * 7 + [_ptr] * 8 + [_ptr], label="K1")
 counters = LaunchCounters()
-
-
-# ------------------------------------------------------------------ build
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.is_file():
-        return str(cand)
-    raise RuntimeError("nvcc not found: K1 is compiled from "
-                       f"{SOURCE} on the machine with the card")
-
-
-def build_library() -> Path:
-    """Compile the kernel into ``_build/`` (once per source and flags) and
-    return the shared library's path. The compiler's report (registers,
-    shared memory, spills) is kept beside it as ``.log``."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libfused_retrieval_{digest}.so"
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
-_lib_lock = threading.Lock()
-_kernel_fn = None
-
-
-def _kernel():
-    global _kernel_fn
-    with _lib_lock:
-        if _kernel_fn is None:
-            fn = ctypes.CDLL(str(build_library())).k1_fused_retrieval
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [ptr] * 5 + [i32] * 7 + [ptr] * 8 + [ptr]
-            fn.restype = i32
-            _kernel_fn = fn
-        return _kernel_fn
 
 
 # ------------------------------------------------------------- the sweep
@@ -167,13 +87,6 @@ def fused_sweep_reference(q, qq, pos, g, gg, *, k: int, metric: str,
     return ranks, vals, idx, torch.ones(nq, dtype=torch.int32, device=d.device)
 
 
-def _splits(q_rows: int, n_rows: int, device: torch.device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_tiles = -(-q_rows // _TQ)
-    n_tiles = -(-n_rows // _TN)
-    return max(1, min(n_tiles, -(-_BLOCKS_PER_SM * sms // q_tiles)))
-
-
 def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
                      with_ranks: bool):
     """Launch K1 on the card. ``q`` (Q, D) and ``g`` (N, D) float32,
@@ -203,21 +116,19 @@ def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
     exact = torch.empty(nq, dtype=i32, device=dev)
     if nq == 0:
         return ranks, vals, idx, exact
-    s = _splits(nq, n, dev)
+    s = grid_splits(-(-nq // _TQ), -(-n // _TN), dev)
     d2pos = torch.empty(nq, dtype=f32, device=dev)
     part_v = torch.empty((nq, s, k), dtype=f32, device=dev)
     part_i = torch.empty((nq, s, k), dtype=i32, device=dev)
     part_r = torch.empty((nq, s), dtype=i32, device=dev)
-    fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), qq.data_ptr(), pos.data_ptr(), g.data_ptr(),
-                 gg.data_ptr(), nq, n, d, k, _METRICS[metric],
-                 int(with_ranks), s, d2pos.data_ptr(), part_v.data_ptr(),
-                 part_i.data_ptr(), part_r.data_ptr(), ranks.data_ptr(),
-                 vals.data_ptr(), idx.data_ptr(), exact.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+        KERNEL.launch(q.data_ptr(), qq.data_ptr(), pos.data_ptr(),
+                      g.data_ptr(), gg.data_ptr(), nq, n, d, k,
+                      _METRICS[metric], int(with_ranks), s, d2pos.data_ptr(),
+                      part_v.data_ptr(), part_i.data_ptr(), part_r.data_ptr(),
+                      ranks.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                      exact.data_ptr(), stream)
     counters.add(launches=1)
     return ranks, vals, idx, exact
 

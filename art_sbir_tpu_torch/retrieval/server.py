@@ -1,8 +1,8 @@
 """Serving engine: a resident gallery and micro-batched queries.
 
 Counterpart of ``art_sbir_tpu/retrieval/server.py`` (the exact route, the
-K1 route and capacity mode; the int8, IVF and IVF-PQ routes and the
-row-sharded gallery are still to port):
+K1 route, the int8 route and capacity mode; the IVF and IVF-PQ routes and
+the row-sharded gallery are still to port):
 
 * **Batch buckets.** Query batches are padded to powers of two up to
   ``max_batch`` and the pad rows' results are dropped.
@@ -12,7 +12,11 @@ row-sharded gallery are still to port):
   ``rank.FUSED_GALLERY_THRESHOLD`` rows streams each batch through the
   fused kernel K1 (:mod:`art_sbir_tpu_torch.ops.retrieval_fused`); smaller
   and capacity galleries take the exact route: ``pairwise_distance`` then
-  ``top_k`` under the live-row mask.
+  ``top_k`` under the live-row mask. ``quantize=True`` replaces both with
+  the int8 candidate scan and an exact rerank
+  (:mod:`art_sbir_tpu_torch.ops.quant`): through K2 wherever it runs (on
+  the card, at most 128 candidates, D a multiple of 16), else the plain
+  scan. The engine's ``route`` attribute names the route it took.
 * **Online updates** (``capacity=``): the gallery is a fixed-capacity
   buffer with a live-row mask. Adds and removals build a new
   (gallery, mask) pair and publish it under the engine lock, so a search
@@ -39,7 +43,11 @@ import torch
 
 from art_sbir_tpu_torch.core.device import resolve_device
 from art_sbir_tpu_torch.data.loader import decode_bytes
+from art_sbir_tpu_torch.ops import quant_fused
 from art_sbir_tpu_torch.ops.distance import pairwise_distance, top_k
+from art_sbir_tpu_torch.ops.quant import (quantize_gallery,
+                                          retrieve_quantized,
+                                          retrieve_quantized_fused)
 from art_sbir_tpu_torch.ops.retrieval_fused import (K_MAX, gallery_norms,
                                                     retrieve_fused)
 from art_sbir_tpu_torch.retrieval import rank
@@ -90,6 +98,11 @@ class RetrievalEngine:
     a per-modality-BN run passes an encoder with sketch-population running
     stats here while the gallery and ``/add`` rows keep ``forward_fn``.
     ``capacity``: enable online :meth:`add_images` / :meth:`remove`.
+    ``quantize``: int8 candidate scan + exact rerank over an immutable
+    gallery; ``rerank_factor * k_max`` candidates per query, re-ranked on
+    rows kept resident in ``rerank_dtype`` (``'bfloat16'`` halves them, at
+    bf16 rounding of the reported distances; candidate selection and the
+    rerank arithmetic are unchanged).
     ``device``: the card unless ``'cpu'`` is passed.
     """
 
@@ -98,6 +111,8 @@ class RetrievalEngine:
                  metric: str = "euclidean", image_size: int = 224,
                  resize_mode: str = "square", k_max: int = 10,
                  max_batch: int = 32, capacity: Optional[int] = None,
+                 quantize: bool = False, rerank_factor: int = 4,
+                 rerank_dtype: str = "float32",
                  query_forward_fn: Optional[Callable] = None,
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
@@ -137,14 +152,38 @@ class RetrievalEngine:
         self._next = n0  # next never-used slot
         self._free: List[int] = []  # tombstoned slots, reused by adds
 
-        # the JAX package's routing rule (see retrieval/rank.py)
-        self.use_fused = (capacity is None
-                          and metric in ("euclidean", "cosine")
-                          and rows >= rank.FUSED_GALLERY_THRESHOLD
-                          and self.k_max <= K_MAX)
+        # the search route: 'K1', 'exact', 'K2' or 'int8'. K1 follows the
+        # JAX package's rule (see retrieval/rank.py)
+        self.route = ("K1" if (capacity is None and not quantize
+                               and metric in ("euclidean", "cosine")
+                               and rows >= rank.FUSED_GALLERY_THRESHOLD
+                               and self.k_max <= K_MAX) else "exact")
         # the K1 route's gallery norms: the gallery never changes
-        self._gg = (gallery_norms(self.gallery, metric) if self.use_fused
-                    else None)
+        self._gg = (gallery_norms(self.gallery, metric)
+                    if self.route == "K1" else None)
+
+        self._qg = None
+        if rerank_dtype != "float32" and not quantize:
+            raise ValueError("rerank_dtype applies to quantize=True "
+                             "engines only")
+        if quantize:
+            if capacity is not None:
+                raise ValueError("quantize=True serves immutable indexes "
+                                 "only (no capacity mode)")
+            if rerank_dtype not in ("float32", "bfloat16"):
+                raise ValueError(f"rerank_dtype must be float32|bfloat16, "
+                                 f"got {rerank_dtype!r}")
+            self._qg = quantize_gallery(self.gallery, metric)
+            if rerank_dtype == "bfloat16":
+                self.gallery = self.gallery.to(torch.bfloat16)
+            self._rerank_factor = int(rerank_factor)
+            # K2 wherever it runs, whatever the gallery's size: on an H100
+            # its route beat the plain int8 scan's at every size measured
+            # from 50,000 rows up, and trailed it by under 0.1 ms at 10,000
+            # rows (PERF.md)
+            self.route = ("K2" if quant_fused.kernel_takes(
+                self.device, self._rerank_factor * self.k_max,
+                int(self.gallery.shape[1])) else "int8")
 
     # ------------------------------------------------------------ queries
 
@@ -184,7 +223,16 @@ class RetrievalEngine:
         with self._lock:  # a consistent (gallery, mask) pair
             gallery, mask = self.gallery, self._mask
         emb = self.embed_queries(self._pad(images_u8))
-        if self.use_fused:
+        if self.route == "K2":  # results + certificate pulled together
+            vals, idx = retrieve_quantized_fused(
+                emb, self._qg, gallery, k=self.k_max,
+                rerank_factor=self._rerank_factor, device_get=True)
+        elif self.route == "int8":
+            vals, idx = retrieve_quantized(
+                emb, self._qg, gallery, k=self.k_max,
+                rerank_factor=self._rerank_factor)
+            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        elif self.route == "K1":
             pos = torch.zeros(emb.shape[0], dtype=torch.int32,
                               device=self.device)  # unused when serving
             _, vals, idx = retrieve_fused(emb, gallery, pos, k=self.k_max,
@@ -275,7 +323,7 @@ class RetrievalEngine:
             gallery, mask = self.gallery, self._mask
             paths = list(self.image_paths)
         live = torch.nonzero(mask).flatten()
-        feats = gallery[live].cpu().numpy()
+        feats = gallery[live].float().cpu().numpy()  # numpy has no bf16
         return save_image_features(
             model_name, dataset_name, [paths[i] for i in live.tolist()],
             feats, root=root)

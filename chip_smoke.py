@@ -4,26 +4,41 @@
 
 Phases, each printing one JSON line:
 
-1. build    -- compile K1 (csrc/fused_retrieval.cu) with nvcc; the card's
-               name and power limit from nvidia-smi.
-2. kernels  -- K1 against its plain PyTorch version on the card
-               (D = 1024, k = 10, N in {100000, 100003}, Q in {1, 32, 512},
-               both metrics, ranks on and off, a case with duplicated
-               gallery rows), and K1's times at the serving shape.
-3. encoder  -- the full-width ModifiedResNet50 forward, bf16, batch 32 at
-               224 px: finite outputs, cosine similarity to float32 (TF32
-               off), images/s.
-4. serve    -- the serving path at full width: a 100,000 x 1024 feature
-               cache with 8 planted rows, ``cli/serve.py::build_engine``
-               on the card, warmup, then /healthz, 20 rounds of 8
-               concurrent /search and one /search_batch of 8 over HTTP
-               (then one dispatch under torch.profiler, outside the
-               counted run). Each top-1 must be its
-               planted row; K1 must have been launched and never fallen
-               back. K1's launch count in the kernels line comes from
-               this phase alone.
+1. build       -- compile K1 (csrc/fused_retrieval.cu) and K2
+                  (csrc/quant_candidates.cu) with nvcc, both at once; the
+                  card's name and power limit from nvidia-smi.
+2. kernels     -- K1 against its plain PyTorch version on the card
+                  (D = 1024, k = 10, N in {100000, 100003}, Q in {1, 32,
+                  512}, both metrics, ranks on and off, a case with
+                  duplicated gallery rows), and K1's times at the serving
+                  shape.
+3. kernels_k2  -- K2 against its plain version on the card, scores and
+                  indices bit-identical (D = 1024, N in {1000000,
+                  1000003}, Q in {1, 32, 512}, both metrics, r in {40,
+                  128}, and duplicated gallery rows that straddle the r-th
+                  candidate), K2 and the exact rerank on float32 and bf16
+                  rows against the plain int8 route, K2's times at the
+                  serving shape, and the engine's two int8 routes (K2's
+                  and the plain scan's) timed at 10,000 to 1,000,000 rows.
+4. encoder     -- the full-width ModifiedResNet50 forward, bf16, batch 32
+                  at 224 px: finite outputs, cosine similarity to float32
+                  (TF32 off), images/s.
+5. serve       -- the serving path at full width: a 100,000 x 1024 feature
+                  cache with 8 planted rows, ``cli/serve.py::build_engine``
+                  on the card, warmup, then /healthz, 20 rounds of 8
+                  concurrent /search and one /search_batch of 8 over HTTP
+                  (then one dispatch under torch.profiler, outside the
+                  counted run). Each top-1 must be its planted row; K1 must
+                  have been launched and never fallen back.
+6. serve_quant -- the same with ``--quantize`` over a 1,000,000 x 1024
+                  cache (500,000 rows only where the temporary directory
+                  cannot hold the larger one): the
+                  engine must take the K2 route, K2 must have been launched
+                  and never fallen back.
 
-Any failed check exits non-zero. The last line is
+Every kernel count is set to 0 just before each serve phase's requests and
+read just after them; the launch counts in the kernels line come from
+those runs alone. Any failed check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
 """
@@ -40,8 +55,11 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+H100_INT8_OP_PER_S = 1979e12  # int8 tensor cores, dense
 D, K = 1024, 10
 SERVE_N = 100_000
+QUANT_N = 1_000_000  # the int8 route's serving gallery
+R = 40  # K2's candidates at the serving engine's k_max 10, rerank_factor 4
 
 
 def emit(obj) -> None:
@@ -80,13 +98,19 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 # ------------------------------------------------------------------ build
 
 def phase_build(state) -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
+    from art_sbir_tpu_torch.ops import quant_fused as qf
     from art_sbir_tpu_torch.ops import retrieval_fused as rf
 
     t0 = time.perf_counter()
-    lib = rf.build_library()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+        libs = list(pool.map(lambda m: m.KERNEL.build(), (rf, qf)))
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {lib.name: [ln.strip() for ln in lib.with_suffix(".log")
+                        .read_text().splitlines()
+                        if "registers" in ln or "spill" in ln]
+             for lib in libs}
     import importlib.util
 
     import torch
@@ -94,9 +118,10 @@ def phase_build(state) -> None:
     state["card"] = card_line()
     state["pil"] = importlib.util.find_spec("PIL") is not None
     emit({"phase": "build", "ok": True, "nvcc_s": secs,
-          "library": lib.name, "ptxas": ptxas, "card": state["card"],
-          "python": sys.version.split()[0], "torch": torch.__version__,
-          "cuda": torch.version.cuda, "pil": state["pil"]})
+          "libraries": [lib.name for lib in libs], "ptxas": ptxas,
+          "card": state["card"], "python": sys.version.split()[0],
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "pil": state["pil"]})
 
 
 # ---------------------------------------------------------------- kernels
@@ -228,6 +253,170 @@ def phase_kernels(state) -> None:
           "gallery_norms_ms": gallery_norms_ms, "by_q": by_q})
 
 
+def _k2_inputs(g, q, metric, gen, near=None):
+    """Quantized gallery and queries for K2: random queries, or queries
+    within 0.01 of gallery row ``near``."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import quant
+
+    qg = quant.quantize_gallery(g, metric)
+    x = torch.randn((q, D), generator=gen, device="cuda")
+    if near is not None:
+        x = g[near] + 0.01 * x
+    q8, s_q = quant._quantize_queries(x, metric)
+    return q8, s_q, qg.q8, qg.scale, qg.sq_norm
+
+
+def _k2_compare(inputs, r, metric, what):
+    import torch
+
+    from art_sbir_tpu_torch.ops import quant_fused as qf
+
+    out = qf.quant_candidates_cuda(*inputs, r=r, metric=metric)
+    ref = qf.quant_candidates_reference(*inputs, r=r, metric=metric)
+    torch.cuda.synchronize()
+    check(bool(out[2].all()), f"K2 certificate ({what})")
+    check(torch.equal(out[1], ref[1]), f"K2 indices bit-identical ({what})")
+    check(torch.equal(out[0], ref[0]), f"K2 scores bit-identical ({what})")
+    return out, float((out[0] - ref[0]).abs().max())
+
+
+def phase_kernels_k2(state) -> None:
+    import torch
+
+    from art_sbir_tpu_torch.ops import quant
+    from art_sbir_tpu_torch.ops import quant_fused as qf
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases, max_err = [], 0.0
+    for n in (QUANT_N, QUANT_N + 3):
+        g = torch.randn((n, D), generator=gen, device="cuda")
+        for metric in ("euclidean", "cosine"):
+            for q in (1, 32, 512):
+                inputs = _k2_inputs(g, q, metric, gen)
+                for r in (R, 128):
+                    _, err = _k2_compare(inputs, r, metric,
+                                         f"{n} {metric} {q} {r}")
+                    max_err = max(max_err, err)
+                    cases.append([n, q, metric, r])
+                del inputs
+        del g
+    # duplicated rows: 64 equal copies of one row, spread over the gallery,
+    # are the queries' 64 best rows with equal scores; the r-th candidate
+    # falls among them, and the earlier indices must win
+    g = torch.randn((QUANT_N, D), generator=gen, device="cuda")
+    copies = torch.arange(64, device="cuda") * (QUANT_N // 64) + 7
+    g[copies] = g[7].clone()
+    for metric in ("euclidean", "cosine"):
+        inputs = _k2_inputs(g, 32, metric, gen, near=7)
+        for r in (R, 128):
+            out, err = _k2_compare(inputs, r, metric, f"ties {metric} {r}")
+            max_err = max(max_err, err)
+            want = copies[:min(r, 64)].to(torch.int32)
+            check(bool((out[1][:, :min(r, 64)] == want).all()),
+                  "K2 ties: the copies in index order, earlier first")
+            check(bool((out[0][:, :min(r, 64)] == out[0][:, :1]).all()),
+                  "K2 ties: the copies' scores are equal")
+            cases.append(["ties", 32, metric, r])
+        del inputs
+    del g
+
+    # the route around K2 on the card: queries near 32 gallery rows, K2 and
+    # the exact rerank on float32 and on bf16 rows, against the plain route
+    q, n = 32, QUANT_N
+    g = torch.randn((n, D), generator=gen, device="cuda")
+    rows = torch.randint(0, n, (q,), generator=gen, device="cuda")
+    x = g[rows] + 0.05 * torch.randn((q, D), generator=gen, device="cuda")
+    for metric in ("euclidean", "cosine"):
+        qg = quant.quantize_gallery(g, metric)
+        v0, i0 = quant.retrieve_quantized(x, qg, g, k=K, rerank_factor=4)
+        for rows_dtype in (torch.float32, torch.bfloat16):
+            v1, i1 = quant.retrieve_quantized_fused(
+                x, qg, g.to(rows_dtype), k=K, rerank_factor=4,
+                device_get=True)
+            check(bool((i1[:, 0] == rows.cpu().numpy()).all()),
+                  f"int8 route top-1 ({metric}, {rows_dtype})")
+            if rows_dtype == torch.float32:
+                check(np.array_equal(i1, i0.cpu().numpy())
+                      and np.array_equal(v1, v0.cpu().numpy()),
+                      f"K2 route equals the plain int8 route ({metric})")
+        del qg
+    cases.append(["route", q, "both", R])
+
+    # times at the serving shape: Q = 32, N = 1,000,000, r = 40, euclidean
+    inputs = _k2_inputs(g, q, "euclidean", gen)
+    q8, s_q, g8, g_scale, g_sq = inputs
+    kw = dict(r=R, metric="euclidean")
+    kernel_ms = time_ms(lambda: qf.quant_candidates_cuda(*inputs, **kw))
+    plain_ms = time_ms(lambda: qf.quant_candidates_reference(*inputs, **kw))
+
+    def library():  # int8 product, the score, then top-k
+        cross = torch._int_mm(q8, g8.t())
+        dot = cross.float() * (s_q[:, None] * g_scale[None, :])
+        return torch.topk(g_sq[None, :] - 2.0 * dot, R, largest=False)
+
+    library_ms = time_ms(library)
+    kernel_ms2 = time_ms(lambda: qf.quant_candidates_cuda(*inputs, **kw))
+    quantize_ms = time_ms(lambda: quant.quantize_gallery(g, "euclidean"),
+                          reps=3, warmup=1)
+
+    def bound(q, r):
+        nbytes = q * D + 4 * q + n * D + 8 * n + 8 * q * r + 4 * q
+        ops = 2 * q * n * D
+        return (1e3 * max(nbytes / H100_BYTES_PER_S, ops / H100_INT8_OP_PER_S),
+                "bytes" if nbytes / H100_BYTES_PER_S
+                >= ops / H100_INT8_OP_PER_S else "operations")
+
+    bound_ms, bound_by = bound(q, R)
+    state["k2"] = {
+        "name": "K2_quant_candidates", "route": "cuda",
+        "source": "art_sbir_tpu_torch/csrc/quant_candidates.cu",
+        "replaces": "art_sbir_tpu/ops/retrieval_pallas.py:704",
+        "max_abs_err": max_err, "ms": min(kernel_ms, kernel_ms2),
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms}
+    del inputs, q8, g8
+    # K2 at other batch buckets and candidate budgets, beside each bound
+    by_q = []
+    for q, r in ((1, R), (8, R), (32, 128), (512, R)):
+        inputs = _k2_inputs(g, q, "euclidean", gen)
+        ms = time_ms(lambda: qf.quant_candidates_cuda(
+            *inputs, r=r, metric="euclidean"))
+        by_q.append({"q": q, "r": r, "ms": ms, "bound_ms": bound(q, r)[0]})
+        del inputs
+    del g
+    # the engine's two int8 routes as a dispatch runs them (query
+    # quantization, candidates, exact rerank, results to the host): K2's
+    # and the plain scan's, at galleries from 10,000 rows up
+    by_n = []
+    for n in (10_000, 50_000, 100_000, 250_000, QUANT_N):
+        g = torch.randn((n, D), generator=gen, device="cuda")
+        qg = quant.quantize_gallery(g, "euclidean")
+        for q in (1, 32):
+            x = torch.randn((q, D), generator=gen, device="cuda")
+
+            def k2_route():
+                return quant.retrieve_quantized_fused(
+                    x, qg, g, k=K, rerank_factor=4, device_get=True)
+
+            def plain_route():
+                return [t.cpu().numpy() for t in quant.retrieve_quantized(
+                    x, qg, g, k=K, rerank_factor=4)]
+
+            a, b = k2_route(), plain_route()
+            check(np.array_equal(a[1], b[1]) and np.array_equal(a[0], b[0]),
+                  f"K2 route equals the plain int8 route ({n} rows, Q={q})")
+            by_n.append({"n": n, "q": q, "k2_route_ms": time_ms(k2_route),
+                         "plain_route_ms": time_ms(plain_route)})
+        del g, qg
+    emit({"phase": "kernels_k2", "ok": True, "cases": len(cases),
+          "case_rows": cases, "kernel_ms_runs": [kernel_ms, kernel_ms2],
+          **{k: v for k, v in state["k2"].items() if k.endswith("ms")},
+          "bound_by": bound_by, "quantize_gallery_ms": quantize_ms,
+          "by_q": by_q, "routes_by_n": by_n})
+
+
 # ---------------------------------------------------------------- encoder
 
 def phase_encoder(state) -> None:
@@ -291,7 +480,50 @@ def _post(port: int, path: str, body: dict) -> dict:
         return json.loads(r.read())
 
 
+def _counters():
+    """The launch counters of every kernel, by the route that runs it."""
+    from art_sbir_tpu_torch.ops import quant_fused as qf
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
+
+    return {"K1": rf.counters, "K2": qf.counters}
+
+
+def _gallery_features(n: int, planted: np.ndarray, seed: int):
+    """(n, D) float32 rows with the planted rows' mean and spread, and the
+    planted rows at ``slots``. Rows past 100,000 are drawn on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if n <= SERVE_N:
+        feats = rng.standard_normal((n, D), dtype=np.float32)
+        feats = feats * planted.std() + planted.mean()
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        feats = torch.randn((n, D), generator=gen, device="cuda")
+        feats = (feats * float(planted.std())
+                 + float(planted.mean())).cpu().numpy()
+    slots = rng.choice(n, 8, replace=False)
+    feats[slots] = planted
+    return feats, slots
+
+
 def phase_serve(state) -> None:
+    _serve(state, "serve", SERVE_N, route="K1", flags=[])
+
+
+def phase_serve_quant(state) -> None:
+    import shutil
+    import tempfile
+
+    # the float32 cache of QUANT_N rows is 4.2 GB on disk; where the
+    # temporary directory cannot hold it twice over, serve half as many
+    need = 2 * 4 * QUANT_N * D
+    n = (QUANT_N if shutil.disk_usage(tempfile.gettempdir()).free >= need
+         else QUANT_N // 2)
+    _serve(state, "serve_quant", n, route="K2", flags=["--quantize"])
+
+
+def _serve(state, phase: str, n_rows: int, route: str, flags: list) -> None:
     import base64
     import io
     import tempfile
@@ -303,12 +535,12 @@ def phase_serve(state) -> None:
 
     from art_sbir_tpu_torch.cli import serve
     from art_sbir_tpu_torch.models.resnet import create_encoder
-    from art_sbir_tpu_torch.ops import retrieval_fused as rf
     from art_sbir_tpu_torch.retrieval.embed import save_image_features
     from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
 
     sketches = _sketches(8)
     rounds = 20  # closed loop: 8 clients, each sends again on its answer
+    counters = _counters()
     with tempfile.TemporaryDirectory() as tmp:
         # planted rows: the embeddings of the 8 sketches by the same seeded
         # fresh init that build_engine serves when no checkpoint exists
@@ -317,23 +549,23 @@ def phase_serve(state) -> None:
             planted = enc(finish_gallery_batch(
                 torch.from_numpy(sketches).cuda())).cpu().numpy()
         del enc
-        rng = np.random.default_rng(0)
-        feats = rng.standard_normal((SERVE_N, D), dtype=np.float32)
-        feats = feats * planted.std() + planted.mean()
-        slots = rng.choice(SERVE_N, 8, replace=False)
-        feats[slots] = planted
-        paths = [f"gallery/{i:06d}.jpg" for i in range(SERVE_N)]
+        feats, slots = _gallery_features(n_rows, planted, seed=0)
+        paths = [f"gallery/{i:07d}.jpg" for i in range(n_rows)]
+        t0 = time.perf_counter()
         folder = save_image_features("ChipSmoke", "Random", paths, feats,
                                      root=tmp, timestamp="seed0")
+        save_s = time.perf_counter() - t0
         del feats
         args = serve.parse_args([
             "-f", "ModifiedResNet_ChipSmoke", "--features", folder,
             "--feature_root", tmp, "--results_root", tmp, "--models_root",
-            tmp, "--device", "cuda", "--window_ms", "5"])
+            tmp, "--device", "cuda", "--window_ms", "5", *flags])
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         engine, batcher = serve.build_engine(args)
         build_s = time.perf_counter() - t0
-        check(engine.use_fused, "a 100,000-row gallery takes the K1 route")
+        check(engine.route == route,
+              f"a {n_rows}-row gallery with {flags} takes the {route} route")
         t0 = time.perf_counter()
         serve.warmup(engine, batcher)
         warmup_s = time.perf_counter() - t0
@@ -355,11 +587,12 @@ def phase_serve(state) -> None:
         port = httpd.server_address[1]
         lat, tops, round_s = [], [], []
         try:
-            rf.counters.reset()  # the main path's run starts here
+            for c in counters.values():  # this path's run starts here
+                c.reset()
             with urllib.request.urlopen(
                     f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
                 health = json.loads(r.read())
-            check(health["gallery_size"] == SERVE_N, "/healthz gallery size")
+            check(health["gallery_size"] == n_rows, "/healthz gallery size")
             if state.get("pil", True):
                 from PIL import Image
 
@@ -412,10 +645,11 @@ def phase_serve(state) -> None:
                 tops += [paths[int(i)] for i in idx[:, 0]]
                 transport = "search_arrays from 8 threads (no PIL)"
             torch.cuda.synchronize()
-            launches = rf.counters.launches
-            fallback = rf.counters.fallback_rows
+            launches = {name: c.launches for name, c in counters.items()}
+            fallback = counters[route].fallback_rows
             engine.search_arrays = search_arrays
-            profile = _profile_dispatch(engine, sketches)
+            profile = _profile_dispatch(engine, sketches,
+                                        prefix=route.lower() + "_")
         finally:
             httpd.shutdown()
             httpd.server_close()
@@ -423,20 +657,22 @@ def phase_serve(state) -> None:
             server.join(timeout=10)
     want = [paths[s] for s in slots] * (rounds + 1)
     check(tops == want, "each top-1 is its planted row")
-    check(launches > 0, "K1 launched on the main path")
-    check(fallback == 0, "K1 never fell back")
-    state["serve_launches"] = launches
+    check(launches[route] > 0, f"{route} launched on the main path")
+    check(all(v == 0 for name, v in launches.items() if name != route),
+          f"no other kernel than {route} launched on this path")
+    check(fallback == 0, f"{route} never fell back")
+    state["launches"][route] = launches[route]
     n_req = 8 * rounds
     timed = dispatches[:n_timed]
     dispatch_ms = [1e3 * t for _, t in timed]
-    emit({"phase": "serve", "ok": True, "transport": transport,
-          "gallery": SERVE_N, "dim": D, "route": "K1", "clients": 8,
+    emit({"phase": phase, "ok": True, "transport": transport,
+          "gallery": n_rows, "dim": D, "route": route, "clients": 8,
           "requests": n_req, "failed": 0, "qps": n_req / wall,
           "p50_ms": 1e3 * float(np.median(lat)),
           "p90_ms": 1e3 * float(np.percentile(lat, 90)),
           "max_ms": 1e3 * max(lat),
           "mean_batch": float(np.mean([b for b, _ in timed])),
-          "batches": len(timed), "k1_launches": launches,
+          "batches": len(timed), "launches": launches,
           "fallback_rows": fallback,
           "round_ms_first5": [1e3 * r for r in round_s[:5]],
           "round_ms_max": 1e3 * max(round_s),
@@ -445,8 +681,10 @@ def phase_serve(state) -> None:
           "dispatch_share_of_wall": sum(t for _, t in timed) / wall,
           "search_batch_of_8_ms": search_batch_ms,
           "fresh_thread_dispatch_ms": thread_ms,
-          "build_engine_s": build_s, "warmup_s": warmup_s})
-    emit({"phase": "serve_profile", **profile})
+          "save_cache_s": save_s, "build_engine_s": build_s,
+          "warmup_s": warmup_s,
+          "peak_gpu_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    emit({"phase": phase + "_profile", **profile})
 
 
 def _fresh_thread_dispatch_ms(engine, images) -> list:
@@ -474,11 +712,12 @@ def _fresh_thread_dispatch_ms(engine, images) -> list:
     return out
 
 
-def _profile_dispatch(engine, sketches, reps: int = 3) -> dict:
+def _profile_dispatch(engine, sketches, prefix: str, reps: int = 3) -> dict:
     """Where one coalesced dispatch of 8 queries spends its time: wall
-    clock, summed device kernel time by name (torch.profiler), and the
-    share of the wall clock with the device idle. Runs after the counted
-    main path; its K1 launches are not counted there."""
+    clock, summed device kernel time by name (torch.profiler), the time of
+    the route's kernel (names starting ``prefix``), and the share of the
+    wall clock with the device idle. Runs after the counted main path; its
+    launches are not counted there."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -499,9 +738,9 @@ def _profile_dispatch(engine, sketches, reps: int = 3) -> dict:
                                + ev.self_device_time_total / 1e3 / reps)
     device_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    k1_ms = sum(v for k, v in kernels.items() if "k1_" in k)
+    kernel_ms = sum(v for k, v in kernels.items() if prefix in k)
     return {"batch": len(sketches), "wall_ms": 1e3 * wall,
-            "device_ms": device_ms, "k1_device_ms": k1_ms,
+            "device_ms": device_ms, f"{prefix}device_ms": kernel_ms,
             "device_idle_share": max(0.0, 1 - device_ms / (1e3 * wall)),
             "kernels_seen": len(kernels),
             "top_device_ms": [[k[:60], v] for k, v in top]}
@@ -521,10 +760,13 @@ def main(argv=None) -> int:
         return 1
     import art_sbir_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    state = {}
-    for phase in (phase_build, phase_kernels, phase_encoder, phase_serve):
+    state = {"launches": {}}
+    for phase in (phase_build, phase_kernels, phase_kernels_k2,
+                  phase_encoder, phase_serve, phase_serve_quant):
         phase(state)
-    emit({"kernels": [{**state["k1"], "launches": state["serve_launches"]}]})
+    emit({"kernels": [{**state[name.lower()],
+                       "launches": state["launches"][name]}
+                      for name in ("K1", "K2")]})
     print(state["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

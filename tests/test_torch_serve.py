@@ -10,6 +10,14 @@
   the size of the terms whose cancellation gives a small distance; cosine
   at rtol 1e-5. Capacity adds, removals and tombstones move the same
   slots;
+* the int8 route (``quantize=True``): the plain int8 scan and the K2 route
+  (forced by lowering ``QUANT_FUSED_GALLERY_THRESHOLD`` in the JAX package
+  and by patching ``quant_fused.kernel_takes`` in the port, whose CPU
+  engines take the plain scan) return the same paths as the JAX engine,
+  distances at rtol 1e-6 (cosine
+  with an absolute 1e-6: ``1 - sim`` of a near match cancels against 1);
+  bf16-resident rerank rows give the same results in both packages, and a
+  bf16 engine saves the same cache bytes as the JAX engine;
 * the feature cache: byte-compatible in both directions;
 * ``cli/serve.py`` over HTTP with ``--device cpu``, including the two
   faults of the JAX CLI that the port does not carry over.
@@ -39,6 +47,7 @@ import art_sbir_tpu_torch.retrieval.rank as port_rank
 from art_sbir_tpu_torch.cli import serve as port_serve
 from art_sbir_tpu_torch.core.checkpoint import save_state_dict
 from art_sbir_tpu_torch.data.loader import decode_bytes, decode_image
+from art_sbir_tpu_torch.ops import quant_fused as qf
 from art_sbir_tpu_torch.ops import resize as port_resize
 from art_sbir_tpu_torch.ops import retrieval_fused as rf
 from art_sbir_tpu_torch.retrieval import embed as port_embed
@@ -159,7 +168,7 @@ def test_embed_batched_matches_jax(data):
 def test_exact_route_matches_jax_engine(data, metric):
     _, queries, _, _ = data
     jax_eng, port_eng = _engines(data, metric=metric)
-    assert not jax_eng.use_fused and not port_eng.use_fused
+    assert not jax_eng.use_fused and port_eng.route == "exact"
     _assert_same_search(jax_eng, port_eng, queries[[2, 9, 4]])  # bucket 4
     _assert_same_search(jax_eng, port_eng, queries[:8])
 
@@ -170,7 +179,7 @@ def test_k1_route_matches_jax_engine(data, monkeypatch, metric):
     monkeypatch.setattr(jax_rank, "FUSED_GALLERY_THRESHOLD", 1)
     monkeypatch.setattr(port_rank, "FUSED_GALLERY_THRESHOLD", 1)
     jax_eng, port_eng = _engines(data, metric=metric)
-    assert jax_eng.use_fused and port_eng.use_fused
+    assert jax_eng.use_fused and port_eng.route == "K1"
     before = rf.counters.fallback_rows
     v, i = _assert_same_search(jax_eng, port_eng, queries[[3, 11, 30]])
     assert list(i[:, 0]) == [3, 11, 30]
@@ -178,10 +187,107 @@ def test_k1_route_matches_jax_engine(data, monkeypatch, metric):
     # the K1 route agrees with the port's own exact route
     monkeypatch.setattr(port_rank, "FUSED_GALLERY_THRESHOLD", 10 ** 9)
     plain = _engines(data, metric=metric)[1]
-    assert not plain.use_fused
+    assert plain.route == "exact"
     v2, i2 = plain.search_arrays(queries[[3, 11, 30]])
     np.testing.assert_array_equal(i2, i)
     _assert_same_distances(v2, v, metric, 2 * S * S * 3)
+
+
+def _assert_same_quant_search(jax_eng, port_eng, batch):
+    v0, i0 = jax_eng.search_arrays(batch)
+    v1, i1 = port_eng.search_arrays(batch)
+    np.testing.assert_array_equal(i1, i0)
+    np.testing.assert_allclose(
+        v1, v0, rtol=1e-6, atol=1e-6 if port_eng.metric == "cosine" else 0.0)
+    return v1, i1
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_quantized_route_matches_jax_engine(data, metric):
+    _, queries, _, _ = data
+    jax_eng, port_eng = _engines(data, metric=metric, quantize=True)
+    assert jax_eng._qg is not None and not jax_eng._quant_fused
+    assert port_eng._qg is not None and port_eng._rerank_factor == 4
+    assert port_eng.route == "int8"
+    _, i = _assert_same_quant_search(jax_eng, port_eng, queries[[2, 9, 4]])
+    assert list(i[:, 0]) == [2, 9, 4]
+    _assert_same_quant_search(jax_eng, port_eng, queries[:8])
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_k2_route_matches_jax_engine(data, monkeypatch, metric):
+    _, queries, _, _ = data
+    monkeypatch.setattr(jax_rank, "QUANT_FUSED_GALLERY_THRESHOLD", 1)
+    monkeypatch.setattr(qf, "kernel_takes", lambda *a: True)
+    jax_eng, port_eng = _engines(data, metric=metric, quantize=True)
+    assert jax_eng._quant_fused and port_eng.route == "K2"
+    before = qf.counters.fallback_rows
+    v, i = _assert_same_quant_search(jax_eng, port_eng, queries[[3, 11, 30]])
+    assert list(i[:, 0]) == [3, 11, 30]
+    assert qf.counters.fallback_rows == before
+    # the K2 route agrees with the port's own plain int8 route
+    monkeypatch.setattr(qf, "kernel_takes", lambda *a: False)
+    plain = _engines(data, metric=metric, quantize=True)[1]
+    assert plain.route == "int8"
+    v2, i2 = plain.search_arrays(queries[[3, 11, 30]])
+    np.testing.assert_array_equal(i2, i)
+    np.testing.assert_array_equal(v2, v)
+
+
+def test_k2_route_needs_a_small_candidate_budget(data, monkeypatch):
+    """K2 takes a gallery on the card with rerank_factor * k_max <= 128
+    candidates and 16-byte rows, whatever its size; the engine asks it
+    with its own device, budget and width."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert qf.kernel_takes(cuda, 4 * 32, 1024)
+    assert not qf.kernel_takes(cuda, 4 * 33, 1024)
+    assert not qf.kernel_takes(cuda, 40, 1000)
+    assert not qf.kernel_takes(cpu, 40, 1024)
+    seen = []
+    monkeypatch.setattr(qf, "kernel_takes",
+                        lambda *a: seen.append(a) or False)
+    _, _, feats, paths = data
+    PortEngine(_port_forward, feats, paths, k_max=33, rerank_factor=4,
+               image_size=S, quantize=True, device="cpu")
+    assert seen == [(torch.device("cpu"), 132, feats.shape[1])]
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_bf16_rerank_rows_match_jax_engine(data, metric):
+    _, queries, _, _ = data
+    jax_eng, port_eng = _engines(data, metric=metric, quantize=True,
+                                 rerank_dtype="bfloat16")
+    assert port_eng.gallery.dtype == torch.bfloat16
+    assert jax_eng.gallery.dtype == jnp.bfloat16
+    _assert_same_quant_search(jax_eng, port_eng, queries[[3, 8]])
+
+
+def test_bf16_engine_saves_the_jax_engines_cache(tmp_path, data):
+    _, _, feats, paths = data
+    jax_eng, port_eng = _engines(data, quantize=True,
+                                 rerank_dtype="bfloat16")
+    f0 = jax_eng.save(root=tmp_path / "jax")
+    f1 = port_eng.save(root=tmp_path / "port")
+    got_paths, got = port_embed.load_image_features(f1, tmp_path / "port")
+    assert [str(p) for p in got_paths] == paths and got.dtype == np.float32
+    want = torch.from_numpy(feats).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    for name in ("image_paths.csv", "image_features.npy"):
+        assert ((tmp_path / "jax" / f0 / name).read_bytes()
+                == (tmp_path / "port" / f1 / name).read_bytes())
+
+
+def test_quantize_validation_matches_jax(data):
+    _, _, feats, paths = data
+    for cls, fwd, extra in ((JaxEngine, _jax_forward, {}),
+                            (PortEngine, _port_forward, {"device": "cpu"})):
+        kw = dict(image_size=S, **extra)
+        with pytest.raises(ValueError, match="immutable"):
+            cls(fwd, feats, paths, capacity=64, quantize=True, **kw)
+        with pytest.raises(ValueError, match="rerank_dtype"):
+            cls(fwd, feats, paths, quantize=True, rerank_dtype="int8", **kw)
+        with pytest.raises(ValueError, match="quantize=True"):
+            cls(fwd, feats, paths, rerank_dtype="bfloat16", **kw)
 
 
 def test_capacity_add_remove_match_jax_engine(data):
@@ -382,6 +488,38 @@ def test_http_round_trip_on_cpu(tmp_path, capsys, monkeypatch):
     finally:
         httpd.shutdown()
         batcher.close()
+
+
+def test_quantize_flags(tmp_path):
+    """``--quantize``, ``--rerank_factor`` and ``--rerank_dtype``: the JAX
+    CLI's defaults and choices, passed on by ``build_engine``."""
+    args = port_serve.parse_args(["-f", "Run", "--features", "c"])
+    assert (args.quantize, args.rerank_factor, args.rerank_dtype) == (
+        False, 4, "float32")
+    args = port_serve.parse_args(["-f", "Run", "--features", "c",
+                                  "--quantize", "--rerank_factor", "2",
+                                  "--rerank_dtype", "bfloat16"])
+    assert (args.quantize, args.rerank_factor, args.rerank_dtype) == (
+        True, 2, "bfloat16")
+    with pytest.raises(SystemExit):
+        port_serve.parse_args(["-f", "Run", "--rerank_dtype", "int8"])
+    engine, batcher = port_serve.build_engine(_served_run(
+        tmp_path, capacity=None, quantize=True, rerank_factor=2,
+        rerank_dtype="bfloat16"))
+    try:
+        assert engine._qg is not None and engine._rerank_factor == 2
+        assert engine.gallery.dtype == torch.bfloat16
+        assert engine.route == "int8"
+        port_serve.warmup(engine, batcher)  # the int8 route per bucket
+        img = np.zeros((2, 32, 32, 3), np.uint8)
+        vals, idx = engine.search_arrays(img)
+        assert idx.shape == (2, 3) and np.isfinite(vals).all()
+    finally:
+        batcher.close()
+    engine, batcher = port_serve.build_engine(_served_run(
+        tmp_path / "plain", capacity=None))
+    batcher.close()
+    assert engine._qg is None and engine.gallery.dtype == torch.float32
 
 
 def test_folder_without_features_is_refused(tmp_path):
