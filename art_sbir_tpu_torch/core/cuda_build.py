@@ -28,6 +28,7 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BLOCKS_PER_SM = 4  # gallery splits fill the card this many blocks deep
+MAX_SPLITS = 1024  # the merges' run heads: 4 per thread x 256 threads
 
 
 class LaunchCounters:
@@ -75,7 +76,7 @@ class CudaKernel:
         self.name, self.symbol, self.label = name, symbol, label
         self.argtypes = list(argtypes)
         self._lock = threading.Lock()
-        self._fn = None
+        self._fns = {}
 
     def build(self) -> Path:
         """Compile into ``_build/`` (once per sources and flags) and return
@@ -99,22 +100,31 @@ class CudaKernel:
         os.replace(tmp, out)
         return out
 
-    def launch(self, *args) -> None:
-        """Call the C entry point (building it at first use); raise if the
-        launch was refused."""
+    def call(self, symbol: str, argtypes: Sequence, *args) -> None:
+        """Call the exported C function ``symbol`` (building the library at
+        first use); raise if it returns a CUDA error."""
         with self._lock:
-            if self._fn is None:
-                fn = getattr(ctypes.CDLL(str(self.build())), self.symbol)
-                fn.argtypes = self.argtypes
+            fn = self._fns.get(symbol)
+            if fn is None:
+                fn = getattr(ctypes.CDLL(str(self.build())), symbol)
+                fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
-                self._fn = fn
-        err = self._fn(*args)
+                self._fns[symbol] = fn
+        err = fn(*args)
         if err:
-            raise RuntimeError(f"{self.label} launch failed: CUDA error {err}")
+            raise RuntimeError(f"{self.label} {symbol} failed: CUDA error {err}")
+
+    def launch(self, *args) -> None:
+        """Call the C entry point; raise if the launch was refused."""
+        self.call(self.symbol, self.argtypes, *args)
 
 
-def grid_splits(q_tiles: int, n_tiles: int, device: torch.device) -> int:
+def grid_splits(q_tiles: int, n_tiles: int, device: torch.device,
+                per_sm: int = BLOCKS_PER_SM) -> int:
     """Gallery splits of a two-pass sweep: enough blocks to fill the card
-    ``BLOCKS_PER_SM`` deep, at most one split per gallery tile."""
+    ``BLOCKS_PER_SM`` deep, or ``per_sm`` deep where fewer blocks fit on an
+    SM at once, at most one split per gallery tile and at most
+    ``MAX_SPLITS``."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n_tiles, -(-BLOCKS_PER_SM * sms // q_tiles)))
+    per_sm = max(1, min(BLOCKS_PER_SM, per_sm))
+    return max(1, min(n_tiles, MAX_SPLITS, -(-per_sm * sms // q_tiles)))

@@ -23,23 +23,39 @@ fallback between them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from art_sbir_tpu_torch.core.cuda_build import (CudaKernel, LaunchCounters,
                                                 grid_splits)
 
-R_MAX = 128  # the CUDA kernel's candidate budget
+R_MAX = 1024  # the CUDA kernel's candidate budget, the JAX default's 8 * 128
+# The JAX serving engine takes its kernel only while r <= 128, the budget it
+# measured (art_sbir_tpu/retrieval/server.py:508-519); the port's engine
+# keeps that envelope
+ENGINE_R_MAX = 128
 F32_EXACT_DIM = 1040  # D * 127**2 < 2**24: a float32 sum of int8 products is exact
-_TQ = 32  # queries per block; csrc/quant_candidates.cu TQ
 _TN = 128  # gallery rows per tile; csrc/quant_candidates.cu TN
-_VEC = 16  # bytes per staging load; csrc/quant_candidates.cu VEC
+_VEC = 16  # bytes per staging load; D % 16 == 0
 _METRICS = {"euclidean": 0, "cosine": 1}
 
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("quant_candidates", "k2_quant_candidates",
                     [_ptr] * 5 + [_i32] * 6 + [_ptr] * 5 + [_ptr], label="K2")
 counters = LaunchCounters()
+
+
+@functools.lru_cache(maxsize=None)
+def _first_pass(r: int, device_index: int):
+    """(queries per block, blocks per SM) of K2's first pass for a budget
+    of ``r`` on the card ``device_index``, as the kernel's occupancy
+    reports them."""
+    tq, per_sm = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        KERNEL.call("k2_first_pass", [_i32] + [ctypes.POINTER(_i32)] * 2, r,
+                    ctypes.byref(tq), ctypes.byref(per_sm))
+    return tq.value, per_sm.value
 
 
 def int8_cross(q8: torch.Tensor, g8: torch.Tensor) -> torch.Tensor:
@@ -81,7 +97,7 @@ def quant_candidates_reference(q8, s_q, g8, g_scale, g_sq, *, r: int,
 def quant_candidates_cuda(q8, s_q, g8, g_scale, g_sq, *, r: int, metric: str):
     """Launch K2 on the card. ``q8`` (Q, D) and ``g8`` (N, D) int8, 16-byte
     aligned with D % 16 == 0; ``s_q`` (Q,), ``g_scale`` and ``g_sq`` (N,)
-    float32; all contiguous on one CUDA device; 1 <= r <= min(128, N)."""
+    float32; all contiguous on one CUDA device; 1 <= r <= min(1024, N)."""
     dev = g8.device
     nq, d = q8.shape
     n = g8.shape[0]
@@ -98,18 +114,15 @@ def quant_candidates_cuda(q8, s_q, g8, g_scale, g_sq, *, r: int, metric: str):
     if d % _VEC or q8.data_ptr() % _VEC or g8.data_ptr() % _VEC:
         raise ValueError(f"K2 reads 16-byte rows: D={d} must be a multiple "
                          "of 16 and q8, g8 16-byte aligned")
-    if r > R_MAX:
-        raise NotImplementedError(
-            f"K2 on the card takes r <= {R_MAX}, got r={r}; a larger "
-            "candidate budget is still to port (ROADMAP.md)")
-    if not 1 <= r <= n:
-        raise ValueError(f"K2 takes 1 <= r <= N={n}, got {r}")
+    if not 1 <= r <= min(n, R_MAX):
+        raise ValueError(f"K2 takes 1 <= r <= min(N={n}, {R_MAX}), got {r}")
     vals = torch.empty((nq, r), dtype=f32, device=dev)
     idx = torch.empty((nq, r), dtype=i32, device=dev)
     exact = torch.empty(nq, dtype=i32, device=dev)
     if nq == 0:
         return vals, idx, exact
-    s = grid_splits(-(-nq // _TQ), -(-n // _TN), dev)
+    tq, per_sm = _first_pass(r, dev.index)
+    s = grid_splits(-(-nq // tq), -(-n // _TN), dev, per_sm=per_sm)
     part_v = torch.empty((nq, s, r), dtype=f32, device=dev)
     part_i = torch.empty((nq, s, r), dtype=i32, device=dev)
     with torch.cuda.device(dev):
@@ -125,9 +138,10 @@ def quant_candidates_cuda(q8, s_q, g8, g_scale, g_sq, *, r: int, metric: str):
 
 def kernel_takes(device: torch.device, r: int, dim: int) -> bool:
     """Whether K2 runs for a gallery on ``device`` with ``r`` candidates
-    per query and ``dim`` columns: on the card, r <= 128 and 16-byte
-    rows. The serving engine routes by it."""
-    return device.type == "cuda" and r <= R_MAX and dim % _VEC == 0
+    per query and ``dim`` columns: on the card, r within the JAX engine's
+    envelope (``ENGINE_R_MAX``) and 16-byte rows. The serving engine routes
+    by it."""
+    return device.type == "cuda" and r <= ENGINE_R_MAX and dim % _VEC == 0
 
 
 def quant_candidates_fused(q8, s_q, g8, g_scale, g_sq, r: int,

@@ -1,10 +1,18 @@
 """K1: fused pairwise distance + rank-of-positive + top-k over the gallery.
 
-Counterpart of ``art_sbir_tpu/ops/retrieval_pallas.py`` (the f32
-``precision='highest'`` single-device form of ``_kernel``). The kernel is
-hand-written CUDA for Hopper, ``csrc/fused_retrieval.cu``; its note says
-what bounds it and how it is built. It is compiled with ``nvcc`` at first
-use into ``art_sbir_tpu_torch/_build/`` and loaded with ``ctypes``.
+Counterpart of ``art_sbir_tpu/ops/retrieval_pallas.py`` (the single-device
+forms of ``_kernel``: float32 operands under ``precision='highest'``, the
+bf16 gallery stream under ``'default'``). The kernel is hand-written CUDA
+for Hopper, ``csrc/fused_retrieval.cu``; its note says what bounds it and
+how it is built. It is compiled with ``nvcc`` at first use into
+``art_sbir_tpu_torch/_build/`` and loaded with ``ctypes``.
+
+Under ``'default'`` only the cross term sees bf16 operands: the queries
+and the gallery are rounded to bf16 (no copy for a gallery the caller
+already holds in bf16), their products are exact in float32 and summed in
+float32. The norms come from the caller's arrays in float32, as the TPU
+kernel's ``_prep_norms`` takes them before ``_sweep`` casts, so an
+engine's cached gallery norms serve both forms.
 
 Contract (as the TPU kernel's): squared eps-folded euclidean distances
 (``qq' = |q|^2 + 2 eps sum q + D eps^2``, ``gg' = |g|^2 - 2 eps sum g``,
@@ -21,7 +29,11 @@ chain), not from a separate elementwise sum, so a duplicate of the
 positive ties with it exactly, as in ``ops/distance.py::rank_of_positive``.
 On the CPU, ``torch.sum`` and ``torch.matmul`` round the same dot product
 differently, so an elementwise sum would miss such ties that the JAX
-package's kernel finds.
+package's kernel finds. Under ``'default'`` the rule is the same, so the
+positive's distance has bf16 operands like its column; the TPU kernel
+takes it from the float32 inputs. Ranks then agree where no other column
+lies within the bf16 rounding of the positive's distance (separated data),
+and may differ by a few columns where some do.
 
 :func:`fused_sweep` runs the plain PyTorch version for a tensor on the
 CPU and the CUDA kernel for a tensor on the card; there is no fallback
@@ -41,20 +53,28 @@ import torch
 
 from art_sbir_tpu_torch.core.cuda_build import (CudaKernel, LaunchCounters,
                                                 grid_splits)
-from art_sbir_tpu_torch.core.device import ieee_f32
 from art_sbir_tpu_torch.ops.distance import (COSINE_EPS, PAIRWISE_EPS,
-                                             retrieve_chunked)
+                                             _cross, retrieve_chunked)
 
 BIG = 3.0e38  # sentinel value: worse than any distance
 K_MAX = 128
-_TQ = 32  # queries per block; csrc/fused_retrieval.cu TQ
-_TN = 128  # gallery rows per tile; csrc/fused_retrieval.cu TN
+_TQ = 32  # queries per block; csrc/k1_sweep.cuh TQ
+_TN = 128  # gallery rows per tile; csrc/k1_sweep.cuh TN
 _METRICS = {"euclidean": 0, "cosine": 1}
+
+_OPERANDS = {"highest": torch.float32, "default": torch.bfloat16}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte load
 
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("fused_retrieval", "k1_fused_retrieval",
-                    [_ptr] * 5 + [_i32] * 7 + [_ptr] * 8 + [_ptr], label="K1")
-counters = LaunchCounters()
+                    [_ptr] * 5 + [_i32] * 8 + [_ptr] * 8 + [_ptr], label="K1")
+counters = LaunchCounters()  # the float32 form
+bf16_counters = LaunchCounters()  # the bf16 form
+
+
+def form_counters(dtype: torch.dtype) -> LaunchCounters:
+    """The launch counters of the form that takes operands of ``dtype``."""
+    return bf16_counters if dtype == torch.bfloat16 else counters
 
 
 # ------------------------------------------------------------- the sweep
@@ -64,8 +84,8 @@ def fused_sweep_reference(q, qq, pos, g, gg, *, k: int, metric: str,
     """Plain PyTorch version of the sweep (the CPU route, and the card's
     yardstick for the kernel). Inputs as :func:`fused_sweep_cuda`;
     returns (ranks (Q,), vals (Q, k), idx (Q, k), exact (Q,))."""
-    ieee_f32()
-    cross = q @ g.T
+    cross = _cross(q, g, "default" if g.dtype == torch.bfloat16
+                   else "highest")
     if metric == "euclidean":
         d = torch.clamp(qq + gg - 2.0 * cross, min=0.0)
     else:
@@ -89,25 +109,30 @@ def fused_sweep_reference(q, qq, pos, g, gg, *, k: int, metric: str,
 
 def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
                      with_ranks: bool):
-    """Launch K1 on the card. ``q`` (Q, D) and ``g`` (N, D) float32,
-    ``qq`` (Q, 1) float32, ``pos`` (Q, 1) int32, ``gg`` (1, N) float32;
-    all contiguous on one CUDA device, D % 4 == 0."""
+    """Launch K1 on the card. ``q`` (Q, D) and ``g`` (N, D) both float32
+    (the ``'highest'`` form) or both bf16 (the ``'default'`` form), ``qq``
+    (Q, 1) float32, ``pos`` (Q, 1) int32, ``gg`` (1, N) float32; all
+    contiguous on one CUDA device, q and g 16-byte aligned, D a multiple
+    of 4 (float32) or 8 (bf16)."""
     dev = g.device
     nq, d = q.shape
     n = g.shape[0]
-    f32, i32 = torch.float32, torch.int32
+    op, f32, i32 = g.dtype, torch.float32, torch.int32
+    if op not in _VEC:
+        raise ValueError(f"K1 takes float32 or bf16 operands, got {op}")
     for name, t, dtype, shape in (
-            ("q", q, f32, (nq, d)), ("qq", qq, f32, (nq, 1)),
+            ("q", q, op, (nq, d)), ("qq", qq, f32, (nq, 1)),
             ("pos", pos, i32, (nq, 1)),
-            ("g", g, f32, (n, d)), ("gg", gg, f32, (1, n))):
+            ("g", g, op, (n, d)), ("gg", gg, f32, (1, n))):
         if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(
                 f"K1 input {name}: want contiguous {dtype} {shape} on {dev}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if d % 4 or q.data_ptr() % 16 or g.data_ptr() % 16:
-        raise ValueError(f"K1 reads float4 rows: D={d} must be a multiple "
-                         "of 4 and q, g 16-byte aligned")
+    vec = _VEC[op]
+    if d % vec or q.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError(f"K1 reads 16-byte rows of {op}: D={d} must be a "
+                         f"multiple of {vec} and q, g 16-byte aligned")
     if not 1 <= k <= K_MAX:
         raise ValueError(f"K1 takes 1 <= k <= {K_MAX}, got {k}")
     ranks = torch.empty(nq, dtype=i32, device=dev)
@@ -125,11 +150,12 @@ def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL.launch(q.data_ptr(), qq.data_ptr(), pos.data_ptr(),
                       g.data_ptr(), gg.data_ptr(), nq, n, d, k,
-                      _METRICS[metric], int(with_ranks), s, d2pos.data_ptr(),
+                      _METRICS[metric], int(with_ranks),
+                      int(op == torch.bfloat16), s, d2pos.data_ptr(),
                       part_v.data_ptr(), part_i.data_ptr(), part_r.data_ptr(),
                       ranks.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                       exact.data_ptr(), stream)
-    counters.add(launches=1)
+    form_counters(op).add(launches=1)
     return ranks, vals, idx, exact
 
 
@@ -180,10 +206,9 @@ def gallery_norms(gallery, metric):
 
 
 def _check_precision(precision: str) -> None:
-    if precision != "highest":
-        raise NotImplementedError(
-            f"K1 precision={precision!r}: only the float32 'highest' form is "
-            "ported; the bf16 'default' stream is still to port (ROADMAP.md)")
+    if precision not in _OPERANDS:
+        raise ValueError(
+            f"unknown precision {precision!r} (highest|default)")
 
 
 def retrieve_fused_core(queries: torch.Tensor, gallery: torch.Tensor,
@@ -195,7 +220,8 @@ def retrieve_fused_core(queries: torch.Tensor, gallery: torch.Tensor,
     """One sweep: (ranks, topk_sq_values, topk_indices, exact).
     ``with_ranks=False`` skips the rank count and returns zero ranks (the
     serving path ranks nothing). ``gg``: the gallery's
-    :func:`gallery_norms` for ``metric``, computed here when absent."""
+    :func:`gallery_norms` for ``metric``, computed here when absent.
+    ``precision='default'`` streams bf16 operands (see the module note)."""
     _check_precision(precision)
     if k > gallery.shape[0]:
         raise ValueError(
@@ -208,8 +234,9 @@ def retrieve_fused_core(queries: torch.Tensor, gallery: torch.Tensor,
         if gg is None:
             gg = gallery_norms(gallery, metric)
         pos2d = pos_idx.to(torch.int32).reshape(-1, 1).contiguous()
-        return fused_sweep(queries.float().contiguous(), qq, pos2d,
-                           gallery.float().contiguous(), gg, k=k,
+        op = _OPERANDS[precision]
+        return fused_sweep(queries.to(op).contiguous(), qq, pos2d,
+                           gallery.to(op).contiguous(), gg, k=k,
                            metric=metric, with_ranks=with_ranks)
 
 
@@ -222,8 +249,11 @@ def retrieve_fused(queries: torch.Tensor, gallery: torch.Tensor,
 
     ``metric='euclidean'`` reports *squared* eps-folded distances (take
     sqrt for the exact route's values); ``'cosine'`` reports
-    ``1 - cos_sim``. Rows whose certificate failed are recomputed with
-    :func:`retrieve_chunked` and counted in ``counters.fallback_rows``.
+    ``1 - cos_sim``. ``precision``: ``'highest'`` (float32 operands) or
+    ``'default'`` (bf16 operands; pass a bf16 gallery to skip the per-call
+    cast). Rows whose certificate failed are recomputed with
+    :func:`retrieve_chunked` at the same precision and counted in the
+    form's ``fallback_rows`` (``counters`` or ``bf16_counters``).
     ``device_get=True`` returns numpy arrays. ``gg`` as in
     :func:`retrieve_fused_core`.
     """
@@ -238,7 +268,7 @@ def retrieve_fused(queries: torch.Tensor, gallery: torch.Tensor,
     if exact_h.all():
         return ranks, vals, idx
     bad = np.nonzero(exact_h == 0)[0]
-    counters.add(fallback_rows=len(bad))
+    form_counters(_OPERANDS[precision]).add(fallback_rows=len(bad))
     bad_t = torch.as_tensor(bad, device=queries.device)
     with torch.no_grad():
         rb, vb, ib = retrieve_chunked(

@@ -4,41 +4,57 @@
 
 Phases, each printing one JSON line:
 
-1. build       -- compile K1 (csrc/fused_retrieval.cu) and K2
-                  (csrc/quant_candidates.cu) with nvcc, both at once; the
-                  card's name and power limit from nvidia-smi.
-2. kernels     -- K1 against its plain PyTorch version on the card
-                  (D = 1024, k = 10, N in {100000, 100003}, Q in {1, 32,
-                  512}, both metrics, ranks on and off, a case with
-                  duplicated gallery rows), and K1's times at the serving
-                  shape.
+1. build       -- compile K1 (csrc/fused_retrieval.cu), K2
+                  (csrc/quant_candidates.cu) and P1 (csrc/fused_ablation.cu)
+                  with nvcc, all three at once; the card's name and power
+                  limit from nvidia-smi.
+2. kernels     -- K1 in both forms against its plain PyTorch version on
+                  the card (D = 1024, k = 10, N in {100000, 100003}, Q in
+                  {1, 32, 512}, both metrics, ranks on and off, a case with
+                  duplicated gallery rows; the bf16 form with the gallery
+                  passed as float32 and as bf16), and both forms' times at
+                  the serving shape.
 3. kernels_k2  -- K2 against its plain version on the card, scores and
                   indices bit-identical (D = 1024, N in {1000000,
                   1000003}, Q in {1, 32, 512}, both metrics, r in {40,
-                  128}, and duplicated gallery rows that straddle the r-th
-                  candidate), K2 and the exact rerank on float32 and bf16
-                  rows against the plain int8 route, K2's times at the
-                  serving shape, and the engine's two int8 routes (K2's
-                  and the plain scan's) timed at 10,000 to 1,000,000 rows.
-4. encoder     -- the full-width ModifiedResNet50 forward, bf16, batch 32
+                  128}, and r in {256, 512, 1024} at Q in {1, 32};
+                  duplicated gallery rows that straddle the r-th candidate
+                  at r = 40, 128 and 1024), K2 and the exact rerank on
+                  float32 and bf16 rows against the plain int8 route, K2's
+                  times at the serving shape and at r in {256, 512, 1024},
+                  the int8 route whole (K2's and the plain scan's) at the
+                  same r, and the engine's two int8 routes timed at 10,000
+                  to 1,000,000 rows.
+4. probe_k1    -- P1's three levels against their plain version (N =
+                  102,400, Q in {32, 512}, a d2pos with hits), then P1's
+                  levels and K1 in both forms on the probe's own inputs at
+                  its two shapes, the serving shape (Q = 32, N = 100,352)
+                  and an offline shape (Q = 512, N = 999,424), against
+                  their plain versions; then K1's ablation probe
+                  (``scripts/probe_fused_overhead.py``: P1's levels, K1 in
+                  both forms, the chunked plain route) at those shapes, 3
+                  rounds each, each time beside its bound.
+5. encoder     -- the full-width ModifiedResNet50 forward, bf16, batch 32
                   at 224 px: finite outputs, cosine similarity to float32
                   (TF32 off), images/s.
-5. serve       -- the serving path at full width: a 100,000 x 1024 feature
+6. serve       -- the serving path at full width: a 100,000 x 1024 feature
                   cache with 8 planted rows, ``cli/serve.py::build_engine``
                   on the card, warmup, then /healthz, 20 rounds of 8
                   concurrent /search and one /search_batch of 8 over HTTP
                   (then one dispatch under torch.profiler, outside the
                   counted run). Each top-1 must be its planted row; K1 must
                   have been launched and never fallen back.
-6. serve_quant -- the same with ``--quantize`` over a 1,000,000 x 1024
+7. serve_quant -- the same with ``--quantize`` over a 1,000,000 x 1024
                   cache (500,000 rows only where the temporary directory
                   cannot hold the larger one): the
                   engine must take the K2 route, K2 must have been launched
                   and never fallen back.
 
-Every kernel count is set to 0 just before each serve phase's requests and
-read just after them; the launch counts in the kernels line come from
-those runs alone. Any failed check exits non-zero. The last line is
+Every kernel count is set to 0 just before each serve phase's requests
+and before the probe's runs, and read just after them; the launch counts
+in the kernels line come from those runs alone: K1's float32 form's from
+``serve``, K2's from ``serve_quant``, K1's bf16 form's and P1's from the
+probe. Any failed check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
 """
@@ -56,10 +72,20 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
 H100_INT8_OP_PER_S = 1979e12  # int8 tensor cores, dense
+H100_BF16_FLOP_PER_S = 989e12  # bf16 tensor cores, dense
 D, K = 1024, 10
 SERVE_N = 100_000
 QUANT_N = 1_000_000  # the int8 route's serving gallery
 R = 40  # K2's candidates at the serving engine's k_max 10, rerank_factor 4
+R_WIDE = (256, 512, 1024)  # K2's budgets past the engine's envelope
+PROBE_SHAPES = ((32, 100_352), (512, 999_424))  # (Q, N) of the K1 probe
+
+
+def bound(nbytes: float, ops: float, op_rate: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / op_rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def emit(obj) -> None:
@@ -100,12 +126,13 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def phase_build(state) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
+    from art_sbir_tpu_torch.ops import fused_ablation as fa
     from art_sbir_tpu_torch.ops import quant_fused as qf
     from art_sbir_tpu_torch.ops import retrieval_fused as rf
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        libs = list(pool.map(lambda m: m.KERNEL.build(), (rf, qf)))
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+        libs = list(pool.map(lambda m: m.KERNEL.build(), (rf, qf, fa)))
     secs = time.perf_counter() - t0
     ptxas = {lib.name: [ln.strip() for ln in lib.with_suffix(".log")
                         .read_text().splitlines()
@@ -146,7 +173,24 @@ def _k1_inputs(n, q, metric, gen, ties=False):
     return queries, qq, pos2d, g, gg
 
 
-def _compare(out, ref, q, n, with_ranks):
+def _as_bf16(inputs, metric, held):
+    """K1's bf16-form operands for the same data: the queries' norms stay
+    float32; the gallery's come from the gallery as the caller holds it
+    (``held``: float32, or bf16)."""
+    import torch
+
+    from art_sbir_tpu_torch.ops.retrieval_fused import gallery_norms
+
+    queries, qq, pos2d, g, _ = inputs
+    g_held = g.to(held)
+    return (queries.to(torch.bfloat16), qq, pos2d,
+            g_held.to(torch.bfloat16).contiguous(),
+            gallery_norms(g_held, metric))
+
+
+def _compare(out, ref, q, n, with_ranks, rank_tol=2):
+    """Checks of K1 against its plain version; ``rank_tol``: the ranks'
+    tolerance, one for all rows or one per row."""
     r1, v1, i1, e1 = (t.cpu().numpy() for t in out)
     r0, v0, i0, _ = (t.cpu().numpy() for t in ref)
     check(e1.all(), "K1 certificate")
@@ -156,34 +200,16 @@ def _compare(out, ref, q, n, with_ranks):
     key_ok = (v1[:, 1:] > v1[:, :-1]) | ((v1[:, 1:] == v1[:, :-1])
                                          & (i1[:, 1:] > i1[:, :-1]))
     check(key_ok.all(), "K1 (value, index) order")
-    rank_err = int(np.abs(r1.astype(np.int64) - r0).max()) if q else 0
-    check(rank_err <= 2 if with_ranks else not r1.any(), "K1 ranks within 2")
+    rank_diff = np.abs(r1.astype(np.int64) - r0)
+    rank_err = int(rank_diff.max()) if q else 0
+    check(bool((rank_diff <= rank_tol).all()) if with_ranks
+          else not r1.any(), "K1 ranks within their tolerance")
     return float(np.abs(v1 - v0).max()), rank_err, int((i1 != i0).sum())
 
 
-def phase_kernels(state) -> None:
-    import torch
-
-    from art_sbir_tpu_torch.ops import retrieval_fused as rf
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    cases, max_err = [], 0.0
-    for n in (SERVE_N, SERVE_N + 3):
-        for metric in ("euclidean", "cosine"):
-            for q in (1, 32, 512):
-                inputs = _k1_inputs(n, q, metric, gen)
-                for with_ranks in (True, False):
-                    kw = dict(k=K, metric=metric, with_ranks=with_ranks)
-                    out = rf.fused_sweep_cuda(*inputs, **kw)
-                    ref = rf.fused_sweep_reference(*inputs, **kw)
-                    torch.cuda.synchronize()
-                    err, rank_err, moved = _compare(out, ref, q, n, with_ranks)
-                    max_err = max(max_err, err)
-                    cases.append([n, q, metric, with_ranks, err, rank_err,
-                                  moved])
-                del inputs
-    # manufactured ties: duplicated rows tie exactly, the smaller index first
-    inputs = _k1_inputs(SERVE_N, 32, "euclidean", gen, ties=True)
+def _k1_ties(rf, inputs, form):
+    """Duplicated rows tie exactly, the smaller index first, and the
+    positive's earlier duplicate counts toward its rank."""
     out = rf.fused_sweep_cuda(*inputs, k=K, metric="euclidean",
                               with_ranks=True)
     ref = rf.fused_sweep_reference(*inputs, k=K, metric="euclidean",
@@ -193,17 +219,60 @@ def phase_kernels(state) -> None:
     for row in range(32):
         p = row % 64
         idx = list(i1[row])
-        check(p in idx and p + SERVE_N // 2 in idx, "ties: both copies kept")
+        check(p in idx and p + SERVE_N // 2 in idx,
+              f"ties ({form}): both copies kept")
         a, b = idx.index(p), idx.index(p + SERVE_N // 2)
         check(b == a + 1 and v1[row, a] == v1[row, b],
-              "ties: exact tie, smaller index first")
-    # the positive's later copy: its earlier twin ties exactly and counts
+              f"ties ({form}): exact tie, smaller index first")
     queries, qq, pos2d, g, gg = inputs
     later = rf.fused_sweep_cuda(queries, qq, pos2d + SERVE_N // 2, g, gg,
                                 k=K, metric="euclidean", with_ranks=True)
     check(bool((later[0] == out[0] + 1).all()),
-          "ties: the positive's earlier duplicate counts toward its rank")
-    del inputs, queries, g
+          f"ties ({form}): the positive's earlier duplicate counts toward "
+          "its rank")
+
+
+def phase_kernels(state) -> None:
+    import torch
+
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases, bf16_cases = [], []
+    max_err = {"f32": 0.0, "bf16": 0.0}
+    for n in (SERVE_N, SERVE_N + 3):
+        for metric in ("euclidean", "cosine"):
+            for q in (1, 32, 512):
+                base = _k1_inputs(n, q, metric, gen)
+                # the float32 form; the bf16 form with the gallery held as
+                # float32, then as bf16
+                for form, held in (("f32", None), ("bf16", f32),
+                                   ("bf16", bf16)):
+                    inputs = (base if held is None
+                              else _as_bf16(base, metric, held))
+                    for with_ranks in (True, False):
+                        kw = dict(k=K, metric=metric, with_ranks=with_ranks)
+                        out = rf.fused_sweep_cuda(*inputs, **kw)
+                        ref = rf.fused_sweep_reference(*inputs, **kw)
+                        torch.cuda.synchronize()
+                        err, rank_err, moved = _compare(out, ref, q, n,
+                                                        with_ranks)
+                        max_err[form] = max(max_err[form], err)
+                        row = [n, q, metric, with_ranks, err, rank_err, moved]
+                        if held is None:
+                            cases.append(row)
+                        else:
+                            bf16_cases.append(row + [str(held)[6:]])
+                    del inputs
+                del base
+    # manufactured ties: duplicated rows tie exactly, the smaller index first
+    inputs = _k1_inputs(SERVE_N, 32, "euclidean", gen, ties=True)
+    _k1_ties(rf, inputs, "float32")
+    for held in (f32, bf16):
+        _k1_ties(rf, _as_bf16(inputs, "euclidean", held), "bf16")
+        bf16_cases.append(["ties", 32, "euclidean", str(held)[6:]])
+    del inputs
 
     # times at the serving shape: Q = 32, N = 100,000, euclidean, no ranks
     q, n = 32, SERVE_N
@@ -219,20 +288,42 @@ def phase_kernels(state) -> None:
     # gallery's once when the engine is built
     query_norms_ms = time_ms(lambda: rf.query_norms(queries, "euclidean"))
     gallery_norms_ms = time_ms(lambda: rf.gallery_norms(g, "euclidean"))
-    bytes_moved = 4 * (n * D + q * D + n + 2 * q) + q * K * 8 + q * 8
     ops = 2 * q * n * D
-    bound_ms = 1e3 * max(bytes_moved / H100_BYTES_PER_S,
-                         ops / H100_F32_FLOP_PER_S)
+    bound_ms, bound_by = bound(
+        4 * (n * D + q * D + n + 2 * q) + q * K * 8 + q * 8, ops,
+        H100_F32_FLOP_PER_S)
     state["k1"] = {
         "name": "K1_fused_retrieval", "route": "cuda",
         "source": "art_sbir_tpu_torch/csrc/fused_retrieval.cu",
         "replaces": "art_sbir_tpu/ops/retrieval_pallas.py:365",
-        "max_abs_err": max_err, "ms": min(kernel_ms, kernel_ms2),
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": ("bytes" if bytes_moved / H100_BYTES_PER_S
-                     >= ops / H100_F32_FLOP_PER_S else "operations"),
+        "max_abs_err": max_err["f32"], "ms": min(kernel_ms, kernel_ms2),
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms}
-    del inputs, queries, g
+    # the bf16 form at the same shape, on a gallery held in bf16, beside
+    # the closest library composition: cuBLAS on bf16 operands with a bf16
+    # output (so it rounds the cross term: a yardstick of speed, not the
+    # same function), the norm arithmetic, then torch.topk
+    b = _as_bf16(inputs, "euclidean", bf16)
+    bf16_ms = time_ms(lambda: rf.fused_sweep_cuda(*b, **kw))
+    bf16_plain_ms = time_ms(lambda: rf.fused_sweep_reference(*b, **kw))
+
+    def bf16_library():
+        cross = torch.matmul(b[0], b[3].T)
+        return torch.topk(b[1] + b[4] - 2.0 * cross.float(), K, largest=False)
+
+    bf16_library_ms = time_ms(bf16_library)
+    bf16_ms2 = time_ms(lambda: rf.fused_sweep_cuda(*b, **kw))
+    bf16_bound, bf16_by = bound(
+        2 * (n * D + q * D) + 4 * (n + 2 * q) + q * K * 8 + q * 8, ops,
+        H100_BF16_FLOP_PER_S)
+    state["k1_bf16"] = {
+        "name": "K1_fused_retrieval_bf16", "route": "cuda",
+        "source": "art_sbir_tpu_torch/csrc/fused_retrieval.cu",
+        "replaces": "art_sbir_tpu/ops/retrieval_pallas.py:365",
+        "max_abs_err": max_err["bf16"], "ms": min(bf16_ms, bf16_ms2),
+        "plain_ms": bf16_plain_ms, "bound_ms": bf16_bound,
+        "bound_by": bf16_by, "library_ms": bf16_library_ms}
+    del inputs, queries, g, b
     # K1 at other batch buckets of the main path, and at an offline-
     # evaluation batch (512, ranks on), beside each one's bound
     by_q = []
@@ -240,17 +331,22 @@ def phase_kernels(state) -> None:
         inputs = _k1_inputs(n, q, "euclidean", gen)
         ms = time_ms(lambda: rf.fused_sweep_cuda(
             *inputs, k=K, metric="euclidean", with_ranks=with_ranks))
-        q_bytes = 4 * (n * D + q * D + n + 2 * q) + q * K * 8 + q * 8
         by_q.append({"q": q, "with_ranks": with_ranks, "ms": ms,
-                     "bound_ms": 1e3 * max(q_bytes / H100_BYTES_PER_S,
-                                           2 * q * n * D
-                                           / H100_F32_FLOP_PER_S)})
+                     "bound_ms": bound(
+                         4 * (n * D + q * D + n + 2 * q) + q * K * 8 + q * 8,
+                         2 * q * n * D, H100_F32_FLOP_PER_S)[0]})
         del inputs
     emit({"phase": "kernels", "ok": True, "cases": len(cases) + 1,
           "case_rows": cases, "kernel_ms_runs": [kernel_ms, kernel_ms2],
           **{k: v for k, v in state["k1"].items() if k.endswith("ms")},
           "query_norms_ms": query_norms_ms,
-          "gallery_norms_ms": gallery_norms_ms, "by_q": by_q})
+          "gallery_norms_ms": gallery_norms_ms, "by_q": by_q,
+          "bf16_cases": len(bf16_cases), "bf16_case_rows": bf16_cases,
+          "bf16_kernel_ms_runs": [bf16_ms, bf16_ms2],
+          **{"bf16_" + k: v for k, v in state["k1_bf16"].items()
+             if k.endswith("ms") or k == "bound_by"},
+          "bf16_library": "torch.matmul of bf16 operands (bf16 output), "
+                          "the norms, torch.topk"})
 
 
 def _k2_inputs(g, q, metric, gen, near=None):
@@ -295,7 +391,7 @@ def phase_kernels_k2(state) -> None:
         for metric in ("euclidean", "cosine"):
             for q in (1, 32, 512):
                 inputs = _k2_inputs(g, q, metric, gen)
-                for r in (R, 128):
+                for r in (R, 128) + (R_WIDE if q <= 32 else ()):
                     _, err = _k2_compare(inputs, r, metric,
                                          f"{n} {metric} {q} {r}")
                     max_err = max(max_err, err)
@@ -319,6 +415,21 @@ def phase_kernels_k2(state) -> None:
             check(bool((out[0][:, :min(r, 64)] == out[0][:, :1]).all()),
                   "K2 ties: the copies' scores are equal")
             cases.append(["ties", 32, metric, r])
+        del inputs
+    del g
+    # the same across the 1,024th candidate: 1,100 equal rows
+    g = torch.randn((QUANT_N, D), generator=gen, device="cuda")
+    copies = torch.arange(1100, device="cuda") * (QUANT_N // 1100) + 7
+    g[copies] = g[7].clone()
+    for metric in ("euclidean", "cosine"):
+        inputs = _k2_inputs(g, 32, metric, gen, near=7)
+        out, err = _k2_compare(inputs, 1024, metric, f"ties {metric} 1024")
+        max_err = max(max_err, err)
+        check(bool((out[1] == copies[:1024].to(torch.int32)).all()),
+              "K2 ties at r = 1024: the copies in index order, earlier first")
+        check(bool((out[0] == out[0][:, :1]).all()),
+              "K2 ties at r = 1024: the copies' scores are equal")
+        cases.append(["ties", 32, metric, 1024])
         del inputs
     del g
 
@@ -361,14 +472,11 @@ def phase_kernels_k2(state) -> None:
     quantize_ms = time_ms(lambda: quant.quantize_gallery(g, "euclidean"),
                           reps=3, warmup=1)
 
-    def bound(q, r):
-        nbytes = q * D + 4 * q + n * D + 8 * n + 8 * q * r + 4 * q
-        ops = 2 * q * n * D
-        return (1e3 * max(nbytes / H100_BYTES_PER_S, ops / H100_INT8_OP_PER_S),
-                "bytes" if nbytes / H100_BYTES_PER_S
-                >= ops / H100_INT8_OP_PER_S else "operations")
+    def k2_bound(q, r):
+        return bound(q * D + 4 * q + n * D + 8 * n + 8 * q * r + 4 * q,
+                     2 * q * n * D, H100_INT8_OP_PER_S)
 
-    bound_ms, bound_by = bound(q, R)
+    bound_ms, bound_by = k2_bound(q, R)
     state["k2"] = {
         "name": "K2_quant_candidates", "route": "cuda",
         "source": "art_sbir_tpu_torch/csrc/quant_candidates.cu",
@@ -376,6 +484,27 @@ def phase_kernels_k2(state) -> None:
         "max_abs_err": max_err, "ms": min(kernel_ms, kernel_ms2),
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms}
+    # K2 past the engine's envelope, at Q = 32: the same kernel with the
+    # larger running top-r (16 queries a block above r = 512)
+    wide = []
+    for r in R_WIDE:
+        kw = dict(r=r, metric="euclidean")
+        ms = time_ms(lambda: qf.quant_candidates_cuda(*inputs, **kw), reps=5)
+        r_plain_ms = time_ms(
+            lambda: qf.quant_candidates_reference(*inputs, **kw), reps=5)
+
+        def r_library():
+            cross = torch._int_mm(q8, g8.t())
+            dot = cross.float() * (s_q[:, None] * g_scale[None, :])
+            return torch.topk(g_sq[None, :] - 2.0 * dot, r, largest=False)
+
+        r_library_ms = time_ms(r_library, reps=5)
+        ms2 = time_ms(lambda: qf.quant_candidates_cuda(*inputs, **kw), reps=5)
+        r_bound, r_by = k2_bound(q, r)
+        wide.append({"r": r, "ms": min(ms, ms2), "kernel_ms_runs": [ms, ms2],
+                     "plain_ms": r_plain_ms, "bound_ms": r_bound,
+                     "bound_by": r_by, "library_ms": r_library_ms})
+    state["k2"]["r_gt_128"] = wide
     del inputs, q8, g8
     # K2 at other batch buckets and candidate budgets, beside each bound
     by_q = []
@@ -383,9 +512,31 @@ def phase_kernels_k2(state) -> None:
         inputs = _k2_inputs(g, q, "euclidean", gen)
         ms = time_ms(lambda: qf.quant_candidates_cuda(
             *inputs, r=r, metric="euclidean"))
-        by_q.append({"q": q, "r": r, "ms": ms, "bound_ms": bound(q, r)[0]})
+        by_q.append({"q": q, "r": r, "ms": ms, "bound_ms": k2_bound(q, r)[0]})
         del inputs
-    del g
+    # the int8 route whole past the engine's envelope (rerank_factor 8, k =
+    # r / 8): K2's and the plain scan's, each as a dispatch runs it (results
+    # to the host), to find where they cross
+    x = torch.randn((32, D), generator=gen, device="cuda")
+    qg = quant.quantize_gallery(g, "euclidean")
+    route_wide = []
+    for r in R_WIDE:
+        def k2_route():
+            return quant.retrieve_quantized_fused(x, qg, g, k=r // 8,
+                                                  rerank_factor=8,
+                                                  device_get=True)
+
+        def plain_route():
+            return [t.cpu().numpy() for t in quant.retrieve_quantized(
+                x, qg, g, k=r // 8, rerank_factor=8)]
+
+        a, b = k2_route(), plain_route()
+        check(np.array_equal(a[1], b[1]) and np.array_equal(a[0], b[0]),
+              f"K2 route equals the plain int8 route at r = {r}")
+        route_wide.append({"q": 32, "n": QUANT_N, "k": r // 8, "r": r,
+                           "k2_route_ms": time_ms(k2_route, reps=5),
+                           "plain_route_ms": time_ms(plain_route, reps=5)})
+    del g, qg
     # the engine's two int8 routes as a dispatch runs them (query
     # quantization, candidates, exact rerank, results to the host): K2's
     # and the plain scan's, at galleries from 10,000 rows up
@@ -414,7 +565,166 @@ def phase_kernels_k2(state) -> None:
           "case_rows": cases, "kernel_ms_runs": [kernel_ms, kernel_ms2],
           **{k: v for k, v in state["k2"].items() if k.endswith("ms")},
           "bound_by": bound_by, "quantize_gallery_ms": quantize_ms,
-          "by_q": by_q, "routes_by_n": by_n})
+          "by_q": by_q, "r_gt_128": wide, "route_r_gt_128": route_wide,
+          "routes_by_n": by_n})
+
+
+# --------------------------------------------------------------- probe_k1
+
+def _probe_bounds(q, n):
+    """Each probe configuration's bound: its inputs read once, its outputs
+    written once, 2*Q*N*D operations at the rate of its operands' type."""
+    ops = 2 * q * n * D
+    p1 = 2 * (n * D + q * D) + 4 * (n + 3 * q) + 4 * q
+    k1 = 2 * (n * D + q * D) + 4 * (n + 2 * q) + q * K * 8 + 4 * q
+    k1_f32 = 4 * (n * D + q * D) + 4 * (n + 2 * q) + q * K * 8 + 4 * q
+    return {"mm": bound(p1, ops, H100_BF16_FLOP_PER_S),
+            "rank": bound(p1, ops, H100_BF16_FLOP_PER_S),
+            "top2": bound(p1, ops, H100_BF16_FLOP_PER_S),
+            "full": bound(k1, ops, H100_BF16_FLOP_PER_S),
+            "full_f32": bound(k1_f32, ops, H100_F32_FLOP_PER_S),
+            "xla": bound(k1_f32, ops, H100_BF16_FLOP_PER_S)}
+
+
+def _probe_shape_checks(q, n):
+    """P1's three levels and K1 in both forms, called as the probe calls
+    them on the probe's own inputs at (Q, N), against their plain versions.
+    K1's ranks may differ from the plain version's by as many columns as lie
+    within 4 ulp of the positive's distance, or by 2 where fewer lie there:
+    the two sum the cross term in different orders, and a million columns
+    put a few within that reach. Returns P1's rows and K1's."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import fused_ablation as fa
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
+    from art_sbir_tpu_torch.ops.distance import _cross
+    from art_sbir_tpu_torch.scripts import probe_fused_overhead as probe
+
+    x, g, p, qq, gg, d2pos = probe.make_inputs(n, q, torch.device("cuda"))
+    pos2d = p[:, None].contiguous()
+    p1_rows, k1_rows = [], []
+    for level in fa.LEVELS:
+        out = fa.ablate_cuda(x, g, qq, gg, d2pos, pos2d, level=level)
+        ref = fa.ablate_reference(x, g, qq, gg, d2pos, pos2d, level=level)
+        err = int((out.long() - ref.long()).abs().max())
+        tol = n // fa.TILE_N if level == 0 else 2
+        check(err <= tol, f"P1 level {level} at Q={q}, N={n} within {tol}")
+        p1_rows.append([n, q, level, err])
+        del out, ref
+    norms = rf.gallery_norms(g, "euclidean")
+    qn = rf.query_norms(x, "euclidean")
+    for precision, op in (("default", torch.bfloat16),
+                          ("highest", torch.float32)):
+        xo, go = x.to(op), g.to(op)
+        out = rf.retrieve_fused_core(xo, go, p, k=K, precision=precision,
+                                     gg=norms)
+        ref = rf.fused_sweep_reference(xo, qn, pos2d, go, norms, k=K,
+                                       metric="euclidean", with_ranks=True)
+        d = torch.clamp(qn + norms - 2.0 * _cross(xo, go, precision),
+                        min=0.0)
+        dpos = torch.gather(d, 1, pos2d.long())
+        ulp = torch.nextafter(dpos, torch.full_like(dpos, float("inf"))) - dpos
+        near = torch.sum(torch.abs(d - dpos) <= 4.0 * ulp, dim=1) - 1
+        del d, dpos
+        rank_tol = np.maximum(near.cpu().numpy(), 2)
+        err, rank_err, moved = _compare(out, ref, q, n, True, rank_tol)
+        k1_rows.append([n, q, precision, err, rank_err, moved,
+                        int(rank_tol.max())])
+        del xo, go, out, ref
+    return p1_rows, k1_rows
+
+
+def phase_probe_k1(state) -> None:
+    import torch
+
+    from art_sbir_tpu_torch.ops import fused_ablation as fa
+    from art_sbir_tpu_torch.scripts import probe_fused_overhead as probe
+
+    # P1 against its plain version: queries near random rows, four of them
+    # equal to their row (distances near 0 for level 2), and d2pos at each
+    # row's 1,000th smallest distance, so that about 1,000 columns are hits
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = 102_400
+    g = torch.randn((n, D), generator=gen, device="cuda").to(torch.bfloat16)
+    gg = torch.sum(g.float() ** 2, dim=1)[None, :]
+    cases, max_err = [], 0
+    for q in (32, 512):
+        pos = torch.randint(0, n, (q,), generator=gen, device="cuda")
+        x = (g[pos].float() + 0.7 * torch.randn(
+            (q, D), generator=gen, device="cuda")).to(torch.bfloat16)
+        x[:4] = g[pos[:4]]
+        qq = torch.sum(x.float() ** 2, dim=1, keepdim=True)
+        d2 = torch.clamp(qq + gg - 2.0 * (x.float() @ g.float().T), min=0.0)
+        d2pos = torch.kthvalue(d2, 1000, dim=1, keepdim=True).values
+        del d2
+        args = (x, g, qq, gg, d2pos.contiguous(),
+                pos.to(torch.int32)[:, None].contiguous())
+        for level in fa.LEVELS:
+            out = fa.ablate_cuda(*args, level=level)
+            ref = fa.ablate_reference(*args, level=level)
+            err = int((out.long() - ref.long()).abs().max())
+            tol = n // fa.TILE_N if level == 0 else 2
+            check(err <= tol, f"P1 level {level} at Q={q} within {tol}")
+            if level:
+                check(bool((ref >= 900).all()), "P1 d2pos gives hits")
+            max_err = max(max_err, err)
+            cases.append([n, q, level, err])
+        if q == 32:
+            p1_plain_ms = time_ms(lambda: fa.ablate_reference(*args, level=2),
+                                  reps=5)
+        del x, args
+    del g, gg
+    # the same, and K1 in both forms, at the probe's own shapes and inputs
+    k1_cases = []
+    for q_, n_ in PROBE_SHAPES:
+        p1_rows, k1_rows = _probe_shape_checks(q_, n_)
+        cases += p1_rows
+        k1_cases += k1_rows
+        max_err = max([max_err] + [row[3] for row in p1_rows])
+        for row in k1_rows:
+            form = state["k1_bf16" if row[2] == "default" else "k1"]
+            form["max_abs_err"] = max(form["max_abs_err"], row[3])
+        torch.cuda.empty_cache()
+
+    # the probe: every count set to 0 just before its runs, read after
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    runs = [probe.run(n_, q_, rounds=3, device="cuda", log=lambda _: None)
+            for q_, n_ in PROBE_SHAPES]
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    check(all(launches[name] > 0 for name in ("K1", "K1_bf16", "P1")),
+          "the probe launched K1 in both forms and P1")
+    check(launches["K2"] == 0, "the probe launched no K2")
+    check(all(c.fallback_rows == 0 for c in counters.values()),
+          "K1 never fell back in the probe")
+    state["launches"]["K1_bf16"] = launches["K1_bf16"]
+    state["launches"]["P1"] = launches["P1"]
+    shapes = []
+    for res in runs:
+        bounds = _probe_bounds(res["q"], res["n"])
+        shapes.append({"q": res["q"], "n": res["n"], "rounds": res["rounds"],
+                       "configs": {
+                           name: {"ms": ms,
+                                  "share_of_full": res["share_of_full"][name],
+                                  "bound_ms": bounds[name][0],
+                                  "bound_by": bounds[name][1]}
+                           for name, ms in res["ms"].items()}})
+    serving = shapes[0]["configs"]
+    state["p1"] = {
+        "name": "P1_fused_ablation", "route": "cuda",
+        "source": "art_sbir_tpu_torch/csrc/fused_ablation.cu",
+        "replaces": "scripts/probe_fused_overhead.py:88",
+        "max_abs_err": max_err, "ms": serving["top2"]["ms"],
+        "plain_ms": p1_plain_ms, "bound_ms": serving["top2"]["bound_ms"],
+        "bound_by": serving["top2"]["bound_by"], "library_ms": None,
+        "levels_ms": {name: serving[name]["ms"]
+                      for name in ("mm", "rank", "top2")}}
+    emit({"phase": "probe_k1", "ok": True, "cases": len(cases),
+          "case_rows": cases, "k1_case_rows": k1_cases,
+          "p1_plain_ms_level2": p1_plain_ms,
+          "launches": launches, "shapes": shapes})
 
 
 # ---------------------------------------------------------------- encoder
@@ -482,10 +792,12 @@ def _post(port: int, path: str, body: dict) -> dict:
 
 def _counters():
     """The launch counters of every kernel, by the route that runs it."""
+    from art_sbir_tpu_torch.ops import fused_ablation as fa
     from art_sbir_tpu_torch.ops import quant_fused as qf
     from art_sbir_tpu_torch.ops import retrieval_fused as rf
 
-    return {"K1": rf.counters, "K2": qf.counters}
+    return {"K1": rf.counters, "K1_bf16": rf.bf16_counters, "K2": qf.counters,
+            "P1": fa.counters}
 
 
 def _gallery_features(n: int, planted: np.ndarray, seed: int):
@@ -649,7 +961,7 @@ def _serve(state, phase: str, n_rows: int, route: str, flags: list) -> None:
             fallback = counters[route].fallback_rows
             engine.search_arrays = search_arrays
             profile = _profile_dispatch(engine, sketches,
-                                        prefix=route.lower() + "_")
+                                        prefix=route.lower())
         finally:
             httpd.shutdown()
             httpd.server_close()
@@ -715,8 +1027,8 @@ def _fresh_thread_dispatch_ms(engine, images) -> list:
 def _profile_dispatch(engine, sketches, prefix: str, reps: int = 3) -> dict:
     """Where one coalesced dispatch of 8 queries spends its time: wall
     clock, summed device kernel time by name (torch.profiler), the time of
-    the route's kernel (names starting ``prefix``), and the share of the
-    wall clock with the device idle. Runs after the counted main path; its
+    the route's kernels (names holding ``<prefix>_`` or ``<prefix>::``), and
+    the share of the wall clock with the device idle. Runs after the counted main path; its
     launches are not counted there."""
     import torch
     from torch.autograd import DeviceType
@@ -738,9 +1050,10 @@ def _profile_dispatch(engine, sketches, prefix: str, reps: int = 3) -> dict:
                                + ev.self_device_time_total / 1e3 / reps)
     device_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    kernel_ms = sum(v for k, v in kernels.items() if prefix in k)
+    kernel_ms = sum(v for k, v in kernels.items()
+                    if f"{prefix}_" in k or f"{prefix}::" in k)
     return {"batch": len(sketches), "wall_ms": 1e3 * wall,
-            "device_ms": device_ms, f"{prefix}device_ms": kernel_ms,
+            "device_ms": device_ms, f"{prefix}_device_ms": kernel_ms,
             "device_idle_share": max(0.0, 1 - device_ms / (1e3 * wall)),
             "kernels_seen": len(kernels),
             "top_device_ms": [[k[:60], v] for k, v in top]}
@@ -762,11 +1075,12 @@ def main(argv=None) -> int:
 
     state = {"launches": {}}
     for phase in (phase_build, phase_kernels, phase_kernels_k2,
-                  phase_encoder, phase_serve, phase_serve_quant):
+                  phase_probe_k1, phase_encoder, phase_serve,
+                  phase_serve_quant):
         phase(state)
     emit({"kernels": [{**state[name.lower()],
                        "launches": state["launches"][name]}
-                      for name in ("K1", "K2")]})
+                      for name in ("K1", "K1_bf16", "K2", "P1")]})
     print(state["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -123,6 +123,61 @@ def test_fused_route_matches_plain_route_and_jax(rng, metric):
                                atol=1e-6 if metric == "cosine" else 0.0)
 
 
+def _jax_scores_top_r(arrays, r, metric):
+    """``_quant_core``'s approximate score in its own float32 op order and
+    its ``lax.top_k`` candidate order, from the JAX package's arrays."""
+    import jax
+
+    q8, s_q, g8, g_scale, g_sq = arrays
+    dot = jax.lax.dot_general(
+        q8, g8, (((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.int32,
+    ).astype(jnp.float32) * (s_q[:, None] * g_scale[None, :])
+    approx = g_sq[None, :] - 2.0 * dot if metric == "euclidean" else -dot
+    neg, idx = jax.lax.top_k(-approx, r)
+    return -np.asarray(neg), np.asarray(idx)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+@pytest.mark.parametrize("r", [160, 256, 1024])
+def test_plain_scan_beyond_128_matches_jax_core(rng, metric, r):
+    """Budgets past 128 (the JAX default takes up to 8 * 128): the plain
+    scan's candidates are ``_quant_core``'s candidate set, and its scores and
+    order are bit-identical to that function's scoring and ``lax.top_k``
+    (earlier index first among equal scores)."""
+    arrays, gal, qs = _jax_quantized(rng, 2000, 8, 64, metric)
+    _, core_idx = jq._quant_core(jnp.asarray(qs), *arrays[2:],
+                                 jnp.asarray(gal), metric=metric, k=r, r=r)
+    jv, ji = _jax_scores_top_r(arrays, r, metric)
+    pv, pi, pc = qf.quant_candidates_fused(*(_t(a) for a in arrays), r=r,
+                                           metric=metric)
+    assert pi.dtype == torch.int32 and tuple(pi.shape) == (8, r)
+    np.testing.assert_array_equal(np.sort(pi.numpy(), 1),
+                                  np.sort(np.asarray(core_idx), 1))
+    np.testing.assert_array_equal(pi.numpy(), ji)
+    np.testing.assert_array_equal(pv.numpy(), jv)
+    assert pc.tolist() == [1] * 8
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_fused_route_at_1024_candidates(rng, metric):
+    """k = 128 at rerank_factor 8: r = 1,024, the route's cap. The streamed
+    route equals the plain one, and its indices equal the JAX package's
+    plain int8 route."""
+    gal = rng.standard_normal((3000, 32)).astype(np.float32)
+    qs = gal[5:11] + 0.3 * rng.standard_normal((6, 32)).astype(np.float32)
+    tq, tg = torch.from_numpy(qs), torch.from_numpy(gal)
+    qg = pq.quantize_gallery(tg, metric)
+    v0, i0 = pq.retrieve_quantized(tq, qg, tg, k=128, rerank_factor=8)
+    v1, i1 = pq.retrieve_quantized_fused(tq, qg, tg, k=128, rerank_factor=8)
+    assert tuple(i1.shape) == (6, 128)
+    assert torch.equal(i1, i0) and torch.equal(v1, v0)
+    _, ji = jq.retrieve_quantized(jnp.asarray(qs),
+                                  jq.quantize_gallery(jnp.asarray(gal), metric),
+                                  jnp.asarray(gal), k=128, rerank_factor=8)
+    np.testing.assert_array_equal(i1.numpy(), np.asarray(ji))
+
+
 def test_guards_carry_the_jax_messages(rng):
     gal = rng.standard_normal((64, 32)).astype(np.float32)
     qg = pq.quantize_gallery(torch.from_numpy(gal))
@@ -161,6 +216,29 @@ def test_cuda_kernel_matches_plain_version(rng):
         args = (q8, s_q, qg.q8, qg.scale, qg.sq_norm)
         out = qf.quant_candidates_cuda(*args, r=40, metric=metric)
         ref = qf.quant_candidates_reference(*args, r=40, metric=metric)
+        torch.cuda.synchronize()
+        assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0])
+        assert bool(out[2].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [256, 512, 1024])
+def test_cuda_kernel_beyond_128_matches_plain_version(rng, r):
+    """On the card: K2 with 16 (r > 512) or 32 queries per block and the
+    tournament merge, against its plain version, bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run by chip_smoke.py)")
+    dev = torch.device("cuda")
+    gal = torch.from_numpy(rng.standard_normal((20_003, 64)).astype(
+        np.float32)).to(dev)
+    qs = torch.from_numpy(rng.standard_normal((37, 64)).astype(
+        np.float32)).to(dev)
+    for metric in ("euclidean", "cosine"):
+        qg = pq.quantize_gallery(gal, metric)
+        q8, s_q = pq._quantize_queries(qs, metric)
+        args = (q8, s_q, qg.q8, qg.scale, qg.sq_norm)
+        out = qf.quant_candidates_cuda(*args, r=r, metric=metric)
+        ref = qf.quant_candidates_reference(*args, r=r, metric=metric)
         torch.cuda.synchronize()
         assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0])
         assert bool(out[2].all())

@@ -165,8 +165,8 @@ def test_guards(rng):
     queries, g, pos = (torch.from_numpy(a) for a in _inputs(rng, 8, 2, d=16))
     with pytest.raises(ValueError, match="exceeds gallery size"):
         rf.retrieve_fused(queries, g, pos, k=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rf.retrieve_fused(queries, g, pos, k=4, precision="default")
+    with pytest.raises(ValueError, match="unknown precision"):
+        rf.retrieve_fused(queries, g, pos, k=4, precision="fast")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rf.retrieve_fused_sharded(queries, g, pos, None)
     with pytest.raises(ValueError, match="metric"):
