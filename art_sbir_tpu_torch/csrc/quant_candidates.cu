@@ -20,39 +20,60 @@
 //  * At the serving shape, Q = 32 queries, N = 1,000,000 rows, D = 1024,
 //    the gallery read is N*D int8 bytes plus 8N bytes of scale and g_sq,
 //    about 1.056 GB: 0.315 ms. The operations are 2*Q*N*D = 67.1 G, 0.034 ms
-//    at the int8 tensor-core rate. So bytes set the bound.
-//  * Every block holds all queries of its tile (32, or 16 for r > 512), so
-//    the gallery streams from device memory once per call for Q <= 32
-//    (twice for r > 512).
-//  * This version is the simple, exact one: the cross term runs on __dp4a
-//    (four int8 products a lane per instruction, outside the tensor cores).
-//    wgmma / IMMA tiles and TMA are later work. For large r the running
-//    top-r insertion dominates: about r * (1 + ln(rows per split / r))
-//    insertions per query and split, each shifting half the list on average.
+//    at the int8 tensor-core rate. So bytes set the bound, and the kernel
+//    must keep enough of the gallery in flight while it multiplies and
+//    selects.
+//  * A per-query running top-r kept sorted by insertion costs, per split,
+//    about r * (1 + ln(rows / r)) insertions that each shift half the list:
+//    at r = 1024 that, not the bytes, set the time. The products on
+//    __dp4a, staged synchronously, cost about 0.9 ms even at Q = 1.
 //
 // Design. The TPU kernel's per-lane top-`depth` file, 128-lane segment fold
 // and certificate were shaped by the TPU's vector unit and its in-order
-// grid; none is carried over. Two passes instead, as in K1:
+// grid; none is carried over. Two passes, as in K1:
 //
-//  1. k2_partial<TQ>, grid (ceil(Q/TQ), S). Split s owns a contiguous range
-//     of 128-row gallery tiles. The block stages TQ query rows and 128
-//     gallery rows in 64-byte chunks of D in shared memory (16-byte loads,
-//     neighbouring threads on neighbouring addresses); each thread owns
-//     TQ/8 queries x 8 rows and sums their int8 products with __dp4a into
-//     int32, exact in any order. The epilogue applies the score above, and
-//     each warp keeps, per query, a sorted running top-r in shared memory
-//     keyed by (score, index) with strict < (topk::warp_offer), so among
-//     equal scores, such as duplicated gallery rows, the smaller index wins.
-//     The block writes a partial (Q, S, r) top-r. The running lists take
-//     TQ * r * 8 bytes of shared memory: TQ = 32 up to r = 512 (128 KB),
-//     TQ = 16 above (128 KB at r = 1024), within the 227 KB a block may
-//     have. k2_first_pass reports how many such blocks fit on an SM
-//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the wrapper
-//     sizes S to the blocks that fit on the card at once.
+//  1. k2_partial<TQ>, grid (ceil(Q/TQ), S), 4 warps. Split s owns a
+//     contiguous range of 128-row gallery tiles and walks them in 64-byte
+//     chunks of D. A ring of STAGES shared-memory stages is filled with
+//     16-byte cp.async copies (rows past Q or N and bytes past D are
+//     zero-filled, which leaves the int32 sums unchanged), so the next
+//     chunks are in flight while the current one is multiplied. Each warp
+//     owns a TQ x 32 sub-tile of the TQ x 128 output and runs
+//     mma.sync.m16n8k32 s8.s8.s32 on it: fragments are plain 32-bit shared
+//     loads from rows padded to 80 bytes (conflict-free), and the int32
+//     sums are exact in any order (1024 * 127^2 < 2^31, no .satfinite).
+//     After a tile's last chunk the epilogue writes the TQ x 128 scores to
+//     shared memory.
+//     Selection: warp w owns queries [w * TQ/4, (w + 1) * TQ/4). Each query
+//     keeps a threshold tau, the r-th smallest (score, index) key kept so
+//     far ((3e38, N) until r keys are kept), the kept keys sorted, and an
+//     unsorted buffer of B entries. Per 32 scores the warp ballots key <
+//     tau; the lanes that pass append at base + popc(ballot & lanes below):
+//     one store each, nothing moves. When the next append would overflow
+//     the buffer, the warp sorts the buffer (bitonic, in shared memory),
+//     merges it with the kept keys by rank (each key's place is its index
+//     plus its count of smaller keys in the other list, by binary search;
+//     kept keys move down from the top, so the merge is in place), keeps
+//     the r smallest and sets tau to the r-th. A key that was never
+//     admitted was >= tau, and tau only falls, so the result is exact by
+//     construction; all comparisons are (score, index) with strict <, so
+//     among equal scores, such as duplicated rows, the smaller index wins.
+//     At r = 1024 about a dozen such merges over <= 1,280 keys replace
+//     some 3,800 shifting insertions per query and split. At the end of the
+//     split the warp merges what is buffered and writes the sorted r.
 //  2. k2_merge, one block per query: the r smallest of the S sorted partial
 //     runs (topk::merge_runs).
 //
-// The result is exact by construction, so `exact` is 1 on every row.
+// Shared memory of a block: STAGES * (TQ + 128) * 80 bytes of staging,
+// TQ * 136 * 4 of scores and TQ * (r + B) * 8 of selection, with B = r/4
+// rounded up to a power of two in [32, 256]. TQ = 32 (3 stages) up to
+// r = 512: 38.4 + 17.4 + 163.8 KB = 220 KB at r = 512, and about 74 KB at
+// r = 40 (B = 32), so three blocks fit an SM. TQ = 16 (4 stages) above:
+// 46.1 + 8.7 + 163.8 KB = 219 KB at r = 1024 (B = 256). A block may have
+// 227 KB. k2_first_pass reports how many blocks fit on an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the wrapper sizes S
+// to the blocks that fit on the card at once.
+//
 // Sentinel: score 3e38 with index N.
 
 #include "topk_select.cuh"
@@ -60,17 +81,21 @@
 namespace {
 
 using topk::BIG;
+using topk::FULL;
+using topk::key_less;
 
 // The constants marked "must match" are repeated in ops/quant_fused.py.
 constexpr int R_MAX = 1024;    // must match
 constexpr int TQ_WIDE = 512;   // the largest r with 32 queries per block
 constexpr int TN = 128;        // gallery rows per tile; must match
-constexpr int DKB = 64;        // bytes of D in one staged chunk
-constexpr int DKW = DKB / 4;   // the same in 32-bit words of 4 int8
+constexpr int DK = 64;         // bytes of D in one staged chunk
+constexpr int DKW = DK / 4;    // the same in 32-bit words of 4 int8
 constexpr int LDW = DKW + 1;   // padded shared row: conflict-free column reads
-constexpr int VEC = 16;        // bytes per staging load
-constexpr int THREADS = 128;   // 8 query groups x 16 row groups
 constexpr int CPT = 8;         // gallery rows per thread
+constexpr int LDD = TN + 8;    // padded row of the score tile, in floats
+constexpr int VEC = 16;        // bytes per cp.async copy
+constexpr int THREADS = 128;   // 4 warps, each a TQ x 32 sub-tile
+constexpr int B_MIN = 32, B_MAX = 256;  // selection buffer per query
 constexpr int MERGE_THREADS = 256;
 constexpr int MERGE_HEADS = 4;  // runs per merge thread: S <= 1024
 
@@ -81,14 +106,29 @@ __device__ __forceinline__ float approx_score(int metric, float sq, float gsc,
   return metric == 0 ? __fsub_rn(gsq, __fmul_rn(2.0f, dot)) : -dot;
 }
 
+// The selection buffer for a budget of r: r / 4 rounded up to a power of
+// two, within [B_MIN, B_MAX].
+__host__ __device__ inline int buffer_len(int r) {
+  int b = B_MIN;
+  while (b < B_MAX && 4 * b < r) b *= 2;
+  return b;
+}
+
+template <int TQ>
+size_t partial_smem(int r) {
+  return sizeof(int) * (TQ + TN) * LDW + sizeof(float) * TQ * LDD +
+         (sizeof(float) + sizeof(int)) * TQ * (r + buffer_len(r)) +
+         sizeof(int) * 4 * TQ;
+}
+
 // Stage rows [row0, row0 + rows) of a (limit, D) int8 matrix, bytes
-// [d0, d0 + DKB), as 32-bit words into dst (rows x LDW). Rows past `limit`
+// [d0, d0 + DK), as 32-bit words into dst (rows x LDW). Rows past `limit`
 // and bytes past D are zero: a zero product leaves the int32 sum unchanged.
 __device__ __forceinline__ void stage(const int8_t* __restrict__ src, int row0,
                                       int rows, int limit, int D, int d0,
                                       int* __restrict__ dst) {
-  for (int e = threadIdx.x; e < rows * (DKB / VEC); e += THREADS) {
-    const int r = e / (DKB / VEC), c = (e % (DKB / VEC)) * VEC;
+  for (int e = threadIdx.x; e < rows * (DK / VEC); e += THREADS) {
+    const int r = e / (DK / VEC), c = (e % (DK / VEC)) * VEC;
     const int row = row0 + r, dd = d0 + c;
     int4 v = make_int4(0, 0, 0, 0);
     if (row < limit && dd < D)
@@ -98,10 +138,76 @@ __device__ __forceinline__ void stage(const int8_t* __restrict__ src, int row0,
   }
 }
 
-template <int TQ>
-size_t partial_smem(int r) {
-  return sizeof(int) * (TQ * LDW + TN * LDW) + sizeof(float) * (TQ * TN + TQ * r) +
-         sizeof(int) * TQ * r;
+// The number of keys of the sorted list (v, x)[0, n) below (kv, ki).
+__device__ __forceinline__ int count_less(const float* v, const int* x, int n, float kv,
+                                          int ki) {
+  int pos = 0;
+  for (int s = n ? 1 << (31 - __clz(n)) : 0; s; s >>= 1)
+    if (pos + s <= n && key_less(v[pos + s - 1], x[pos + s - 1], kv, ki)) pos += s;
+  return pos;
+}
+
+// One warp sorts (v, x)[0, B) ascending by key; B is a power of two.
+__device__ void warp_bitonic_sort(float* v, int* x, int B) {
+  const int lane = threadIdx.x & 31;
+  for (int k = 2; k <= B; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = lane; t < B / 2; t += 32) {
+        const int i = 2 * t - (t & (j - 1)), p = i + j;
+        const float a = v[i], b = v[p];
+        const int ai = x[i], bi = x[p];
+        if (key_less(b, bi, a, ai) == ((i & k) == 0)) {
+          v[i] = b; x[i] = bi;
+          v[p] = a; x[p] = ai;
+        }
+      }
+      __syncwarp();
+    }
+}
+
+// One warp folds a query's nb buffered keys into its nk kept keys: kept
+// (v, x)[0, r) sorted, buffer (v, x)[r, r + B). Keeps the min(r, nk + nb)
+// smallest, sorted, in [0, r) and returns their count.
+__device__ int warp_flush(float* v, int* x, int r, int B, int nk, int nb) {
+  const int lane = threadIdx.x & 31;
+  float* bv = v + r;
+  int* bx = x + r;
+  __syncwarp();
+  for (int j = nb + lane; j < B; j += 32) { bv[j] = INFINITY; bx[j] = INT32_MAX; }
+  __syncwarp();
+  warp_bitonic_sort(bv, bx, B);
+  // each buffered key's place in the merged list, found while the kept
+  // list is intact
+  float pv[B_MAX / 32];
+  int px[B_MAX / 32], pp[B_MAX / 32];
+#pragma unroll
+  for (int u = 0; u < B_MAX / 32; ++u) {
+    const int j = lane + 32 * u;
+    pv[u] = 0.0f; px[u] = 0; pp[u] = r;
+    if (j < nb) {
+      pv[u] = bv[j]; px[u] = bx[j];
+      pp[u] = j + count_less(v, x, nk, pv[u], px[u]);
+    }
+  }
+  __syncwarp();  // every search of the kept list ends before a key moves
+  // kept keys below the smallest buffered key stay; the others move down
+  // to index + (buffered keys below them), from the top run of 32 down, so
+  // every move lands on a slot already read
+  const int first = __shfl_sync(FULL, pp[0], 0);
+  for (int base = (nk - 1) & ~31; base >= (first & ~31); base -= 32) {
+    const int i = base + lane;
+    float kv = 0.0f;
+    int kx = 0, p = r;
+    if (i < nk && i >= first) { kv = v[i]; kx = x[i]; p = i + count_less(bv, bx, nb, kv, kx); }
+    __syncwarp();
+    if (p < r && p != i) { v[p] = kv; x[p] = kx; }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int u = 0; u < B_MAX / 32; ++u)
+    if (pp[u] < r) { v[pp[u]] = pv[u]; x[pp[u]] = px[u]; }
+  __syncwarp();
+  return min(r, nk + nb);
 }
 
 template <int TQ>
@@ -110,25 +216,32 @@ k2_partial(const int8_t* __restrict__ q8, const float* __restrict__ s_q,
            const int8_t* __restrict__ g8, const float* __restrict__ g_scale,
            const float* __restrict__ g_sq, int Q, int N, int D, int r,
            int metric, float* __restrict__ part_v, int* __restrict__ part_i) {
-  constexpr int QPT = TQ / 8;  // queries per thread
+  constexpr int QPT = TQ / 8;   // queries per thread
+  constexpr int QPW = TQ / 4;   // queries a warp selects for
   extern __shared__ int smem[];
   int* qs = smem;                                        // TQ x LDW  query chunk
   int* gs = qs + TQ * LDW;                               // TN x LDW  gallery chunk
-  float* ds = reinterpret_cast<float*>(gs + TN * LDW);  // TQ x TN   scores of the tile
-  float* tv = ds + TQ * TN;                              // TQ x r    running top-r scores
-  int* ti = reinterpret_cast<int*>(tv + TQ * r);         // TQ x r    indices
+  float* ds = reinterpret_cast<float*>(gs + TN * LDW);  // TQ x LDD  scores
+  const int B = buffer_len(r), C = r + B;
+  float* sv = ds + TQ * LDD;                          // TQ x C  kept + buffer keys
+  int* sx = reinterpret_cast<int*>(sv + TQ * C);      // TQ x C  their indices
+  float* tau_v = reinterpret_cast<float*>(sx + TQ * C);  // TQ thresholds
+  int* tau_x = reinterpret_cast<int*>(tau_v + TQ);
+  int* n_kept = tau_x + TQ;
+  int* n_buf = n_kept + TQ;
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ty = tid / 16, tx = tid % 16;
-  const int lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * TQ;
   const int S = gridDim.y, s = blockIdx.y;
   const int n_tiles = (N + TN - 1) / TN;
   const int t_begin = static_cast<int>(static_cast<long long>(n_tiles) * s / S);
   const int t_end = static_cast<int>(static_cast<long long>(n_tiles) * (s + 1) / S);
 
-  for (int e = tid; e < TQ * r; e += THREADS) { tv[e] = BIG; ti[e] = N; }
-  __syncthreads();
+  if (tid < TQ) {
+    tau_v[tid] = BIG; tau_x[tid] = N;
+    n_kept[tid] = 0; n_buf[tid] = 0;
+  }
 
   for (int t = t_begin; t < t_end; ++t) {
     const int n0 = t * TN;
@@ -138,7 +251,7 @@ k2_partial(const int8_t* __restrict__ q8, const float* __restrict__ s_q,
 #pragma unroll
       for (int j = 0; j < CPT; ++j) acc[i][j] = 0;
 
-    for (int d0 = 0; d0 < D; d0 += DKB) {
+    for (int d0 = 0; d0 < D; d0 += DK) {
       stage(q8, q0, TQ, Q, D, d0, qs);
       stage(g8, n0, TN, N, D, d0, gs);
       __syncthreads();
@@ -164,30 +277,61 @@ k2_partial(const int8_t* __restrict__ q8, const float* __restrict__ s_q,
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int c = tx + 16 * j, n = n0 + c;
-        ds[qr * TN + c] = n < N ? approx_score(metric, sq, g_scale[n], g_sq[n], acc[i][j])
-                                : BIG;
+        ds[qr * LDD + c] = n < N ? approx_score(metric, sq, g_scale[n], g_sq[n], acc[i][j])
+                                 : BIG;
       }
     }
     __syncthreads();
 
-    // running top-r: warp w owns queries [w * TQ/4, (w + 1) * TQ/4)
-    for (int rr = 0; rr < TQ / 4; ++rr) {
-      const int qr = warp * (TQ / 4) + rr;
+    const unsigned below = (1u << lane) - 1;
+#pragma unroll 1
+    for (int u = 0; u < QPW; ++u) {
+      const int qr = warp * QPW + u;
       if (q0 + qr >= Q) break;  // warp-uniform
+      float tv = tau_v[qr];
+      int tx = tau_x[qr], nk = n_kept[qr], nb = n_buf[qr];
+      float* v = sv + qr * C;
+      int* x = sx + qr * C;
+#pragma unroll 1
       for (int c0 = 0; c0 < TN; c0 += 32) {
-        const int c = c0 + lane, n = n0 + c;
-        topk::warp_offer(tv + qr * r, ti + qr * r, r, ds[qr * TN + c], n, n < N);
+        const int n = n0 + c0 + lane;
+        const float sc = ds[qr * LDD + c0 + lane];
+        bool admit = n < N && key_less(sc, n, tv, tx);
+        unsigned m = __ballot_sync(FULL, admit);
+        if (!m) continue;
+        if (nb + __popc(m) > B) {
+          nk = warp_flush(v, x, r, B, nk, nb);
+          nb = 0;
+          if (nk == r) { tv = v[r - 1]; tx = x[r - 1]; }
+          admit = admit && key_less(sc, n, tv, tx);
+          m = __ballot_sync(FULL, admit);
+        }
+        if (admit) {
+          const int at = r + nb + __popc(m & below);
+          v[at] = sc;
+          x[at] = n;
+        }
+        nb += __popc(m);
       }
+      if (lane == 0) { tau_v[qr] = tv; tau_x[qr] = tx; n_kept[qr] = nk; n_buf[qr] = nb; }
     }
     __syncthreads();
   }
 
-  for (int e = tid; e < TQ * r; e += THREADS) {
-    const int qr = e / r, j = e % r, qi = q0 + qr;
-    if (qi < Q) {
-      const size_t o = (static_cast<size_t>(qi) * S + s) * r + j;
-      part_v[o] = tv[e];
-      part_i[o] = ti[e];
+  // the split's sorted run of r, padded with (BIG, N)
+#pragma unroll 1
+  for (int u = 0; u < QPW; ++u) {
+    const int qr = warp * QPW + u, qi = q0 + qr;
+    if (qi >= Q) break;  // warp-uniform
+    float* v = sv + qr * C;
+    int* x = sx + qr * C;
+    int nk = n_kept[qr];
+    const int nb = n_buf[qr];
+    if (nb) nk = warp_flush(v, x, r, B, nk, nb);
+    const size_t o = (static_cast<size_t>(qi) * S + s) * r;
+    for (int j = lane; j < r; j += 32) {
+      part_v[o + j] = j < nk ? v[j] : BIG;
+      part_i[o + j] = j < nk ? x[j] : N;
     }
   }
 }

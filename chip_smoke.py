@@ -19,12 +19,15 @@ Phases, each printing one JSON line:
                   1000003}, Q in {1, 32, 512}, both metrics, r in {40,
                   128}, and r in {256, 512, 1024} at Q in {1, 32};
                   duplicated gallery rows that straddle the r-th candidate
-                  at r = 40, 128 and 1024), K2 and the exact rerank on
+                  at r = 40, 128 and 1024, 2,000 equal rows at consecutive
+                  indices at r = 40 and 1024, a gallery in the selection's
+                  worst order), K2 and the exact rerank on
                   float32 and bf16 rows against the plain int8 route, K2's
-                  times at the serving shape and at r in {256, 512, 1024},
-                  the int8 route whole (K2's and the plain scan's) at the
-                  same r, and the engine's two int8 routes timed at 10,000
-                  to 1,000,000 rows.
+                  times at the serving shape, at r in {256, 512, 1024} and
+                  on the worst order, the int8 route whole (K2's and the
+                  plain scan's) at the same r and Q in {1, 32}, and the
+                  engine's two int8 routes timed at 10,000 to 1,000,000
+                  rows.
 4. probe_k1    -- P1's three levels against their plain version (N =
                   102,400, Q in {32, 512}, a d2pos with hits), then P1's
                   levels and K1 in both forms on the probe's own inputs at
@@ -62,6 +65,7 @@ Imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -364,6 +368,24 @@ def _k2_inputs(g, q, metric, gen, near=None):
     return q8, s_q, qg.q8, qg.scale, qg.sq_norm
 
 
+def _k2_worst_order(gen):
+    """K2's inputs in the selection's worst order: 32 copies of one query
+    over a gallery whose rows are sorted by descending score against it,
+    so that every row beats all rows before it."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import quant_fused as qf
+
+    g = torch.randn((QUANT_N, D), generator=gen, device="cuda")
+    q8, s_q, g8, g_scale, g_sq = _k2_inputs(g, 1, "euclidean", gen)
+    del g
+    score = qf.approx_scores(q8, s_q, g8, g_scale, g_sq, "euclidean")[0]
+    order = torch.argsort(score, descending=True)
+    return (q8.expand(32, D).contiguous(), s_q.expand(32).contiguous(),
+            g8[order].contiguous(), g_scale[order].contiguous(),
+            g_sq[order].contiguous())
+
+
 def _k2_compare(inputs, r, metric, what):
     import torch
 
@@ -432,6 +454,29 @@ def phase_kernels_k2(state) -> None:
         cases.append(["ties", 32, metric, 1024])
         del inputs
     del g
+    # 2,000 equal rows at consecutive indices: the ties cross the selection
+    # buffer's flushes and the r-th candidate within a split
+    g = torch.randn((QUANT_N, D), generator=gen, device="cuda")
+    start = 128 * 1000
+    g[start:start + 2000] = g[start].clone()
+    for metric in ("euclidean", "cosine"):
+        inputs = _k2_inputs(g, 32, metric, gen, near=start)
+        for r in (R, 1024):
+            out, err = _k2_compare(inputs, r, metric,
+                                   f"consecutive ties {metric} {r}")
+            max_err = max(max_err, err)
+            want = torch.arange(start, start + r, device="cuda",
+                                dtype=torch.int32)
+            check(bool((out[1] == want).all()),
+                  f"K2 consecutive ties at r = {r}: index order")
+            cases.append(["consecutive ties", 32, metric, r])
+        del inputs
+    del g
+    worst_inputs = _k2_worst_order(gen)
+    for r in (R, 1024):
+        _, err = _k2_compare(worst_inputs, r, "euclidean", f"worst order {r}")
+        max_err = max(max_err, err)
+        cases.append(["worst order", 32, "euclidean", r])
 
     # the route around K2 on the card: queries near 32 gallery rows, K2 and
     # the exact rerank on float32 and on bf16 rows, against the plain route
@@ -505,7 +550,17 @@ def phase_kernels_k2(state) -> None:
                      "plain_ms": r_plain_ms, "bound_ms": r_bound,
                      "bound_by": r_by, "library_ms": r_library_ms})
     state["k2"]["r_gt_128"] = wide
-    del inputs, q8, g8
+    # the worst order for the selection: every row beats all before it
+    worst = []
+    for r in (R, 1024):
+        kw = dict(r=r, metric="euclidean")
+        worst.append({
+            "r": r,
+            "worst_order_ms": time_ms(lambda: qf.quant_candidates_cuda(
+                *worst_inputs, **kw), reps=5),
+            "ms": time_ms(lambda: qf.quant_candidates_cuda(*inputs, **kw),
+                          reps=5)})
+    del inputs, q8, g8, worst_inputs
     # K2 at other batch buckets and candidate budgets, beside each bound
     by_q = []
     for q, r in ((1, R), (8, R), (32, 128), (512, R)):
@@ -517,10 +572,11 @@ def phase_kernels_k2(state) -> None:
     # the int8 route whole past the engine's envelope (rerank_factor 8, k =
     # r / 8): K2's and the plain scan's, each as a dispatch runs it (results
     # to the host), to find where they cross
-    x = torch.randn((32, D), generator=gen, device="cuda")
     qg = quant.quantize_gallery(g, "euclidean")
     route_wide = []
-    for r in R_WIDE:
+    for q, r in itertools.product((1, 32), R_WIDE):
+        x = torch.randn((q, D), generator=gen, device="cuda")
+
         def k2_route():
             return quant.retrieve_quantized_fused(x, qg, g, k=r // 8,
                                                   rerank_factor=8,
@@ -532,8 +588,8 @@ def phase_kernels_k2(state) -> None:
 
         a, b = k2_route(), plain_route()
         check(np.array_equal(a[1], b[1]) and np.array_equal(a[0], b[0]),
-              f"K2 route equals the plain int8 route at r = {r}")
-        route_wide.append({"q": 32, "n": QUANT_N, "k": r // 8, "r": r,
+              f"K2 route equals the plain int8 route at Q = {q}, r = {r}")
+        route_wide.append({"q": q, "n": QUANT_N, "k": r // 8, "r": r,
                            "k2_route_ms": time_ms(k2_route, reps=5),
                            "plain_route_ms": time_ms(plain_route, reps=5)})
     del g, qg
@@ -565,7 +621,8 @@ def phase_kernels_k2(state) -> None:
           "case_rows": cases, "kernel_ms_runs": [kernel_ms, kernel_ms2],
           **{k: v for k, v in state["k2"].items() if k.endswith("ms")},
           "bound_by": bound_by, "quantize_gallery_ms": quantize_ms,
-          "by_q": by_q, "r_gt_128": wide, "route_r_gt_128": route_wide,
+          "by_q": by_q, "r_gt_128": wide, "worst_order": worst,
+          "route_r_gt_128": route_wide,
           "routes_by_n": by_n})
 
 
