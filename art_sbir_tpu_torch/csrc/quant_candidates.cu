@@ -20,59 +20,74 @@
 //  * At the serving shape, Q = 32 queries, N = 1,000,000 rows, D = 1024,
 //    the gallery read is N*D int8 bytes plus 8N bytes of scale and g_sq,
 //    about 1.056 GB: 0.315 ms. The operations are 2*Q*N*D = 67.1 G, 0.034 ms
-//    at the int8 tensor-core rate. So bytes set the bound, and the kernel
-//    must keep enough of the gallery in flight while it multiplies and
-//    selects.
-//  * A per-query running top-r kept sorted by insertion costs, per split,
-//    about r * (1 + ln(rows / r)) insertions that each shift half the list:
-//    at r = 1024 that, not the bytes, set the time. The products on
-//    __dp4a, staged synchronously, cost about 0.9 ms even at Q = 1.
+//    at the int8 tensor-core rate. So bytes set the bound: the kernel must
+//    keep enough of the gallery in flight while it multiplies and selects.
+//  * The selection. Split into S parts, a running top-r admits about
+//    r * (1 + ln(rows per split / r)) keys per query and split (249,000 per
+//    query over the 66 splits of r = 1024), and a top-r kept sorted by
+//    insertion shifts half its list for each. That, not the bytes, set the
+//    time at large r, and its block barriers stalled the products.
 //
 // Design. The TPU kernel's per-lane top-`depth` file, 128-lane segment fold
 // and certificate were shaped by the TPU's vector unit and its in-order
-// grid; none is carried over. Two passes, as in K1:
+// grid; none is carried over. Two passes:
 //
-//  1. k2_partial<TQ>, grid (ceil(Q/TQ), S), 4 warps. Split s owns a
-//     contiguous range of 128-row gallery tiles and walks them in 64-byte
-//     chunks of D. A ring of STAGES shared-memory stages is filled with
-//     16-byte cp.async copies (rows past Q or N and bytes past D are
-//     zero-filled, which leaves the int32 sums unchanged), so the next
-//     chunks are in flight while the current one is multiplied. Each warp
-//     owns a TQ x 32 sub-tile of the TQ x 128 output and runs
+//  1. k2_partial<TQ, ST>, grid (ceil(Q/TQ), S), 8 warps. Split s owns a
+//     contiguous range of 128-row gallery tiles and walks them in 128-byte
+//     chunks of D (whole cache lines of each row). A ring of ST shared-
+//     memory stages is filled by 16-byte cp.async copies (rows past Q or N
+//     and bytes past D are zero-filled, which leaves the int32 sums
+//     unchanged), and the L2 is asked for each row's line PREFETCH chunks
+//     ahead (and for the tile's scales and squared norms), so the stream
+//     stays in flight while a chunk is multiplied.
+//     Each warp owns a TQ x 16 sub-tile of the TQ x 128 output and runs
 //     mma.sync.m16n8k32 s8.s8.s32 on it: fragments are plain 32-bit shared
-//     loads from rows padded to 80 bytes (conflict-free), and the int32
+//     loads from rows padded to 144 bytes (conflict-free), and the int32
 //     sums are exact in any order (1024 * 127^2 < 2^31, no .satfinite).
 //     After a tile's last chunk the epilogue writes the TQ x 128 scores to
 //     shared memory.
-//     Selection: warp w owns queries [w * TQ/4, (w + 1) * TQ/4). Each query
-//     keeps a threshold tau, the r-th smallest (score, index) key kept so
-//     far ((3e38, N) until r keys are kept), the kept keys sorted, and an
-//     unsorted buffer of B entries. Per 32 scores the warp ballots key <
-//     tau; the lanes that pass append at base + popc(ballot & lanes below):
-//     one store each, nothing moves. When the next append would overflow
-//     the buffer, the warp sorts the buffer (bitonic, in shared memory),
-//     merges it with the kept keys by rank (each key's place is its index
-//     plus its count of smaller keys in the other list, by binary search;
-//     kept keys move down from the top, so the merge is in place), keeps
-//     the r smallest and sets tau to the r-th. A key that was never
-//     admitted was >= tau, and tau only falls, so the result is exact by
-//     construction; all comparisons are (score, index) with strict <, so
-//     among equal scores, such as duplicated rows, the smaller index wins.
-//     At r = 1024 about a dozen such merges over <= 1,280 keys replace
-//     some 3,800 shifting insertions per query and split. At the end of the
-//     split the warp merges what is buffered and writes the sorted r.
-//  2. k2_merge, one block per query: the r smallest of the S sorted partial
-//     runs (topk::merge_runs).
+//     Selection, per tile: warp w owns queries [w * TQ/8, (w + 1) * TQ/8).
+//     Each query keeps its kept keys sorted and an unsorted buffer of B
+//     entries (64, or 128 above r = 512). Per 32
+//     scores the warp ballots key < tau; the lanes that pass append at
+//     base + popc(ballot & lanes below): one store each, nothing moves.
+//     When an append would overflow the buffer, the warp flushes: it sorts
+//     the buffer in registers (a bitonic network over shuffles), merges it
+//     with the kept keys by rank (a key's place is its index plus its count
+//     of smaller keys in the other list; the binary searches run eight at a
+//     time, and kept keys move down from the top, so the merge is in
+//     place) and keeps the r smallest. A pad word every 32 entries keeps
+//     the searches' strided probes on distinct banks.
+//     tau is the smaller of two bounds: the query's own r-th kept key, and
+//     a bound the splits share. Split s publishes its m-th smallest kept
+//     key, m = ceil(r / S), in a slot of device memory; once every split
+//     has published, the largest slot has S * m >= r keys at or below it,
+//     and atomicMin keeps the smallest such maximum. Either way a key at or
+//     above tau has r smaller keys and cannot be among the r best, and keys
+//     are unique, so strict < is exact, and kept keys above tau are
+//     dropped, which keeps the flushes short. At r = 1024 the keys admitted
+//     per query fall from about 249,000 (the estimate above) to about
+//     39,000 (scripts/probe_k2_parts.py), the fill of each split's first
+//     r keys included. All comparisons are
+//     (score, index), so among equal scores, such as duplicated rows, the
+//     smaller index wins.
+//  2. k2_merge, one block per query, over the S sorted partial runs: it
+//     gathers the entries at or below the final shared bound (a superset
+//     of the r best, a few times r), sorts them (bitonic, shared memory)
+//     and writes the first r. Where they do not fit, the tournament merge
+//     of the runs (topk::merge_runs) takes over. Both are exact, so `exact`
+//     is 1 on every row.
 //
-// Shared memory of a block: STAGES * (TQ + 128) * 80 bytes of staging,
-// TQ * 136 * 4 of scores and TQ * (r + B) * 8 of selection, with B = r/4
-// rounded up to a power of two in [32, 256]. TQ = 32 (3 stages) up to
-// r = 512: 38.4 + 17.4 + 163.8 KB = 220 KB at r = 512, and about 74 KB at
-// r = 40 (B = 32), so three blocks fit an SM. TQ = 16 (4 stages) above:
-// 46.1 + 8.7 + 163.8 KB = 219 KB at r = 1024 (B = 256). A block may have
-// 227 KB. k2_first_pass reports how many blocks fit on an SM
+// Shared memory of a block: ST * (TQ + 128) * 144 bytes of staging,
+// TQ * 132 * 4 of scores and TQ * (r + B) * 8 (plus pads) of selection.
+// TQ = 32 up to r = 512, 16 above. ST = 3 where two blocks still fit on an
+// SM (111 KB at r = 40), 2 where only two stages let two fit (111 KB at
+// r = 128), else 3 where one block holds them: 167 KB at r = 256, 218 KB
+// at r = 1024; r = 512 takes two stages, 210 KB. A block may have 227 KB.
+// k2_first_pass reports how many blocks fit on an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the wrapper sizes S
-// to the blocks that fit on the card at once.
+// to the blocks that fit on the card at once, so every split runs in the
+// first wave and publishes.
 //
 // Sentinel: score 3e38 with index N.
 
@@ -85,19 +100,24 @@ using topk::FULL;
 using topk::key_less;
 
 // The constants marked "must match" are repeated in ops/quant_fused.py.
-constexpr int R_MAX = 1024;    // must match
-constexpr int TQ_WIDE = 512;   // the largest r with 32 queries per block
-constexpr int TN = 128;        // gallery rows per tile; must match
-constexpr int DK = 64;         // bytes of D in one staged chunk
-constexpr int DKW = DK / 4;    // the same in 32-bit words of 4 int8
-constexpr int LDW = DKW + 1;   // padded shared row: conflict-free column reads
-constexpr int CPT = 8;         // gallery rows per thread
-constexpr int LDD = TN + 8;    // padded row of the score tile, in floats
-constexpr int VEC = 16;        // bytes per cp.async copy
-constexpr int THREADS = 128;   // 4 warps, each a TQ x 32 sub-tile
-constexpr int B_MIN = 32, B_MAX = 256;  // selection buffer per query
+constexpr int R_MAX = 1024;      // must match
+constexpr int TQ_WIDE = 512;     // the largest r with 32 queries per block
+constexpr int TN = 128;          // gallery rows per tile; must match
+constexpr int DK = 128;          // bytes of D in one staged chunk (four k32 steps)
+constexpr int LDW = DK / 4 + 4;  // padded shared row in 32-bit words (144 bytes)
+constexpr int LDD = TN + 4;      // padded row of the score tile, in floats
+constexpr int VEC = 16;          // bytes per cp.async copy
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;  // each warp a TQ x 16 sub-tile
+constexpr int WN = TN / WARPS;       // gallery rows of a warp's sub-tile
+constexpr int PREFETCH = 4;          // chunks ahead that the L2 is asked for
+constexpr int GROUP = 8;             // runs of kept keys a flush moves at once
+constexpr size_t TWO_BLOCKS = 113 * 1024;  // the most two blocks of an SM may each take
+constexpr size_t ONE_BLOCK = 227 * 1024;   // the most one block may take
 constexpr int MERGE_THREADS = 256;
-constexpr int MERGE_HEADS = 4;  // runs per merge thread: S <= 1024
+constexpr int MERGE_HEADS = 4;   // runs per merge thread: S <= 1024
+constexpr int MERGE_CAP = 4096;  // keys the merge gathers and sorts in shared memory
+constexpr unsigned long long NONE = ~0ull;  // no bound yet
 
 // `_quant_core`'s approximate score from the exact int32 cross term.
 __device__ __forceinline__ float approx_score(int metric, float sq, float gsc,
@@ -106,217 +126,398 @@ __device__ __forceinline__ float approx_score(int metric, float sq, float gsc,
   return metric == 0 ? __fsub_rn(gsq, __fmul_rn(2.0f, dot)) : -dot;
 }
 
-// The selection buffer for a budget of r: r / 4 rounded up to a power of
-// two, within [B_MIN, B_MAX].
-__host__ __device__ inline int buffer_len(int r) {
-  int b = B_MIN;
-  while (b < B_MAX && 4 * b < r) b *= 2;
-  return b;
-}
+// The selection buffer per query for a budget of r: 64 keys, 128 above
+// r = 512 (a power of two: the flush sorts it in registers).
+__host__ __device__ inline int buffer_len(int r) { return r > TQ_WIDE ? 128 : 64; }
 
-template <int TQ>
+// Element e of a query's key list lives at word e + e / 32: a pad word
+// every 32 keeps the strided probes of a binary search on distinct banks.
+__host__ __device__ inline int at(int e) { return e + (e >> 5); }
+
+// Words of one query's key list: r kept keys, then the buffer.
+__host__ __device__ inline int list_words(int r) { return at(r + buffer_len(r) - 1) + 1; }
+
+template <int TQ, int ST>
 size_t partial_smem(int r) {
-  return sizeof(int) * (TQ + TN) * LDW + sizeof(float) * TQ * LDD +
-         (sizeof(float) + sizeof(int)) * TQ * (r + buffer_len(r)) +
-         sizeof(int) * 4 * TQ;
+  return sizeof(int) * ST * (TQ + TN) * LDW + sizeof(float) * TQ * LDD +
+         (sizeof(float) + sizeof(int)) * TQ * list_words(r) +
+         (sizeof(unsigned long long) + 2 * sizeof(int)) * TQ;
 }
 
-// Stage rows [row0, row0 + rows) of a (limit, D) int8 matrix, bytes
-// [d0, d0 + DK), as 32-bit words into dst (rows x LDW). Rows past `limit`
-// and bytes past D are zero: a zero product leaves the int32 sum unchanged.
-__device__ __forceinline__ void stage(const int8_t* __restrict__ src, int row0,
-                                      int rows, int limit, int D, int d0,
-                                      int* __restrict__ dst) {
+// (score, index) as one integer in the same order (-0.0 as +0.0, as the
+// float compare has it), for the bounds the splits share.
+__device__ __forceinline__ unsigned long long pack_key(float v, int n) {
+  unsigned u = __float_as_uint(__fadd_rn(v, 0.0f));
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(u) << 32) | static_cast<unsigned>(n);
+}
+
+__device__ __forceinline__ unsigned long long load_l2(const unsigned long long* p) {
+  return static_cast<unsigned long long>(__ldcg(reinterpret_cast<const long long*>(p)));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// c += a . b over one 16 x 8 x 32 int8 tile (a row-major, b column-major).
+__device__ __forceinline__ void mma_s8(int* c, const int* a, const int* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Start the copy of rows [row0, row0 + rows) of a (limit, D) int8 matrix,
+// bytes [d0, d0 + DK), into dst (rows x LDW words). Rows past `limit` and
+// bytes past D are zero-filled (a copy of 0 source bytes).
+__device__ __forceinline__ void stage_async(const int8_t* __restrict__ src, int row0,
+                                            int rows, int limit, int D, int d0,
+                                            int* __restrict__ dst) {
   for (int e = threadIdx.x; e < rows * (DK / VEC); e += THREADS) {
     const int r = e / (DK / VEC), c = (e % (DK / VEC)) * VEC;
     const int row = row0 + r, dd = d0 + c;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (row < limit && dd < D)
-      v = __ldg(reinterpret_cast<const int4*>(src + static_cast<size_t>(row) * D + dd));
-    int* w = dst + r * LDW + c / 4;
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    const bool in = row < limit && dd < D;
+    cp_async16(dst + r * LDW + c / 4,
+               in ? src + static_cast<size_t>(row) * D + dd : src, in ? VEC : 0);
   }
 }
 
-// The number of keys of the sorted list (v, x)[0, n) below (kv, ki).
-__device__ __forceinline__ int count_less(const float* v, const int* x, int n, float kv,
-                                          int ki) {
-  int pos = 0;
+// pos[m] = the number of keys of the sorted elements [e0, e0 + n) below
+// (kv[m], kx[m]); the M binary searches advance together.
+template <int M>
+__device__ __forceinline__ void count_less(const float* v, const int* x, int e0, int n,
+                                           const float (&kv)[M], const int (&kx)[M],
+                                           int (&pos)[M]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) pos[m] = 0;
   for (int s = n ? 1 << (31 - __clz(n)) : 0; s; s >>= 1)
-    if (pos + s <= n && key_less(v[pos + s - 1], x[pos + s - 1], kv, ki)) pos += s;
-  return pos;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int q = pos[m] + s;
+      if (q <= n) {
+        const int a = at(e0 + q - 1);
+        if (key_less(v[a], x[a], kv[m], kx[m])) pos[m] = q;
+      }
+    }
 }
 
-// One warp sorts (v, x)[0, B) ascending by key; B is a power of two.
-__device__ void warp_bitonic_sort(float* v, int* x, int B) {
+// One warp sorts 32 * U keys held in registers ascending (bitonic): key e
+// is (v[e / 32], x[e / 32]) of lane e % 32.
+template <int U>
+__device__ __forceinline__ void warp_sort(float (&v)[U], int (&x)[U]) {
   const int lane = threadIdx.x & 31;
-  for (int k = 2; k <= B; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = lane; t < B / 2; t += 32) {
-        const int i = 2 * t - (t & (j - 1)), p = i + j;
-        const float a = v[i], b = v[p];
-        const int ai = x[i], bi = x[p];
-        if (key_less(b, bi, a, ai) == ((i & k) == 0)) {
-          v[i] = b; x[i] = bi;
-          v[p] = a; x[p] = ai;
+#pragma unroll
+  for (int k = 2; k <= 32 * U; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const bool up = (((u << 5) | lane) & k) == 0;
+        if (j >= 32) {  // partner u ^ (j / 32) in the same lane
+          const int w = u ^ (j >> 5);
+          if (w > u && key_less(v[w], x[w], v[u], x[u]) == up) {
+            const float tv = v[u]; v[u] = v[w]; v[w] = tv;
+            const int tx = x[u]; x[u] = x[w]; x[w] = tx;
+          }
+        } else {  // partner lane ^ j; the lower of an ascending pair keeps the min
+          const float ov = __shfl_xor_sync(FULL, v[u], j);
+          const int ox = __shfl_xor_sync(FULL, x[u], j);
+          if (key_less(ov, ox, v[u], x[u]) == (up == ((lane & j) == 0))) {
+            v[u] = ov;
+            x[u] = ox;
+          }
         }
       }
-      __syncwarp();
-    }
 }
 
-// One warp folds a query's nb buffered keys into its nk kept keys: kept
-// (v, x)[0, r) sorted, buffer (v, x)[r, r + B). Keeps the min(r, nk + nb)
-// smallest, sorted, in [0, r) and returns their count.
-__device__ int warp_flush(float* v, int* x, int r, int B, int nk, int nb) {
+// One warp folds a query's nb buffered keys (elements [r, r + nb)) into
+// its nk kept keys (elements [0, nk), sorted); B = 32 * U. Keeps the
+// min(r, nk + nb) smallest, sorted, in elements [0, r) and returns their
+// count.
+template <int U>
+__device__ int warp_flush(float* v, int* x, int r, int nk, int nb) {
   const int lane = threadIdx.x & 31;
-  float* bv = v + r;
-  int* bx = x + r;
   __syncwarp();
-  for (int j = nb + lane; j < B; j += 32) { bv[j] = INFINITY; bx[j] = INT32_MAX; }
-  __syncwarp();
-  warp_bitonic_sort(bv, bx, B);
-  // each buffered key's place in the merged list, found while the kept
-  // list is intact
-  float pv[B_MAX / 32];
-  int px[B_MAX / 32], pp[B_MAX / 32];
+  float bv[U];
+  int bx[U], pp[U];
 #pragma unroll
-  for (int u = 0; u < B_MAX / 32; ++u) {
-    const int j = lane + 32 * u;
-    pv[u] = 0.0f; px[u] = 0; pp[u] = r;
-    if (j < nb) {
-      pv[u] = bv[j]; px[u] = bx[j];
-      pp[u] = j + count_less(v, x, nk, pv[u], px[u]);
-    }
+  for (int u = 0; u < U; ++u) {
+    const int j = 32 * u + lane;
+    bv[u] = j < nb ? v[at(r + j)] : INFINITY;
+    bx[u] = j < nb ? x[at(r + j)] : INT32_MAX;
   }
-  __syncwarp();  // every search of the kept list ends before a key moves
+  warp_sort<U>(bv, bx);
+#pragma unroll
+  for (int u = 0; u < U; ++u) { v[at(r + 32 * u + lane)] = bv[u]; x[at(r + 32 * u + lane)] = bx[u]; }
+  // each buffered key's place in the merged list: its rank plus the kept
+  // keys below it, found while the kept list is intact
+  count_less<U>(v, x, 0, nk, bv, bx, pp);
+#pragma unroll
+  for (int u = 0; u < U; ++u) pp[u] = 32 * u + lane < nb ? pp[u] + 32 * u + lane : r;
+  __syncwarp();  // the sorted buffer is written, every search of the kept list done
   // kept keys below the smallest buffered key stay; the others move down
-  // to index + (buffered keys below them), from the top run of 32 down, so
-  // every move lands on a slot already read
+  // to index + (buffered keys below them), GROUP runs of 32 at a time from
+  // the top, each group read before it is written, so every move lands on
+  // a slot already read
   const int first = __shfl_sync(FULL, pp[0], 0);
-  for (int base = (nk - 1) & ~31; base >= (first & ~31); base -= 32) {
-    const int i = base + lane;
-    float kv = 0.0f;
-    int kx = 0, p = r;
-    if (i < nk && i >= first) { kv = v[i]; kx = x[i]; p = i + count_less(bv, bx, nb, kv, kx); }
+  for (int top = (nk - 1) >> 5; top >= 0 && top >= first >> 5; top -= GROUP) {
+    float kv[GROUP];
+    int kx[GROUP], kp[GROUP];
+#pragma unroll
+    for (int m = 0; m < GROUP; ++m) {
+      const int i = 32 * (top - m) + lane;
+      const bool moves = i >= first && i < nk;  // false below run 0 too
+      kv[m] = moves ? v[at(i)] : INFINITY;
+      kx[m] = moves ? x[at(i)] : INT32_MAX;
+    }
+    count_less<GROUP>(v, x, r, nb, kv, kx, kp);
     __syncwarp();
-    if (p < r && p != i) { v[p] = kv; x[p] = kx; }
+#pragma unroll
+    for (int m = 0; m < GROUP; ++m) {
+      const int i = 32 * (top - m) + lane, p = i + kp[m];
+      if (i >= first && i < nk && p < r) { v[at(p)] = kv[m]; x[at(p)] = kx[m]; }
+    }
     __syncwarp();
   }
 #pragma unroll
-  for (int u = 0; u < B_MAX / 32; ++u)
-    if (pp[u] < r) { v[pp[u]] = pv[u]; x[pp[u]] = px[u]; }
+  for (int u = 0; u < U; ++u)
+    if (pp[u] < r) { v[at(pp[u])] = bv[u]; x[at(pp[u])] = bx[u]; }
   __syncwarp();
   return min(r, nk + nb);
 }
 
-template <int TQ>
+__device__ __forceinline__ int flush(float* v, int* x, int r, int B, int nk, int nb) {
+  return B == 64 ? warp_flush<2>(v, x, r, nk, nb) : warp_flush<4>(v, x, r, nk, nb);
+}
+
+// The number of the nk sorted kept keys at or below t: the keys above it
+// have r smaller ones elsewhere and can go. Called by the whole warp.
+__device__ __forceinline__ int drop_above(const float* v, const int* x, int nk,
+                                          unsigned long long t) {
+  if (nk == 0 || pack_key(v[at(nk - 1)], x[at(nk - 1)]) <= t) return nk;  // warp-uniform
+  int pos = 0;
+  for (int s = 1 << (31 - __clz(nk)); s; s >>= 1)
+    if (pos + s <= nk && pack_key(v[at(pos + s - 1)], x[at(pos + s - 1)]) <= t) pos += s;
+  return pos;
+}
+
+// After a flush that left at least m kept keys: publish the query's m-th
+// smallest key in this split's slot if it fell, take the largest slot (a
+// bound once every split has published: S * m >= r keys lie at or below
+// it), keep the smallest such bound in *bound, and lower t to it. Called
+// by the whole warp.
+__device__ void publish(const float* v, const int* x, int m, unsigned long long* mine,
+                        unsigned long long* slots, int s, int S,
+                        unsigned long long* bound, unsigned long long& t) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long key = pack_key(v[at(m - 1)], x[at(m - 1)]);
+  if (key >= *mine) return;  // warp-uniform
+  __syncwarp();
+  if (lane == 0) {
+    *mine = key;
+    __stcg(reinterpret_cast<long long*>(slots + s), static_cast<long long>(key));
+  }
+  unsigned long long top = 0;
+  for (int i = lane; i < S; i += 32) top = max(top, i == s ? key : load_l2(slots + i));
+  for (int off = 16; off > 0; off >>= 1) top = max(top, __shfl_xor_sync(FULL, top, off));
+  if (top == NONE) return;  // a split has not published yet
+  if (lane == 0) atomicMin(bound, top);
+  t = min(t, top);
+}
+
+template <int TQ, int ST>
 __global__ void __launch_bounds__(THREADS)
 k2_partial(const int8_t* __restrict__ q8, const float* __restrict__ s_q,
            const int8_t* __restrict__ g8, const float* __restrict__ g_scale,
            const float* __restrict__ g_sq, int Q, int N, int D, int r,
-           int metric, float* __restrict__ part_v, int* __restrict__ part_i) {
-  constexpr int QPT = TQ / 8;   // queries per thread
-  constexpr int QPW = TQ / 4;   // queries a warp selects for
+           int metric, float* __restrict__ part_v, int* __restrict__ part_i,
+           unsigned long long* __restrict__ bounds) {
+  constexpr int MT = TQ / 16;      // m16 tiles of a warp
+  constexpr int NT = WN / 8;       // n8 tiles of a warp
+  constexpr int QPW = TQ / WARPS;  // queries a warp selects for
+  constexpr int STAGE = (TQ + TN) * LDW;
   extern __shared__ int smem[];
-  int* qs = smem;                                        // TQ x LDW  query chunk
-  int* gs = qs + TQ * LDW;                               // TN x LDW  gallery chunk
-  float* ds = reinterpret_cast<float*>(gs + TN * LDW);  // TQ x LDD  scores
-  const int B = buffer_len(r), C = r + B;
+  float* ds = reinterpret_cast<float*>(smem + ST * STAGE);  // TQ x LDD scores
+  const int B = buffer_len(r), C = list_words(r);
   float* sv = ds + TQ * LDD;                          // TQ x C  kept + buffer keys
   int* sx = reinterpret_cast<int*>(sv + TQ * C);      // TQ x C  their indices
-  float* tau_v = reinterpret_cast<float*>(sx + TQ * C);  // TQ thresholds
-  int* tau_x = reinterpret_cast<int*>(tau_v + TQ);
-  int* n_kept = tau_x + TQ;
+  auto* slot = reinterpret_cast<unsigned long long*>(sx + TQ * C);  // TQ published keys
+  int* n_kept = reinterpret_cast<int*>(slot + TQ);
   int* n_buf = n_kept + TQ;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ty = tid / 16, tx = tid % 16;
+  const int g = lane >> 2, tig = lane & 3;
   const int q0 = blockIdx.x * TQ;
   const int S = gridDim.y, s = blockIdx.y;
+  const int m = (r + S - 1) / S;  // the rank each split publishes
+  unsigned long long* slots = bounds + Q;  // bounds: Q shared bounds, then (Q, S) slots
   const int n_tiles = (N + TN - 1) / TN;
   const int t_begin = static_cast<int>(static_cast<long long>(n_tiles) * s / S);
   const int t_end = static_cast<int>(static_cast<long long>(n_tiles) * (s + 1) / S);
+  const int kc = (D + DK - 1) / DK;  // chunks per tile
+  const int total = (t_end - t_begin) * kc;
 
   if (tid < TQ) {
-    tau_v[tid] = BIG; tau_x[tid] = N;
+    slot[tid] = NONE;
     n_kept[tid] = 0; n_buf[tid] = 0;
   }
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int n0 = t * TN;
-    int acc[QPT][CPT];
-#pragma unroll
-    for (int i = 0; i < QPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] = 0;
-
-    for (int d0 = 0; d0 < D; d0 += DK) {
-      stage(q8, q0, TQ, Q, D, d0, qs);
-      stage(g8, n0, TN, N, D, d0, gs);
-      __syncthreads();
-#pragma unroll
-      for (int w = 0; w < DKW; ++w) {
-        int a[QPT], b[CPT];
-#pragma unroll
-        for (int i = 0; i < QPT; ++i) a[i] = qs[(ty * QPT + i) * LDW + w];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) b[j] = gs[(tx + 16 * j) * LDW + w];
-#pragma unroll
-        for (int i = 0; i < QPT; ++i)
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  // the next chunk to stage and the next to prefetch, as (tile, byte of D)
+  int ld_t = t_begin, ld_d = 0, pf_t = t_begin, pf_d = 0;
+  auto advance = [&](int& t, int& d) {
+    if ((d += DK) >= D) { d = 0; ++t; }
+  };
+  auto load = [&](int c) {
+    if (ld_t < t_end) {
+      int* st = smem + (c % ST) * STAGE;
+      stage_async(q8, q0, TQ, Q, D, ld_d, st);
+      stage_async(g8, ld_t * TN, TN, N, D, ld_d, st + TQ * LDW);
+      advance(ld_t, ld_d);
     }
+    cp_async_commit();  // an empty group keeps the count in step
+  };
+  for (int c = 0; c < PREFETCH; ++c) advance(pf_t, pf_d);
+
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
 #pragma unroll
-    for (int i = 0; i < QPT; ++i) {
-      const int qr = ty * QPT + i, qi = q0 + qr;
-      const float sq = qi < Q ? s_q[qi] : 0.0f;
+  for (int c = 0; c < ST - 1; ++c) load(c);
+
+  for (int c = 0; c < total; ++c) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // chunk c has landed; chunk c - 1's stage is free
+    load(c + ST - 1);
+    if (pf_t < t_end) {  // each gallery row's line, PREFETCH chunks ahead
+      const int row = pf_t * TN + tid;
+      if (tid < TN && row < N)
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(g8 + static_cast<size_t>(row) * D +
+                                                       pf_d));
+      // and the tile's scales and squared norms for its epilogue
+      const int n = pf_t * TN + 32 * (tid & 3);
+      if (pf_d == 0 && tid >= TN && tid < TN + 8 && n < N)
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"((tid & 4 ? g_sq : g_scale) + n));
+      advance(pf_t, pf_d);
+    }
+    const int* qs = smem + (c % ST) * STAGE;
+    const int* gs = qs + TQ * LDW + (warp * WN + g) * LDW + tig;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 16 * j, n = n0 + c;
-        ds[qr * LDD + c] = n < N ? approx_score(metric, sq, g_scale[n], g_sq[n], acc[i][j])
-                                 : BIG;
+    for (int kw = 0; kw < DK / 4; kw += 8) {
+      int a[MT][4], b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int* qa = qs + (i * 16 + g) * LDW + kw + tig;
+        a[i][0] = qa[0];
+        a[i][1] = qa[8 * LDW];
+        a[i][2] = qa[4];
+        a[i][3] = qa[8 * LDW + 4];
       }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        b[j][0] = gs[j * 8 * LDW + kw];
+        b[j][1] = gs[j * 8 * LDW + kw + 4];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], a[i], b[j]);
+    }
+    if (c % kc != kc - 1) continue;
+
+    // epilogue of the tile: scores to shared memory, then the selection.
+    // Lane u < TQ/8 fetches the bound the splits share for the warp's
+    // query u.
+    const int n0 = (t_begin + c / kc) * TN;
+    const int q_lane = q0 + warp * QPW + lane;
+    const unsigned long long shared_bound =
+        lane < QPW && q_lane < Q ? load_l2(bounds + q_lane) : NONE;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = warp * WN + j * 8 + 2 * tig;
+      float gsc[2], gsq[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + col + e;
+        gsc[e] = n < N ? g_scale[n] : 0.0f;
+        gsq[e] = n < N ? g_sq[n] : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = i * 16 + g + 8 * h, qi = q0 + row;
+          const float sq = qi < Q ? s_q[qi] : 0.0f;
+          float2 out;
+          out.x = n0 + col < N ? approx_score(metric, sq, gsc[0], gsq[0], acc[i][j][2 * h])
+                               : BIG;
+          out.y = n0 + col + 1 < N
+                      ? approx_score(metric, sq, gsc[1], gsq[1], acc[i][j][2 * h + 1])
+                      : BIG;
+          *reinterpret_cast<float2*>(ds + row * LDD + col) = out;
+          acc[i][j][2 * h] = acc[i][j][2 * h + 1] = 0;
+        }
     }
     __syncthreads();
 
     const unsigned below = (1u << lane) - 1;
 #pragma unroll 1
     for (int u = 0; u < QPW; ++u) {
-      const int qr = warp * QPW + u;
-      if (q0 + qr >= Q) break;  // warp-uniform
-      float tv = tau_v[qr];
-      int tx = tau_x[qr], nk = n_kept[qr], nb = n_buf[qr];
+      const int qr = warp * QPW + u, qi = q0 + qr;
+      if (qi >= Q) break;  // warp-uniform
+      int nk = n_kept[qr], nb = n_buf[qr];
       float* v = sv + qr * C;
       int* x = sx + qr * C;
+      unsigned long long t = __shfl_sync(FULL, shared_bound, u);
+      if (nk == r) t = min(t, pack_key(v[at(r - 1)], x[at(r - 1)]));
+      nk = drop_above(v, x, nk, t);
 #pragma unroll 1
       for (int c0 = 0; c0 < TN; c0 += 32) {
         const int n = n0 + c0 + lane;
         const float sc = ds[qr * LDD + c0 + lane];
-        bool admit = n < N && key_less(sc, n, tv, tx);
-        unsigned m = __ballot_sync(FULL, admit);
-        if (!m) continue;
-        if (nb + __popc(m) > B) {
-          nk = warp_flush(v, x, r, B, nk, nb);
+        const unsigned long long key = pack_key(sc, n);
+        bool admit = n < N && key < t;
+        unsigned adm = __ballot_sync(FULL, admit);
+        if (!adm) continue;
+        if (nb + __popc(adm) > B) {
+          nk = flush(v, x, r, B, nk, nb);
           nb = 0;
-          if (nk == r) { tv = v[r - 1]; tx = x[r - 1]; }
-          admit = admit && key_less(sc, n, tv, tx);
-          m = __ballot_sync(FULL, admit);
+          if (nk == r) t = min(t, pack_key(v[at(r - 1)], x[at(r - 1)]));
+          if (nk >= m)
+            publish(v, x, m, slot + qr, slots + static_cast<size_t>(qi) * S, s, S,
+                    bounds + qi, t);
+          nk = drop_above(v, x, nk, t);
+          admit = admit && key < t;
+          adm = __ballot_sync(FULL, admit);
         }
         if (admit) {
-          const int at = r + nb + __popc(m & below);
-          v[at] = sc;
-          x[at] = n;
+          const int a = at(r + nb + __popc(adm & below));
+          v[a] = sc;
+          x[a] = n;
         }
-        nb += __popc(m);
+        nb += __popc(adm);
       }
-      if (lane == 0) { tau_v[qr] = tv; tau_x[qr] = tx; n_kept[qr] = nk; n_buf[qr] = nb; }
+      if (lane == 0) { n_kept[qr] = nk; n_buf[qr] = nb; }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the per-query counts, also where the split is empty
 
   // the split's sorted run of r, padded with (BIG, N)
 #pragma unroll 1
@@ -327,55 +528,111 @@ k2_partial(const int8_t* __restrict__ q8, const float* __restrict__ s_q,
     int* x = sx + qr * C;
     int nk = n_kept[qr];
     const int nb = n_buf[qr];
-    if (nb) nk = warp_flush(v, x, r, B, nk, nb);
+    if (nb) {
+      nk = flush(v, x, r, B, nk, nb);
+      unsigned long long t = NONE;
+      if (nk >= m)
+        publish(v, x, m, slot + qr, slots + static_cast<size_t>(qi) * S, s, S, bounds + qi,
+                t);
+    }
     const size_t o = (static_cast<size_t>(qi) * S + s) * r;
     for (int j = lane; j < r; j += 32) {
-      part_v[o + j] = j < nk ? v[j] : BIG;
-      part_i[o + j] = j < nk ? x[j] : N;
+      part_v[o + j] = j < nk ? v[at(j)] : BIG;
+      part_i[o + j] = j < nk ? x[at(j)] : N;
     }
   }
 }
 
+// The r best of a query's S sorted partial runs. The entries at or below
+// the shared bound hold the r best; where they fit in MERGE_CAP they are
+// sorted in shared memory, else the runs are merged by a tournament.
 __global__ void __launch_bounds__(MERGE_THREADS)
 k2_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
-         int S, int r, int N, float* __restrict__ vals, int* __restrict__ idx,
-         int* __restrict__ exact) {
-  const int qi = blockIdx.x;
-  if (threadIdx.x == 0) exact[qi] = 1;
+         int S, int r, int N, const unsigned long long* __restrict__ bounds,
+         float* __restrict__ vals, int* __restrict__ idx, int* __restrict__ exact) {
+  __shared__ float cv[MERGE_CAP];
+  __shared__ int cx[MERGE_CAP];
+  __shared__ int count;
+  const int qi = blockIdx.x, tid = threadIdx.x;
   const size_t M = static_cast<size_t>(S) * r;
-  topk::merge_runs<MERGE_THREADS, MERGE_HEADS>(part_v + qi * M, part_i + qi * M, S, r, r, N,
-                                               vals + static_cast<size_t>(qi) * r,
-                                               idx + static_cast<size_t>(qi) * r);
+  const float* pv = part_v + qi * M;
+  const int* pi = part_i + qi * M;
+  float* out_v = vals + static_cast<size_t>(qi) * r;
+  int* out_i = idx + static_cast<size_t>(qi) * r;
+  if (tid == 0) { exact[qi] = 1; count = 0; }
+  __syncthreads();
+  const unsigned long long bound = bounds[qi];
+  if (bound != NONE)
+    for (int run = tid; run < S; run += MERGE_THREADS) {
+      const size_t o = static_cast<size_t>(run) * r;
+      int len = 0;  // the run is sorted: its entries at or below the bound lead it
+      while (len < r && pi[o + len] < N && pack_key(pv[o + len], pi[o + len]) <= bound) ++len;
+      const int a = atomicAdd(&count, len);
+      for (int j = 0; j < len && a + j < MERGE_CAP; ++j) {
+        cv[a + j] = pv[o + j];
+        cx[a + j] = pi[o + j];
+      }
+    }
+  __syncthreads();
+  const int n = count;
+  if (bound == NONE || n > MERGE_CAP || n < r) {  // block-uniform
+    topk::merge_runs<MERGE_THREADS, MERGE_HEADS>(pv, pi, S, r, r, N, out_v, out_i);
+    return;
+  }
+  int P = 1;
+  while (P < n) P <<= 1;
+  for (int i = n + tid; i < P; i += MERGE_THREADS) { cv[i] = INFINITY; cx[i] = INT32_MAX; }
+  __syncthreads();
+  for (int k = 2; k <= P; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = tid; t < P / 2; t += MERGE_THREADS) {
+        const int i = 2 * t - (t & (j - 1)), p = i + j;
+        const float a = cv[i], b = cv[p];
+        const int xa = cx[i], xb = cx[p];
+        if (key_less(b, xb, a, xa) == ((i & k) == 0)) {
+          cv[i] = b; cx[i] = xb;
+          cv[p] = a; cx[p] = xa;
+        }
+      }
+      __syncthreads();
+    }
+  for (int j = tid; j < r; j += MERGE_THREADS) { out_v[j] = cv[j]; out_i[j] = cx[j]; }
 }
 
-// Let k2_partial<TQ> take the shared memory a budget of r needs.
-template <int TQ>
+// Whether the first pass for 32 queries a block and a budget of r takes
+// three stages: where two blocks still fit on an SM, or where two stages
+// leave one block an SM anyway and three fit.
+bool three_stages(int r) {
+  return partial_smem<32, 3>(r) <= TWO_BLOCKS ||
+         (partial_smem<32, 2>(r) > TWO_BLOCKS && partial_smem<32, 3>(r) <= ONE_BLOCK);
+}
+
+// Let k2_partial<TQ, ST> take the shared memory a budget of r needs.
+template <int TQ, int ST>
 cudaError_t allow_smem(int r) {
-  return cudaFuncSetAttribute(k2_partial<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(partial_smem<TQ>(r)));
+  return cudaFuncSetAttribute(k2_partial<TQ, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(partial_smem<TQ, ST>(r)));
 }
 
-// How many blocks of k2_partial<TQ> fit on one SM of the current device at
-// once for a budget of r (registers, threads and shared memory).
-template <int TQ>
+// How many blocks of k2_partial<TQ, ST> fit on one SM of the current device
+// at once for a budget of r (registers, threads and shared memory).
+template <int TQ, int ST>
 int occupancy(int r, int* blocks_per_sm) {
-  const cudaError_t err = allow_smem<TQ>(r);
+  const cudaError_t err = allow_smem<TQ, ST>(r);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, k2_partial<TQ>, THREADS, partial_smem<TQ>(r)));
+      blocks_per_sm, k2_partial<TQ, ST>, THREADS, partial_smem<TQ, ST>(r)));
 }
 
-template <int TQ>
+template <int TQ, int ST>
 int launch(const int8_t* q8, const float* s_q, const int8_t* g8, const float* g_scale,
            const float* g_sq, int Q, int N, int D, int r, int metric, int splits,
-           float* part_v, int* part_i, cudaStream_t st) {
-  const auto partial = k2_partial<TQ>;
-  const size_t smem = partial_smem<TQ>(r);
-  const cudaError_t err = allow_smem<TQ>(r);
+           float* part_v, int* part_i, unsigned long long* bounds, cudaStream_t st) {
+  const cudaError_t err = allow_smem<TQ, ST>(r);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Q + TQ - 1) / TQ, splits);
-  partial<<<grid, THREADS, smem, st>>>(q8, s_q, g8, g_scale, g_sq, Q, N, D, r, metric,
-                                       part_v, part_i);
+  k2_partial<TQ, ST><<<grid, THREADS, partial_smem<TQ, ST>(r), st>>>(
+      q8, s_q, g8, g_scale, g_sq, Q, N, D, r, metric, part_v, part_i, bounds);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -388,28 +645,42 @@ int launch(const int8_t* q8, const float* s_q, const int8_t* g8, const float* g_
 extern "C" int k2_first_pass(int r, int* tq, int* blocks_per_sm) {
   if (r < 1 || r > R_MAX) return static_cast<int>(cudaErrorInvalidValue);
   *tq = r <= TQ_WIDE ? 32 : 16;
-  return r <= TQ_WIDE ? occupancy<32>(r, blocks_per_sm) : occupancy<16>(r, blocks_per_sm);
+  if (r > TQ_WIDE) return occupancy<16, 3>(r, blocks_per_sm);
+  return three_stages(r) ? occupancy<32, 3>(r, blocks_per_sm)
+                         : occupancy<32, 2>(r, blocks_per_sm);
 }
 
 // Plain C entry point (loaded with ctypes). Shapes: q8 (Q, D) int8, s_q (Q,),
 // g8 (N, D) int8, g_scale (N,), g_sq (N,), float32 unless noted,
 // contiguous, 16-byte aligned, D % 16 == 0, 1 <= r <= min(1024, N),
-// 1 <= splits <= 1024. Scratch: part_v (Q, S, r), part_i (Q, S, r).
-// Outputs: vals (Q, r), idx (Q, r) int32, exact (Q,) int32. Launches on
-// `stream`, does not synchronise, returns cudaGetLastError().
+// 1 <= splits <= 1024. Scratch: part_v (Q, S, r), part_i (Q, S, r),
+// bounds (Q * (S + 1),) 64-bit, set here. Outputs: vals (Q, r), idx (Q, r)
+// int32, exact (Q,) int32. Launches on `stream`, does not synchronise,
+// returns cudaGetLastError().
 extern "C" int k2_quant_candidates(
     const int8_t* q8, const float* s_q, const int8_t* g8, const float* g_scale,
     const float* g_sq, int Q, int N, int D, int r, int metric, int splits,
-    float* part_v, int* part_i, float* vals, int* idx, int* exact,
-    void* stream) {
+    float* part_v, int* part_i, void* bounds, float* vals, int* idx,
+    int* exact, void* stream) {
   if (Q < 1 || N < 1 || D < VEC || D % VEC || r < 1 || r > R_MAX || r > N ||
       r > topk::CAP || splits < 1 || splits > MERGE_HEADS * MERGE_THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = r <= TQ_WIDE
-      ? launch<32>(q8, s_q, g8, g_scale, g_sq, Q, N, D, r, metric, splits, part_v, part_i, st)
-      : launch<16>(q8, s_q, g8, g_scale, g_sq, Q, N, D, r, metric, splits, part_v, part_i, st);
+  auto* b = static_cast<unsigned long long*>(bounds);
+  const cudaError_t set =
+      cudaMemsetAsync(b, 0xff, sizeof(*b) * Q * (static_cast<size_t>(splits) + 1), st);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  int err;
+  if (r > TQ_WIDE)
+    err = launch<16, 3>(q8, s_q, g8, g_scale, g_sq, Q, N, D, r, metric, splits, part_v,
+                        part_i, b, st);
+  else if (three_stages(r))
+    err = launch<32, 3>(q8, s_q, g8, g_scale, g_sq, Q, N, D, r, metric, splits, part_v,
+                        part_i, b, st);
+  else
+    err = launch<32, 2>(q8, s_q, g8, g_scale, g_sq, Q, N, D, r, metric, splits, part_v,
+                        part_i, b, st);
   if (err != cudaSuccess) return err;
-  k2_merge<<<Q, MERGE_THREADS, 0, st>>>(part_v, part_i, splits, r, N, vals, idx, exact);
+  k2_merge<<<Q, MERGE_THREADS, 0, st>>>(part_v, part_i, splits, r, N, b, vals, idx, exact);
   return static_cast<int>(cudaGetLastError());
 }

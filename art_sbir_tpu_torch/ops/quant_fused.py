@@ -31,10 +31,11 @@ from art_sbir_tpu_torch.core.cuda_build import (CudaKernel, LaunchCounters,
                                                 grid_splits)
 
 R_MAX = 1024  # the CUDA kernel's candidate budget, the JAX default's 8 * 128
-# The JAX serving engine takes its kernel only while r <= 128, the budget it
-# measured (art_sbir_tpu/retrieval/server.py:508-519); the port's engine
-# keeps that envelope
-ENGINE_R_MAX = 128
+# The largest r for which the serving engine takes K2. The JAX engine stops
+# at 128, the budget it measured on the TPU (art_sbir_tpu/retrieval/
+# server.py:508-519); on an H100 K2's route beat the plain int8 scan's at
+# every r up to R_MAX at Q = 1 and 32, N = 10^6 (PERF.md, PR 5)
+ENGINE_R_MAX = R_MAX
 F32_EXACT_DIM = 1040  # D * 127**2 < 2**24: a float32 sum of int8 products is exact
 _TN = 128  # gallery rows per tile; csrc/quant_candidates.cu TN
 _VEC = 16  # bytes per staging load; D % 16 == 0
@@ -42,7 +43,7 @@ _METRICS = {"euclidean": 0, "cosine": 1}
 
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("quant_candidates", "k2_quant_candidates",
-                    [_ptr] * 5 + [_i32] * 6 + [_ptr] * 5 + [_ptr], label="K2")
+                    [_ptr] * 5 + [_i32] * 6 + [_ptr] * 6 + [_ptr], label="K2")
 counters = LaunchCounters()
 
 
@@ -125,12 +126,14 @@ def quant_candidates_cuda(q8, s_q, g8, g_scale, g_sq, *, r: int, metric: str):
     s = grid_splits(-(-nq // tq), -(-n // _TN), dev, per_sm=per_sm)
     part_v = torch.empty((nq, s, r), dtype=f32, device=dev)
     part_i = torch.empty((nq, s, r), dtype=i32, device=dev)
+    bounds = torch.empty(nq * (s + 1), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL.launch(q8.data_ptr(), s_q.data_ptr(), g8.data_ptr(),
                       g_scale.data_ptr(), g_sq.data_ptr(), nq, n, d, r,
                       _METRICS[metric], s, part_v.data_ptr(),
-                      part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                      part_i.data_ptr(), bounds.data_ptr(),
+                      vals.data_ptr(), idx.data_ptr(),
                       exact.data_ptr(), stream)
     counters.add(launches=1)
     return vals, idx, exact
@@ -138,7 +141,7 @@ def quant_candidates_cuda(q8, s_q, g8, g_scale, g_sq, *, r: int, metric: str):
 
 def kernel_takes(device: torch.device, r: int, dim: int) -> bool:
     """Whether K2 runs for a gallery on ``device`` with ``r`` candidates
-    per query and ``dim`` columns: on the card, r within the JAX engine's
+    per query and ``dim`` columns: on the card, r within the engine's
     envelope (``ENGINE_R_MAX``) and 16-byte rows. The serving engine routes
     by it."""
     return device.type == "cuda" and r <= ENGINE_R_MAX and dim % _VEC == 0

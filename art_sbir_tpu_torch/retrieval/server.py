@@ -15,10 +15,10 @@ the row-sharded gallery are still to port):
   ``top_k`` under the live-row mask. ``quantize=True`` replaces both with
   the int8 candidate scan and an exact rerank
   (:mod:`art_sbir_tpu_torch.ops.quant`): through K2 wherever it runs (on
-  the card, D a multiple of 16, and at most 128 candidates, the JAX
-  engine's envelope ``quant_fused.ENGINE_R_MAX``, though K2 takes up to
-  1,024), else the plain scan. The engine's ``route`` attribute names the
-  route it took.
+  the card, D a multiple of 16, and at most ``quant_fused.ENGINE_R_MAX`` =
+  1,024 candidates, where K2's route beat the plain scan's on an H100),
+  else the plain scan. The engine's ``route`` attribute names the route it
+  took.
 * **Online updates** (``capacity=``): the gallery is a fixed-capacity
   buffer with a live-row mask. Adds and removals build a new
   (gallery, mask) pair and publish it under the engine lock, so a search

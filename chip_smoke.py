@@ -81,7 +81,7 @@ D, K = 1024, 10
 SERVE_N = 100_000
 QUANT_N = 1_000_000  # the int8 route's serving gallery
 R = 40  # K2's candidates at the serving engine's k_max 10, rerank_factor 4
-R_WIDE = (256, 512, 1024)  # K2's budgets past the engine's envelope
+R_WIDE = (256, 512, 1024)  # K2's budgets past the JAX engine's 128
 PROBE_SHAPES = ((32, 100_352), (512, 999_424))  # (Q, N) of the K1 probe
 
 
@@ -529,8 +529,8 @@ def phase_kernels_k2(state) -> None:
         "max_abs_err": max_err, "ms": min(kernel_ms, kernel_ms2),
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms}
-    # K2 past the engine's envelope, at Q = 32: the same kernel with the
-    # larger running top-r (16 queries a block above r = 512)
+    # K2 past the JAX engine's 128 candidates, at Q = 32 (16 queries a
+    # block above r = 512)
     wide = []
     for r in R_WIDE:
         kw = dict(r=r, metric="euclidean")
@@ -569,9 +569,10 @@ def phase_kernels_k2(state) -> None:
             *inputs, r=r, metric="euclidean"))
         by_q.append({"q": q, "r": r, "ms": ms, "bound_ms": k2_bound(q, r)[0]})
         del inputs
-    # the int8 route whole past the engine's envelope (rerank_factor 8, k =
-    # r / 8): K2's and the plain scan's, each as a dispatch runs it (results
-    # to the host), to find where they cross
+    # the int8 route whole past the JAX engine's 128 candidates
+    # (rerank_factor 8, k = r / 8) at Q in {1, 32}: K2's and the plain
+    # scan's, each as a dispatch runs it (results to the host), which set
+    # the engine's ENGINE_R_MAX
     qg = quant.quantize_gallery(g, "euclidean")
     route_wide = []
     for q, r in itertools.product((1, 32), R_WIDE):

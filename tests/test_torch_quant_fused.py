@@ -242,3 +242,66 @@ def test_cuda_kernel_beyond_128_matches_plain_version(rng, r):
         torch.cuda.synchronize()
         assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0])
         assert bool(out[2].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [40, 1024])
+def test_cuda_kernel_consecutive_ties_cross_the_buffer(rng, r):
+    """On the card: 2,000 equal rows at consecutive indices, the queries'
+    best: their ties cross the selection buffer's flushes and the r-th
+    candidate, and the smaller indices win, bit-identical to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run by chip_smoke.py)")
+    dev = torch.device("cuda")
+    gal = rng.standard_normal((20_003, 64)).astype(np.float32)
+    gal[3_000:5_000] = gal[3_000]
+    qs = gal[[3_000] * 5] + 0.01 * rng.standard_normal((5, 64)).astype(
+        np.float32)
+    qg = pq.quantize_gallery(torch.from_numpy(gal).to(dev))
+    q8, s_q = pq._quantize_queries(torch.from_numpy(qs).to(dev), "euclidean")
+    args = (q8, s_q, qg.q8, qg.scale, qg.sq_norm)
+    out = qf.quant_candidates_cuda(*args, r=r, metric="euclidean")
+    ref = qf.quant_candidates_reference(*args, r=r, metric="euclidean")
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0])
+    want = torch.arange(3_000, 3_000 + r, dtype=torch.int32, device=dev)
+    assert bool((out[1] == want).all()) and bool(out[2].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [40, 1024])
+def test_cuda_kernel_worst_order(rng, r):
+    """On the card: a gallery sorted by descending score against the
+    query, so every row beats all rows before it and is admitted; K2
+    against its plain version, bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run by chip_smoke.py)")
+    dev = torch.device("cuda")
+    gal = torch.from_numpy(rng.standard_normal((20_003, 64)).astype(
+        np.float32)).to(dev)
+    qs = torch.from_numpy(rng.standard_normal((1, 64)).astype(
+        np.float32)).to(dev)
+    qg = pq.quantize_gallery(gal)
+    q8, s_q = pq._quantize_queries(qs, "euclidean")
+    score = qf.approx_scores(q8, s_q, qg.q8, qg.scale, qg.sq_norm,
+                             "euclidean")[0]
+    order = torch.argsort(score, descending=True)
+    args = (q8.expand(3, 64).contiguous(), s_q.expand(3).contiguous(),
+            qg.q8[order].contiguous(), qg.scale[order].contiguous(),
+            qg.sq_norm[order].contiguous())
+    out = qf.quant_candidates_cuda(*args, r=r, metric="euclidean")
+    ref = qf.quant_candidates_reference(*args, r=r, metric="euclidean")
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[0], ref[0])
+    assert bool(out[2].all())
+
+
+@pytest.mark.cuda
+def test_k2_parts_probe_runs():
+    """On the card: the probe builds K2's variants and times each part."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run by chip_smoke.py)")
+    from art_sbir_tpu_torch.scripts import probe_k2_parts
+
+    assert probe_k2_parts.main(["20000", "--reps", "1"]) == 0

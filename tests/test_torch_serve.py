@@ -235,12 +235,12 @@ def test_k2_route_matches_jax_engine(data, monkeypatch, metric):
 
 
 def test_k2_route_needs_a_small_candidate_budget(data, monkeypatch):
-    """K2 takes a gallery on the card with rerank_factor * k_max <= 128
+    """K2 takes a gallery on the card with rerank_factor * k_max <= 1,024
     candidates and 16-byte rows, whatever its size; the engine asks it
     with its own device, budget and width."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert qf.kernel_takes(cuda, 4 * 32, 1024)
-    assert not qf.kernel_takes(cuda, 4 * 33, 1024)
+    assert qf.kernel_takes(cuda, 8 * 128, 1024)
+    assert not qf.kernel_takes(cuda, 8 * 128 + 1, 1024)
     assert not qf.kernel_takes(cuda, 40, 1000)
     assert not qf.kernel_takes(cpu, 40, 1024)
     seen = []
