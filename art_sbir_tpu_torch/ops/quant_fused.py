@@ -36,7 +36,7 @@ R_MAX = 1024  # the CUDA kernel's candidate budget, the JAX default's 8 * 128
 # server.py:508-519); on an H100 K2's route beat the plain int8 scan's at
 # every r up to R_MAX at Q = 1 and 32, N = 10^6 (PERF.md, PR 5)
 ENGINE_R_MAX = R_MAX
-F32_EXACT_DIM = 1040  # D * 127**2 < 2**24: a float32 sum of int8 products is exact
+F32_EXACT_DIM = 1040  # D * 127**2 < 2**24: a float32 sum of D int8 products is exact
 _TN = 128  # gallery rows per tile; csrc/quant_candidates.cu TN
 _VEC = 16  # bytes per staging load; D % 16 == 0
 _METRICS = {"euclidean": 0, "cosine": 1}
@@ -59,21 +59,37 @@ def _first_pass(r: int, device_index: int):
     return tq.value, per_sm.value
 
 
+def sliced_int8_cross(q8: torch.Tensor, g8: torch.Tensor,
+                      width: int = F32_EXACT_DIM) -> torch.Tensor:
+    """(Q, D) x (N, D) int8 -> (Q, N) int32 ``q8 . g8``, as float32
+    products over column slices of at most ``width`` columns, each slice's
+    result converted to int32 and the slices added in int32.
+
+    Each slice is exact whether or not ``torch.backends.cuda.matmul.
+    allow_tf32`` is set: an int8 value is exact in TF32 (and in float32),
+    the product of two is exact in float32, and a slice's sum of at most
+    ``width`` products stays below 2^24 (1,040 * 127^2 < 2^24), so no
+    partial sum rounds. The int32 sum of the slices is then the exact
+    integer product for any D (while D * 127^2 < 2^31)."""
+    total = None
+    for d0 in range(0, q8.shape[1], width):
+        part = (q8[:, d0:d0 + width].float()
+                @ g8[:, d0:d0 + width].float().T).to(torch.int32)
+        total = part if total is None else total + part
+    return total
+
+
 def int8_cross(q8: torch.Tensor, g8: torch.Tensor) -> torch.Tensor:
-    """(Q, D) x (N, D) int8 -> (Q, N) exact cross term ``q8 . g8``.
+    """(Q, D) x (N, D) int8 -> (Q, N) exact cross term ``q8 . g8``, as
+    JAX's ``dot_general(..., preferred_element_type=int32)``.
 
     On the CPU an int32 matrix product. On the card ``torch.matmul`` has
     no integer path (and ``torch._int_mm`` wants more than 16 rows), so
-    the product runs in float32, which is exact while D * 127^2 < 2^24;
-    a wider D raises rather than rounds."""
+    :func:`sliced_int8_cross` takes it exactly in float32 slices; the
+    int32 sum comes back as float32, as ``.astype(float32)`` gives it."""
     if q8.device.type == "cpu":
         return q8.int() @ g8.int().T
-    if q8.shape[1] > F32_EXACT_DIM:
-        raise ValueError(
-            f"D={q8.shape[1]} > {F32_EXACT_DIM}: a float32 sum of int8 "
-            "products would round; the int8 scan on the card takes D <= "
-            f"{F32_EXACT_DIM}")
-    return q8.float() @ g8.float().T
+    return sliced_int8_cross(q8, g8).float()
 
 
 def approx_scores(q8, s_q, g8, g_scale, g_sq, metric: str) -> torch.Tensor:

@@ -179,12 +179,52 @@ def test_guards(rng):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pq.retrieve_quantized_sharded(torch.from_numpy(gal[:2]), None, None,
                                       None)
-    # off the CPU the cross term is a float32 product, exact only while
-    # D * 127^2 < 2^24; a wider D raises before any arithmetic
+    # off the CPU the cross term is summed in float32 slices of at most
+    # F32_EXACT_DIM columns and added in int32, so a wider D is served
     wide = torch.empty((2, quant_fused.F32_EXACT_DIM + 1), dtype=torch.int8,
                        device="meta")
-    with pytest.raises(ValueError, match="would round"):
-        quant_fused.int8_cross(wide, wide)
+    assert tuple(quant_fused.int8_cross(wide, wide).shape) == (2, 2)
     ok = torch.empty((2, quant_fused.F32_EXACT_DIM), dtype=torch.int8,
                      device="meta")
     assert tuple(quant_fused.int8_cross(ok, ok).shape) == (2, 2)
+
+
+@pytest.mark.parametrize("width", [4, 5, 37, 64])
+def test_sliced_int8_cross_is_the_int32_product(rng, width):
+    """The card's slicing at a small slice width, run here: equal bit for
+    bit to the int32 product, extreme codes included."""
+    q8 = rng.integers(-127, 128, size=(5, 37)).astype(np.int8)
+    g8 = rng.integers(-127, 128, size=(11, 37)).astype(np.int8)
+    q8[0], g8[0] = 127, -127
+    want = q8.astype(np.int32) @ g8.astype(np.int32).T
+    got = quant_fused.sliced_int8_cross(_t(q8), _t(g8), width=width)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_int8_cross_off_the_cpu_at_2048_columns():
+    """A device other than the CPU takes the sliced route; at D = 2,048
+    it gives the (Q, N) float32 shape."""
+    q8 = torch.empty((3, 2048), dtype=torch.int8, device="meta")
+    g8 = torch.empty((7, 2048), dtype=torch.int8, device="meta")
+    out = quant_fused.int8_cross(q8, g8)
+    assert tuple(out.shape) == (3, 7) and out.dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_cuda_int8_cross_at_2048_columns(rng):
+    """On the card: the sliced float32 route at D = 2,048 equals the int32
+    product on the CPU, with TF32 on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run by chip_smoke.py)")
+    q8 = _t(rng.integers(-127, 128, size=(33, 2048)).astype(np.int8))
+    g8 = _t(rng.integers(-127, 128, size=(1003, 2048)).astype(np.int8))
+    want = quant_fused.int8_cross(q8, g8)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            got = quant_fused.int8_cross(q8.cuda(), g8.cuda())
+            assert torch.equal(got.cpu(), want.float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
