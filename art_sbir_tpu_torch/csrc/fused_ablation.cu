@@ -4,8 +4,10 @@
 // (launched by `run_ablate`, pl.pallas_call at probe_fused_overhead.py:88),
 // whose levels strip the TPU's K1 to measure where its time goes. Here each
 // level strips the port's own K1: the first pass is K1's, k1::sweep_partial
-// (k1_sweep.cuh) with bf16 operands, the same grid, splits, staging and FMA
-// chain, and only the epilogue cut back. Per query row, into out (Q,) int32:
+// (k1_sweep.cuh) with bf16 operands, the same query tiles, ring and
+// products, and only the epilogue cut back; p1_first_pass reports the tile
+// and the blocks that fit on an SM, from which the wrapper sizes the
+// splits. Per query row, into out (Q,) int32:
 //   level 0  the cross term only: the sum over tile_n-column tiles of
 //            int32(the tile's float32 row sum of cross terms), truncated
 //            toward zero as astype(int32) does
@@ -17,8 +19,7 @@
 //
 // What bounds it on an H100 (SXM, 3.35 TB/s, 989 TFLOP/s bf16 dense): the
 // gallery read, N*D*2 bytes, at serving shapes (Q <= 32); the 2*Q*N*D
-// operations at Q >= ~300. Like K1 it runs the products on float32 FMA, not
-// on the tensor cores.
+// operations at Q >= ~300.
 //
 // Two small kernels, one warp per query, finish the levels: p1_finish_tiles
 // sums each query's tile_n / 128 partial row sums per tile in float32 and
@@ -54,22 +55,20 @@ __global__ void p1_finish_counts(const int* __restrict__ part_r, int S,
   if (lane == 0) out[qi] = total;
 }
 
-template <int LEVEL>
-int launch(const __nv_bfloat16* q, const float* qq, const float* d2pos, const int* pos,
-           const __nv_bfloat16* g, const float* gg, int Q, int N, int D, int splits,
-           float* part_m, int* part_r, cudaStream_t st) {
-  const auto sweep = k1::sweep_partial<__nv_bfloat16, LEVEL>;
-  const size_t smem = k1::sweep_smem(0);
-  const cudaError_t err = cudaFuncSetAttribute(
-      sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Q + k1::TQ - 1) / k1::TQ, splits);
-  sweep<<<grid, k1::THREADS, smem, st>>>(q, qq, pos, g, gg, d2pos, Q, N, D, 0, 0, 1,
-                                         nullptr, nullptr, part_r, part_m);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
+
+// The first pass's shape at a level (0, 1 or 2) for Q queries on the
+// current device: queries a block (*tq), gallery rows a tile (*tn) and the
+// blocks that fit on one SM at once (*blocks_per_sm). Returns a CUDA error
+// code.
+extern "C" int p1_first_pass(int Q, int level, int* tq, int* tn, int* blocks_per_sm) {
+  if (Q < 1 || level < 0 || level > 2) return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  return static_cast<int>(
+      level == 0   ? k1::first_pass<bf16, 0>(Q, 0, tq, tn, blocks_per_sm)
+      : level == 1 ? k1::first_pass<bf16, 1>(Q, 0, tq, tn, blocks_per_sm)
+                   : k1::first_pass<bf16, 2>(Q, 0, tq, tn, blocks_per_sm));
+}
 
 // Plain C entry point (loaded with ctypes). Shapes: q (Q, D) and g (N, D)
 // bf16, contiguous, 16-byte aligned, D % 8 == 0; qq (Q,), d2pos (Q,), gg
@@ -87,14 +86,17 @@ extern "C" int p1_fused_ablation(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* gb = static_cast<const __nv_bfloat16*>(g);
-  int err;
+  cudaError_t err;
   if (level == 0)
-    err = launch<0>(qb, qq, d2pos, pos, gb, gg, Q, N, D, splits, part_m, part_r, st);
+    err = k1::sweep<__nv_bfloat16, 0>(qb, qq, pos, gb, gg, d2pos, Q, N, D, 0, 0, 1, splits,
+                                      nullptr, nullptr, part_r, part_m, st);
   else if (level == 1)
-    err = launch<1>(qb, qq, d2pos, pos, gb, gg, Q, N, D, splits, part_m, part_r, st);
+    err = k1::sweep<__nv_bfloat16, 1>(qb, qq, pos, gb, gg, d2pos, Q, N, D, 0, 0, 1, splits,
+                                      nullptr, nullptr, part_r, part_m, st);
   else
-    err = launch<2>(qb, qq, d2pos, pos, gb, gg, Q, N, D, splits, part_m, part_r, st);
-  if (err != cudaSuccess) return err;
+    err = k1::sweep<__nv_bfloat16, 2>(qb, qq, pos, gb, gg, d2pos, Q, N, D, 0, 0, 1, splits,
+                                      nullptr, nullptr, part_r, part_m, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (level == 0)
     p1_finish_tiles<<<Q, 32, 0, st>>>(part_m, Q, N / k1::TN, tile_n / k1::TN, out);
   else

@@ -10,15 +10,15 @@
 // TFLOP/s bf16 on the tensor cores, dense):
 //  * At serving shapes (Q <= 32 queries per call) it is bound by the gallery
 //    read: N*D*4 bytes in float32, 409.6 MB at N = 100,000 and D = 1024,
-//    about 0.122 ms; N*D*2 bytes in bf16, 204.8 MB, about 0.061 ms. Every
-//    block holds all (up to 32) queries of its tile, so the gallery streams
-//    from device memory once per call; the 50 MB L2 does not hold it.
+//    about 0.122 ms; N*D*2 bytes in bf16, 204.8 MB, about 0.061 ms. A block
+//    holds all the queries of its tile (up to 64), so at Q <= 64 the gallery
+//    streams from device memory once per call; the 50 MB L2 does not hold
+//    it. Above 64 queries the blocks of the query tiles over one split are
+//    launched together (the query tile is the grid's fastest dimension), so
+//    the L2 serves the repeats.
 //  * The operations are 2*Q*N*D: 6.55 GFLOP at Q = 32, N = 100,000, which is
-//    0.098 ms on float32 FMA (the only rate this version uses, in both
-//    forms) and 0.0066 ms on the bf16 tensor cores. At Q >= ~512 (offline
-//    evaluation) the operations set the bound.
-//  * This version is the simple, exact one. Speed with wgmma, TMA and
-//    3xTF32 or bf16 tensor-core operands is later work.
+//    0.098 ms on float32 FMA and 0.0066 ms on the bf16 tensor cores. At
+//    Q >= ~32 (float32) or ~300 (bf16) the operations set the bound.
 //
 // Design. The TPU kernel's per-lane top-4 register file, 128-lane segment
 // fold and sequential grid carry were shaped by the TPU's vector unit and
@@ -29,12 +29,13 @@
 //     the same FMA chain as its column in the sweep, in either form. (The
 //     TPU kernel takes it from a separate elementwise sum of the float32
 //     inputs, so a duplicate of the positive can miss the tie by an ulp.)
-//  1. k1::sweep_partial<T, 3> (k1_sweep.cuh, shared with the ablation probe
-//     P1): the cross term, the distances, the rank hits and, per warp and
-//     query, a sorted running top-k in shared memory, ordered by (value,
-//     index) with strict < (topk::warp_offer). The block writes a partial
-//     (Q, S, k) top-k and (Q, S) rank counts. bf16 rows are read 8 values a
-//     16-byte load and widened to float32 in the staging step.
+//  1. k1::sweep_partial<T, TQ, 3> (k1_sweep.cuh, shared with the ablation
+//     probe P1): a cp.async ring over the gallery, query tiles of 8 to 64
+//     rows chosen from Q, the cross term, and in registers the distances,
+//     the rank hits and a threshold filter in front of each query's sorted
+//     top-k. The block writes a partial (Q, S, k) top-k and (Q, S) rank
+//     counts. k1_first_pass reports the query tile and the blocks that fit
+//     on an SM, from which the wrapper sizes the S gallery splits.
 //  2. k1_merge, one block per query: the k smallest of the S sorted partial
 //     runs (topk::merge_runs), plus the sum of the rank partials.
 //
@@ -98,21 +99,15 @@ int launch(const T* q, const float* qq, const int* pos, const T* g, const float*
            int Q, int N, int D, int k, int metric, int with_ranks, int splits,
            float* d2pos, float* part_v, int* part_i, int* part_r, int* ranks,
            float* vals, int* idx, int* exact, cudaStream_t st) {
-  const auto sweep = k1::sweep_partial<T, 3>;
-  const size_t smem = k1::sweep_smem(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (with_ranks) {
     k1_positive<T><<<(Q + 127) / 128, 128, 0, st>>>(q, qq, pos, g, gg, Q, N, D, metric,
                                                     d2pos);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((Q + k1::TQ - 1) / k1::TQ, splits);
-  sweep<<<grid, k1::THREADS, smem, st>>>(q, qq, pos, g, gg, d2pos, Q, N, D, k, metric,
-                                         with_ranks, part_v, part_i, part_r, nullptr);
-  err = cudaGetLastError();
+  const cudaError_t err = k1::sweep<T, 3>(q, qq, pos, g, gg, d2pos, Q, N, D, k, metric,
+                                          with_ranks, splits, part_v, part_i, part_r,
+                                          nullptr, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   k1_merge<<<Q, MERGE_THREADS, 0, st>>>(part_v, part_i, part_r, splits, k, N, ranks, vals,
                                         idx, exact);
@@ -120,6 +115,18 @@ int launch(const T* q, const float* qq, const int* pos, const T* g, const float*
 }
 
 }  // namespace
+
+// The first pass's shape for Q queries and a top-k of k, 1 <= k <= 128, in
+// the float32 (bf16 = 0) or bf16 form, on the current device: queries a
+// block (*tq), gallery rows a tile (*tn) and the blocks that fit on one SM
+// at once (*blocks_per_sm), from which the wrapper sizes the gallery
+// splits. Returns a CUDA error code.
+extern "C" int k1_first_pass(int Q, int k, int bf16, int* tq, int* tn, int* blocks_per_sm) {
+  if (Q < 1 || k < 1 || k > K_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      bf16 ? k1::first_pass<__nv_bfloat16, 3>(Q, k, tq, tn, blocks_per_sm)
+           : k1::first_pass<float, 3>(Q, k, tq, tn, blocks_per_sm));
+}
 
 // Plain C entry point (loaded with ctypes). Shapes: q (Q, D), g (N, D),
 // float32 (bf16 = 0) or bf16 (bf16 = 1); qq (Q,), gg (N,) float32; pos (Q,)

@@ -2,16 +2,40 @@
 // P1 (fused_ablation.cu), so that each ablation level strips K1's own code
 // and nothing else.
 //
-// sweep_partial<T, LEVEL>, grid (ceil(Q/32), S). Split s owns a contiguous
-// range of 128-row gallery tiles. The block stages 32 queries and 128
-// gallery rows in 32-deep chunks of D in shared memory, widened to float32
-// (16-byte loads: 4 float32 or 8 bf16 values, neighbouring threads on
-// neighbouring addresses); each thread owns 4 queries x 8 rows and
+// sweep_partial<T, TQ, LEVEL>, grid (ceil(Q / TQ), S), 4 warps. Split s
+// owns a contiguous range of 128-row gallery tiles (TN). TQ, the queries of
+// a block, is 8, 16, 32 or 64, chosen from Q (choose_tq), so that a block
+// computes no more padded query rows than the smallest tile needs.
+//
+// The stream. A ring of `stages` shared-memory stages (2 to 4, as many as
+// let two blocks share an SM, else as many as fit one: choose_stages) is
+// filled by 16-byte cp.async copies: each stage holds one 128-byte chunk
+// (a cache line) of each of the TQ query rows and TN gallery rows, as the
+// rows lie in device memory (32 float32 or 64 bf16 values), rows past Q or
+// N and bytes past D zero-filled. The 16-byte unit u of staged row r lives
+// at unit u ^ (r & 7), so eight consecutive rows read at the same unit fall
+// on distinct banks: 16-byte shared reads without conflicts, and no padding.
+// The L2 is asked for each gallery row's line a few chunks ahead of the
+// copies, and for the tile's norms.
+//
+// The products. Each thread owns TQ / 8 queries x 8 gallery rows and
 // accumulates every q.g with float32 FMAs in one fixed order over D (d = 0,
-// 1, ..., D-1), so a (q, g) pair's value does not depend on the tiling and
-// duplicated gallery rows tie exactly. A product of two bf16 values is exact
-// in float32, so the bf16 form differs from a float32 sum of the widened
-// values only in the order of the sum. No TF32, no tensor cores.
+// 1, ..., D-1), so a (q, g) pair's value does not depend on where the row
+// or the query sits in a tile, and duplicated gallery rows tie exactly. A
+// product of two bf16 values is exact in float32, so the bf16 form differs
+// from a float32 sum of the widened values only in the order of the sum.
+//
+// The epilogue, in registers, after a tile's last chunk. Each accumulator
+// becomes its distance in the TPU kernel's op order (column_distance); the
+// rank hits are counted from it; and it is tested against its query's
+// current k-th key (value, index), tau. The lanes that hold one query ballot
+// their survivors into the query's buffer of TN slots (one shared atomic
+// per group of lanes). Then one warp a query sorts the buffer in registers
+// and merges it with the query's sorted kept keys (merge path: output p
+// takes the p-th smallest of the two lists), keeping the k smallest, and
+// lowers tau. A tile adds at most TN keys a query, so the buffer never
+// overflows. On random rows a query admits its first tile whole, then about
+// k / t keys from its t-th tile.
 //
 // LEVEL 3 is K1. LEVELs 0-2 are the probe's stripped forms (the levels of
 // `_ablate_kernel`, scripts/probe_fused_overhead.py:36):
@@ -19,56 +43,84 @@
 //      (n_tiles, Q), so the products cannot be optimised away
 //   1  + the euclidean distances and the rank hits against d2pos, to part_r
 //   2  + the count of distances <= 1e-6, added to part_r, and each lane's
-//      running minimum of those distances (over its columns of the tile),
-//      folded into the count times 0 as the TPU level folds its `g1`
-//   3  + the running top-k per warp (part_v, part_i); rank hits only when
+//      running minimum of those distances, folded into the count times 0 as
+//      the TPU level folds its `g1`
+//   3  + the filtered running top-k (part_v, part_i); rank hits only when
 //      with_ranks, against the positive's distance
-// The epilogue applies the distance in the TPU kernel's op order
-// (max(qq' + gg' - 2*cross, 0), or 1 - cross / max(qq*gg, 1e-8)) and counts
-// rank hits as `_hit` does: strictly closer, or an exact tie at a smaller
-// index, never the positive's own column.
+// The distance is max(qq' + gg' - 2*cross, 0), or 1 - cross / max(qq*gg,
+// 1e-8), and rank hits follow `_hit`: strictly closer, or an exact tie at a
+// smaller index, never the positive's own column. Keys compare (value,
+// index) with strict <, so the earlier column wins ties.
 
 #pragma once
 
 #include <cuda_bf16.h>
 
+#include "async_copy.cuh"
 #include "topk_select.cuh"
 
 namespace k1 {
 
 using topk::BIG;
 using topk::FULL;
+using topk::key_less;
 
-constexpr int TQ = 32;        // queries per block (must match ops/retrieval_fused.py)
-constexpr int TN = 128;       // gallery rows per tile (must match ops/retrieval_fused.py)
-constexpr int DK = 32;        // depth of one staged chunk of D
-constexpr int THREADS = 128;  // 8 query groups x 16 row groups
-constexpr int QPT = 4;        // queries per thread
-constexpr int CPT = 8;        // gallery rows per thread
-constexpr int LD = DK + 1;    // padded shared row: conflict-free column reads
+constexpr int TN = 128;                // gallery rows per tile
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int CHUNK = 128;             // bytes of a row in one stage: a cache line
+constexpr int UNITS = CHUNK / 16;      // 16-byte units of a staged row
+constexpr int BUF = TN;                // buffered keys a query: one tile's columns
+constexpr int PREFETCH = 3;            // chunks past the copies that the L2 is asked for
+constexpr size_t TWO_BLOCKS = 113 * 1024;  // the most two blocks of an SM may each take
+constexpr size_t ONE_BLOCK = 227 * 1024;   // the most one block may take
 
-// Elements of T in one 16-byte load.
-template <typename T> struct Vec;
-template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
+// The queries of a block for Q queries: the smallest tile that holds them,
+// 64 beyond 32.
+__host__ __device__ inline int choose_tq(int Q) {
+  return Q <= 8 ? 8 : Q <= 16 ? 16 : Q <= 32 ? 32 : 64;
+}
+
+// Dynamic shared memory of sweep_partial: the ring, the per-query words,
+// and at LEVEL 3 each query's kept keys (k) and buffer (BUF).
+inline size_t sweep_smem(int tq, int k, int stages, bool topk) {
+  return static_cast<size_t>(stages) * (tq + TN) * CHUNK +
+         sizeof(float) * (8 + WARPS) * tq + (topk ? 8ull * tq * (k + BUF) : 0ull);
+}
+
+// Ring stages: the most (of 4, 3, 2) with which two blocks share an SM, else
+// the most that fit one block; 0 where not even two fit.
+inline int choose_stages(int tq, int k, bool topk) {
+  for (int st = 4; st >= 2; --st)
+    if (sweep_smem(tq, k, st, topk) <= TWO_BLOCKS) return st;
+  for (int st = 4; st >= 2; --st)
+    if (sweep_smem(tq, k, st, topk) <= ONE_BLOCK) return st;
+  return 0;
+}
+
+// Staged row r's 16-byte unit u (swizzled, see the note above).
+__device__ __forceinline__ int swz(int r, int u) { return r * UNITS + (u ^ (r & 7)); }
+
+template <typename T> struct Elems;
+template <> struct Elems<float> { static constexpr int N = 4; };          // a unit's values
+template <> struct Elems<__nv_bfloat16> { static constexpr int N = 8; };
+
+__device__ __forceinline__ unsigned word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+// Value e of a 16-byte unit, widened to float32 (exactly). Little-endian:
+// the lower bf16 half of a word comes first.
+template <typename T> __device__ __forceinline__ float elem(const uint4& v, int e);
+template <> __device__ __forceinline__ float elem<float>(const uint4& v, int e) {
+  return __uint_as_float(word(v, e));
+}
+template <> __device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& v, int e) {
+  const unsigned w = word(v, e >> 1);
+  return __uint_as_float(e & 1 ? w & 0xffff0000u : w << 16);
+}
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// One 16-byte load of Vec<T>::N values, widened to float32 (exactly).
-__device__ __forceinline__ void load_widen(const float* src, float* dst) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(src));
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-__device__ __forceinline__ void load_widen(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // little-endian: the lower half comes first
-    dst[2 * i] = __uint_as_float(w[i] << 16);
-    dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
 // One column's distance from its cross term, in the TPU kernel's op order
 // (explicit round-to-nearest intrinsics: no contraction into FMAs).
@@ -83,178 +135,427 @@ __device__ __forceinline__ float column_distance(int metric, float qv, float gv,
   return __fsub_rn(1.0f, __fdiv_rn(cross, den));
 }
 
-// Stage rows [row0, row0 + rows) of a (limit, D) matrix, depth [d0, d0 + DK),
-// as float32 into dst (rows x LD). Rows past `limit` and depth past D are
-// zero: an FMA of zeros leaves the running sum unchanged, so the order over
-// D is kept. D must be a multiple of Vec<T>::N.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int row0, int rows,
-                                      int limit, int D, int d0, float* __restrict__ dst) {
-  constexpr int V = Vec<T>::N;
-  for (int e = threadIdx.x; e < rows * (DK / V); e += THREADS) {
-    const int r = e / (DK / V), c = (e % (DK / V)) * V;
-    const int row = row0 + r, dd = d0 + c;
-    float v[V];
-    if (row < limit && dd < D) {
-      load_widen(src + static_cast<size_t>(row) * D + dd, v);
-    } else {
-#pragma unroll
-      for (int i = 0; i < V; ++i) v[i] = 0.0f;
-    }
-    float* out = dst + r * LD + c;
-#pragma unroll
-    for (int i = 0; i < V; ++i) out[i] = v[i];
+// Start the copies of one chunk: bytes [d0, d0 + CHUNK) of query rows
+// [q0, q0 + TQ) and gallery rows [n0, n0 + TN), into the stage `dst`
+// (queries first). Rows past Q or N and bytes past D are zero-filled.
+template <typename T, int TQ>
+__device__ __forceinline__ void stage_chunk(const T* __restrict__ q, int q0, int Q,
+                                            const T* __restrict__ g, int n0, int N,
+                                            int D, int d0, uint4* __restrict__ dst) {
+  constexpr int V = Elems<T>::N;
+  for (int e = threadIdx.x; e < (TQ + TN) * UNITS; e += THREADS) {
+    const int r = e / UNITS, u = e % UNITS;
+    const bool is_q = r < TQ;
+    const int row = is_q ? q0 + r : n0 + r - TQ;
+    const T* base = is_q ? q : g;
+    const int dd = d0 + u * V;
+    const bool in = row < (is_q ? Q : N) && dd < D;
+    cp_async16(dst + swz(r, u), in ? base + static_cast<size_t>(row) * D + dd : base,
+               in ? 16 : 0);
   }
 }
 
-// acc[i][j] = q[q0 + ty*QPT + i] . g[n0 + tx + 16*j], one FMA chain over D.
-template <typename T>
-__device__ __forceinline__ void cross_tile(const T* __restrict__ q, const T* __restrict__ g,
-                                           int q0, int Q, int n0, int N, int D,
-                                           float* __restrict__ qs, float* __restrict__ gs,
-                                           float (&acc)[QPT][CPT]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+__device__ __forceinline__ void wait_ring(int stages) {  // chunk c has landed
+  if (stages == 2) cp_async_wait<0>();
+  else if (stages == 3) cp_async_wait<1>();
+  else cp_async_wait<2>();
+}
+
+// The FMA tile: thread (tx, ty) owns queries ty + 8 s (s < TQ / 8) and
+// gallery rows tx + 16 j (j < 8). A warp holds 4 query groups x 8 row
+// groups, so its 16-byte reads touch 4 query rows and 8 consecutive gallery
+// rows: no bank conflicts after the swizzle.
+template <int TQ>
+struct FmaTile {
+  static constexpr int NQ = TQ / 8;  // queries a thread holds
+  static constexpr int NC = 8;       // gallery rows a thread holds
+  float acc[NQ][NC];
+  int tx, ty;
+
+  __device__ FmaTile() {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    tx = (warp & 1) * 8 + (lane & 7);
+    ty = (warp >> 1) * 4 + (lane >> 3);
+  }
+  __device__ int query(int s) const { return ty + 8 * s; }
+  __device__ int col(int j) const { return tx + 16 * j; }
+  __device__ float value(int s, int j) const { return acc[s][j]; }
+  // the lanes of the warp that hold the same queries
+  __device__ unsigned group() const { return 0xffu << (threadIdx.x & 24); }
+  // sum over the lanes that hold the same queries; the first of them returns true
+  __device__ bool reduce_cols(float& x) const {
+    for (int off = 1; off < 8; off <<= 1) x += __shfl_xor_sync(FULL, x, off);
+    return (threadIdx.x & 7) == 0;
+  }
+  __device__ void zero() {
 #pragma unroll
-  for (int i = 0; i < QPT; ++i)
+    for (int s = 0; s < NQ; ++s)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.0f;
-  for (int d0 = 0; d0 < D; d0 += DK) {
-    stage(q, q0, TQ, Q, D, d0, qs);
-    stage(g, n0, TN, N, D, d0, gs);
-    __syncthreads();
+      for (int j = 0; j < NC; ++j) acc[s][j] = 0.0f;
+  }
+  template <typename T>
+  __device__ void multiply(const uint4* __restrict__ st) {
+    constexpr int V = Elems<T>::N;
 #pragma unroll
-    for (int dd = 0; dd < DK; ++dd) {
-      float a[QPT], b[CPT];
+    for (int u = 0; u < UNITS; ++u) {
+      uint4 a[NQ], b[NC];
 #pragma unroll
-      for (int i = 0; i < QPT; ++i) a[i] = qs[(ty * QPT + i) * LD + dd];
+      for (int s = 0; s < NQ; ++s) a[s] = st[swz(query(s), u)];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) b[j] = gs[(tx + 16 * j) * LD + dd];
+      for (int j = 0; j < NC; ++j) b[j] = st[swz(TQ + col(j), u)];
 #pragma unroll
-      for (int i = 0; i < QPT; ++i)
+      for (int e = 0; e < V; ++e) {
+        float bv[NC];
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < NC; ++j) bv[j] = elem<T>(b[j], e);
+#pragma unroll
+        for (int s = 0; s < NQ; ++s) {
+          const float av = elem<T>(a[s], e);
+#pragma unroll
+          for (int j = 0; j < NC; ++j) acc[s][j] = fmaf(av, bv[j], acc[s][j]);
+        }
+      }
     }
-    __syncthreads();
+  }
+};
+
+template <typename T, int TQ> struct TileOf { using type = FmaTile<TQ>; };
+
+// The per-query state of a block in shared memory.
+struct Block {
+  float* tau_v;  // TQ: the k-th kept key, or (BIG, -1) while fewer are kept
+  int* tau_i;
+  int* nk;       // TQ: kept keys
+  int* nb;       // TQ: buffered keys
+  int* hits;     // TQ: rank hits
+  float* qq;     // TQ: query norms
+  float* d2p;    // TQ: the positive's distance
+  int* pos;      // TQ: the positive's column
+  float* sums;   // WARPS x TQ: LEVEL 0's tile sums, one row a warp
+  float* kv;     // TQ x k: kept keys, ascending
+  int* ki;
+  float* bv;     // TQ x BUF: buffered keys, unsorted
+  int* bi;
+};
+
+// Append the lanes' admitted keys to their queries' buffers: one ballot,
+// one shared atomic per group of lanes that hold the same query. Called by
+// the whole warp.
+__device__ __forceinline__ void append(bool admit, int qr, float v, int n, unsigned group,
+                                       const Block& b) {
+  const unsigned ball = __ballot_sync(FULL, admit);
+  if (!ball) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const unsigned m = ball & group;
+  const int leader = m ? __ffs(m) - 1 : lane;
+  int base = 0;
+  if (m && lane == leader) base = atomicAdd(b.nb + qr, __popc(m));
+  base = __shfl_sync(FULL, base, leader);
+  if (admit) {
+    const int slot = qr * BUF + base + __popc(m & ((1u << lane) - 1));
+    b.bv[slot] = v;
+    b.bi[slot] = n;
   }
 }
 
-// Dynamic shared memory of sweep_partial for a top-k of k entries (0 below
-// LEVEL 3).
-inline size_t sweep_smem(int k) {
-  return sizeof(float) * (TQ * LD + TN * LD + TQ * TN + TQ * k) +
-         sizeof(int) * (TQ * k + TQ);
+// One warp folds query qr's buffered keys into its kept keys, keeping the
+// k smallest, and lowers its tau. U = buffer words a lane sorts.
+template <int U>
+__device__ void flush_query(const Block& b, int qr, int k) {
+  const int lane = threadIdx.x & 31;
+  const int nb = b.nb[qr], nk = b.nk[qr];
+  float* bv = b.bv + qr * BUF;
+  int* bi = b.bi + qr * BUF;
+  const float* kv = b.kv + qr * k;
+  const int* ki = b.ki + qr * k;
+  float v[U];
+  int x[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = 32 * u + lane;
+    v[u] = j < nb ? bv[j] : INFINITY;
+    x[u] = j < nb ? bi[j] : INT32_MAX;
+  }
+  topk::warp_sort<U>(v, x);
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (32 * u + lane < nb) { bv[32 * u + lane] = v[u]; bi[32 * u + lane] = x[u]; }
+  __syncwarp();
+  // merge path: output p takes i kept and p - i buffered keys, i the
+  // smallest with kept[i] not before buffered[p - 1 - i]
+  const int out = min(k, nk + nb);
+  float ov[4];
+  int ox[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int p = 32 * u + lane;
+    if (p < out) {
+      int lo = max(0, p - nb), hi = min(p, nk);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (key_less(kv[mid], ki[mid], bv[p - 1 - mid], bi[p - 1 - mid])) lo = mid + 1;
+        else hi = mid;
+      }
+      const int j = p - lo;
+      const bool kept = lo < nk && (j >= nb || key_less(kv[lo], ki[lo], bv[j], bi[j]));
+      ov[u] = kept ? kv[lo] : bv[j];
+      ox[u] = kept ? ki[lo] : bi[j];
+    }
+  }
+  __syncwarp();  // every search has read the kept keys
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int p = 32 * u + lane;
+    if (p < out) {
+      b.kv[qr * k + p] = ov[u];
+      b.ki[qr * k + p] = ox[u];
+      if (p == k - 1) { b.tau_v[qr] = ov[u]; b.tau_i[qr] = ox[u]; }
+    }
+  }
+  if (lane == 0) { b.nk[qr] = out; b.nb[qr] = 0; }
+  __syncwarp();
 }
 
-template <typename T, int LEVEL>
+template <typename T, int TQ, int LEVEL>
 __global__ void __launch_bounds__(THREADS)
 sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
               const int* __restrict__ pos, const T* __restrict__ g,
               const float* __restrict__ gg, const float* __restrict__ d2pos,
-              int Q, int N, int D, int k, int metric, int with_ranks,
+              int Q, int N, int D, int k, int metric, int with_ranks, int stages,
               float* __restrict__ part_v, int* __restrict__ part_i,
               int* __restrict__ part_r, float* __restrict__ part_m) {
-  extern __shared__ float smem[];
-  float* qs = smem;                  // TQ x LD   query chunk
-  float* gs = qs + TQ * LD;          // TN x LD   gallery chunk
-  float* ds = gs + TN * LD;          // TQ x TN   distances of the tile
-  float* tv = ds + TQ * TN;          // TQ x k    running top-k values
-  int* ti = reinterpret_cast<int*>(tv + TQ * k);  // TQ x k indices
-  int* rs = ti + TQ * k;             // TQ        rank hits
+  using Tile = typename TileOf<T, TQ>::type;
+  constexpr int STAGE = (TQ + TN) * UNITS;  // uint4 of a stage
+  constexpr int DK = UNITS * Elems<T>::N;   // values of a row in a chunk
+  extern __shared__ uint4 smem[];
+  Block b;
+  b.tau_v = reinterpret_cast<float*>(smem + stages * STAGE);
+  b.tau_i = reinterpret_cast<int*>(b.tau_v + TQ);
+  b.nk = b.tau_i + TQ;
+  b.nb = b.nk + TQ;
+  b.hits = b.nb + TQ;
+  b.qq = reinterpret_cast<float*>(b.hits + TQ);
+  b.d2p = b.qq + TQ;
+  b.pos = reinterpret_cast<int*>(b.d2p + TQ);
+  b.sums = reinterpret_cast<float*>(b.pos + TQ);
+  b.kv = b.sums + WARPS * TQ;
+  b.ki = reinterpret_cast<int*>(b.kv + TQ * k);
+  b.bv = reinterpret_cast<float*>(b.ki + TQ * k);
+  b.bi = reinterpret_cast<int*>(b.bv + TQ * BUF);
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int q0 = blockIdx.x * TQ;
   const int S = gridDim.y, s = blockIdx.y;
   const int n_tiles = (N + TN - 1) / TN;
   const int t_begin = static_cast<int>(static_cast<long long>(n_tiles) * s / S);
   const int t_end = static_cast<int>(static_cast<long long>(n_tiles) * (s + 1) / S);
   const bool ranks = LEVEL < 3 || with_ranks;
+  const int kc = (D + DK - 1) / DK;  // chunks a tile
+  const int total = (t_end - t_begin) * kc;
 
-  if (LEVEL == 3)
-    for (int e = tid; e < TQ * k; e += THREADS) { tv[e] = BIG; ti[e] = N; }
-  for (int e = tid; e < TQ; e += THREADS) rs[e] = 0;
-  __syncthreads();
+  for (int e = tid; e < TQ; e += THREADS) {
+    const int qi = q0 + e;
+    b.tau_v[e] = BIG;  // admits every value below the sentinel
+    b.tau_i[e] = -1;
+    b.nk[e] = b.nb[e] = b.hits[e] = 0;
+    b.qq[e] = qi < Q ? qq[qi] : 0.0f;
+    b.d2p[e] = ranks && qi < Q ? d2pos[qi] : 0.0f;
+    b.pos[e] = ranks && qi < Q ? pos[qi] : -1;
+  }
+  for (int e = tid; e < WARPS * TQ; e += THREADS) b.sums[e] = 0.0f;
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int n0 = t * TN;
-    float acc[QPT][CPT];
-    cross_tile(q, g, q0, Q, n0, N, D, qs, gs, acc);
+  // the next chunk to copy and the next to prefetch, as (tile, value of D)
+  int ld_t = t_begin, ld_d = 0, pf_t = t_begin, pf_d = 0;
+  auto advance = [&](int& t, int& d) {
+    if ((d += DK) >= D) { d = 0; ++t; }
+  };
+  auto load = [&](int c) {
+    if (ld_t < t_end) {
+      stage_chunk<T, TQ>(q, q0, Q, g, ld_t * TN, N, D, ld_d, smem + (c % stages) * STAGE);
+      advance(ld_t, ld_d);
+    }
+    cp_async_commit();  // an empty group keeps the count in step
+  };
+  for (int c = 0; c < stages - 1 + PREFETCH; ++c) advance(pf_t, pf_d);
+  for (int c = 0; c < stages - 1; ++c) load(c);
 
-    if constexpr (LEVEL == 0) {
-      // one sum per query row and tile, over this thread's 8 columns and
-      // then the 16 threads of the row group (half a warp)
+  Tile tile;
+  tile.zero();
+  int hits[Tile::NQ];
 #pragma unroll
-      for (int i = 0; i < QPT; ++i) {
+  for (int i = 0; i < Tile::NQ; ++i) hits[i] = 0;
+  float g1 = BIG;  // LEVEL 2: the lane's running minimum of the near columns
+
+  for (int c = 0; c < total; ++c) {
+    wait_ring(stages);
+    __syncthreads();  // chunk c has landed; chunk c - 1's stage is free
+    load(c + stages - 1);
+    if (pf_t < t_end) {  // each gallery row's line, PREFETCH chunks past the copies
+      const int row = pf_t * TN + tid;
+      if (row < N)
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(g + static_cast<size_t>(row) * D + pf_d));
+      advance(pf_t, pf_d);
+    }
+    tile.template multiply<T>(smem + (c % stages) * STAGE);
+    if (c % kc != kc - 1) continue;
+
+    // the tile's epilogue, from the accumulators
+    const int t = t_begin + c / kc, n0 = t * TN;
+    if constexpr (LEVEL == 0) {
+#pragma unroll
+      for (int i = 0; i < Tile::NQ; ++i) {
         float sum = 0.0f;
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) sum += acc[i][j];
-        for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(FULL, sum, off);
-        const int qi = q0 + ty * QPT + i;
-        if (tx == 0 && qi < Q) part_m[static_cast<size_t>(t) * Q + qi] = sum;
+        for (int j = 0; j < Tile::NC; ++j) sum += tile.value(i, j);
+        if (tile.reduce_cols(sum)) b.sums[warp * TQ + tile.query(i)] = sum;
+      }
+      __syncthreads();
+      for (int qr = tid; qr < TQ; qr += THREADS) {
+        float sum = 0.0f;
+        for (int w = 0; w < WARPS; ++w) sum += b.sums[w * TQ + qr];
+        if (q0 + qr < Q) part_m[static_cast<size_t>(t) * Q + q0 + qr] = sum;
       }
     } else {
+      float gv[Tile::NC];
 #pragma unroll
-      for (int i = 0; i < QPT; ++i) {
-        const int qr = ty * QPT + i, qi = q0 + qr;
-        const float qv = qi < Q ? qq[qi] : 0.0f;
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int c = tx + 16 * j, n = n0 + c;
-          const float gv = n < N ? gg[n] : 0.0f;
-          ds[qr * TN + c] = column_distance(metric, qv, gv, acc[i][j]);
-        }
+      for (int j = 0; j < Tile::NC; ++j) {
+        const int n = n0 + tile.col(j);
+        gv[j] = n < N ? __ldg(gg + n) : 0.0f;
       }
-      __syncthreads();
-
-      // rank hits (and the running top-k): warp w owns queries [8w, 8w + 8)
-      for (int r = 0; r < TQ / 4; ++r) {
-        const int qr = warp * (TQ / 4) + r, qi = q0 + qr;
-        if (qi >= Q) break;  // warp-uniform
-        const float d2p = ranks ? d2pos[qi] : 0.0f;
-        const int pq = pos[qi];
-        int hits = 0;
-        float g1 = BIG;  // LEVEL 2: the lane's running minimum of the near columns
-        for (int c0 = 0; c0 < TN; c0 += 32) {
-          const int c = c0 + lane, n = n0 + c;
-          const bool valid = n < N;
-          const float v = ds[qr * TN + c];
-          if (ranks) {
-            const bool hit = valid && v < BIG && n != pq &&
-                             (v < d2p || (v == d2p && n < pq));
-            hits += __popc(__ballot_sync(FULL, hit));
-          }
+#pragma unroll
+      for (int i = 0; i < Tile::NQ; ++i) {
+        const int qr = tile.query(i), qi = q0 + qr;
+        const float qv = b.qq[qr], d2p = b.d2p[qr];
+        const int pq = b.pos[qr];
+        float tv = BIG;
+        int ti = -1;
+        if constexpr (LEVEL == 3) { tv = b.tau_v[qr]; ti = b.tau_i[qr]; }
+#pragma unroll
+        for (int j = 0; j < Tile::NC; ++j) {
+          const int n = n0 + tile.col(j);
+          const bool valid = qi < Q && n < N;
+          const float v = column_distance(metric, qv, gv[j], tile.value(i, j));
+          if (ranks)
+            hits[i] += valid && v < BIG && n != pq && (v < d2p || (v == d2p && n < pq));
           if constexpr (LEVEL == 2) {
             const bool near = valid && v <= 1e-6f;
-            hits += __popc(__ballot_sync(FULL, near));
-            const float cand = near ? v : BIG;
-            g1 = cand < g1 ? cand : g1;
+            hits[i] += near;
+            g1 = near && v < g1 ? v : g1;
           }
-          if constexpr (LEVEL == 3) topk::warp_offer(tv + qr * k, ti + qr * k, k, v, n, valid);
+          if constexpr (LEVEL == 3)
+            append(valid && key_less(v, n, tv, ti), qr, v, n, tile.group(), b);
         }
-        // the TPU level folds its running minimum into the count times 0, so
-        // that the bookkeeping is kept; a float product is not folded away
-        // without fast math, and NaN or 0 converts to 0
-        if constexpr (LEVEL == 2) hits += __float2int_rz(g1 * 0.0f);
-        if (lane == 0) rs[qr] += hits;
       }
-      __syncthreads();
+      if constexpr (LEVEL == 3) {
+        __syncthreads();  // every buffer is written
+        for (int qr = warp; qr < TQ; qr += WARPS) {
+          const int nb = b.nb[qr];
+          if (nb == 0) continue;  // warp-uniform
+          if (nb <= 32) flush_query<1>(b, qr, k);
+          else if (nb <= 64) flush_query<2>(b, qr, k);
+          else flush_query<4>(b, qr, k);
+        }
+        // the next tile's epilogue reads tau after the ring's next barrier
+      }
     }
+    tile.zero();
   }
+  cp_async_wait<0>();
 
+  if constexpr (LEVEL >= 1) {
+    // the TPU level folds its running minimum into the count times 0, so
+    // that the bookkeeping is kept; a float product is not folded away
+    // without fast math, and NaN or 0 converts to 0
+    if constexpr (LEVEL == 2) hits[0] += __float2int_rz(g1 * 0.0f);
+#pragma unroll
+    for (int i = 0; i < Tile::NQ; ++i)
+      if (hits[i]) atomicAdd(b.hits + tile.query(i), hits[i]);
+  }
+  __syncthreads();
   if constexpr (LEVEL == 3) {
     for (int e = tid; e < TQ * k; e += THREADS) {
       const int qr = e / k, j = e % k, qi = q0 + qr;
       if (qi < Q) {
         const size_t o = (static_cast<size_t>(qi) * S + s) * k + j;
-        part_v[o] = tv[e];
-        part_i[o] = ti[e];
+        const bool kept = j < b.nk[qr];
+        part_v[o] = kept ? b.kv[e] : BIG;
+        part_i[o] = kept ? b.ki[e] : N;
       }
     }
   }
   if constexpr (LEVEL >= 1)
     for (int qr = tid; qr < TQ; qr += THREADS)
-      if (q0 + qr < Q) part_r[static_cast<size_t>(q0 + qr) * S + s] = rs[qr];
+      if (q0 + qr < Q) part_r[static_cast<size_t>(q0 + qr) * S + s] = b.hits[qr];
+}
+
+// Let sweep_partial<T, TQ, LEVEL> take the shared memory it needs for a
+// top-k of k (0 below LEVEL 3) with `stages` stages, and report how many of
+// its blocks fit on an SM of the current device (blocks_per_sm may be null).
+template <typename T, int TQ, int LEVEL>
+cudaError_t prepare(int k, int stages, int* blocks_per_sm) {
+  const auto kernel = sweep_partial<T, TQ, LEVEL>;
+  const size_t smem = sweep_smem(TQ, k, stages, LEVEL == 3);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess || !blocks_per_sm) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS, smem);
+}
+
+template <typename T, int TQ, int LEVEL>
+cudaError_t launch_sweep(const T* q, const float* qq, const int* pos, const T* g,
+                         const float* gg, const float* d2pos, int Q, int N, int D, int k,
+                         int metric, int with_ranks, int splits, float* part_v, int* part_i,
+                         int* part_r, float* part_m, cudaStream_t st) {
+  const int stages = choose_stages(TQ, k, LEVEL == 3);
+  if (!stages) return cudaErrorInvalidConfiguration;
+  const cudaError_t err = prepare<T, TQ, LEVEL>(k, stages, nullptr);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Q + TQ - 1) / TQ, splits);
+  sweep_partial<T, TQ, LEVEL><<<grid, THREADS, sweep_smem(TQ, k, stages, LEVEL == 3), st>>>(
+      q, qq, pos, g, gg, d2pos, Q, N, D, k, metric, with_ranks, stages, part_v, part_i,
+      part_r, part_m);
+  return cudaGetLastError();
+}
+
+template <typename T, int TQ, int LEVEL>
+cudaError_t occupancy(int k, int* blocks_per_sm) {
+  const int stages = choose_stages(TQ, k, LEVEL == 3);
+  if (!stages) return cudaErrorInvalidConfiguration;
+  return prepare<T, TQ, LEVEL>(k, stages, blocks_per_sm);
+}
+
+// The first pass's shape for Q queries and a top-k of k (0 below LEVEL 3)
+// on the current device: queries a block (*tq), gallery rows a tile (*tn)
+// and blocks that fit on an SM at once (*blocks_per_sm).
+template <typename T, int LEVEL>
+cudaError_t first_pass(int Q, int k, int* tq, int* tn, int* blocks_per_sm) {
+  *tq = choose_tq(Q);
+  *tn = TN;
+  switch (*tq) {
+    case 8: return occupancy<T, 8, LEVEL>(k, blocks_per_sm);
+    case 16: return occupancy<T, 16, LEVEL>(k, blocks_per_sm);
+    case 32: return occupancy<T, 32, LEVEL>(k, blocks_per_sm);
+    default: return occupancy<T, 64, LEVEL>(k, blocks_per_sm);
+  }
+}
+
+// The first pass on the query tile chosen for Q.
+template <typename T, int LEVEL>
+cudaError_t sweep(const T* q, const float* qq, const int* pos, const T* g, const float* gg,
+                  const float* d2pos, int Q, int N, int D, int k, int metric,
+                  int with_ranks, int splits, float* part_v, int* part_i, int* part_r,
+                  float* part_m, cudaStream_t st) {
+#define K1_SWEEP(TQ)                                                                     \
+  launch_sweep<T, TQ, LEVEL>(q, qq, pos, g, gg, d2pos, Q, N, D, k, metric, with_ranks, \
+                             splits, part_v, part_i, part_r, part_m, st)
+  switch (choose_tq(Q)) {
+    case 8: return K1_SWEEP(8);
+    case 16: return K1_SWEEP(16);
+    case 32: return K1_SWEEP(32);
+    default: return K1_SWEEP(64);
+  }
+#undef K1_SWEEP
 }
 
 }  // namespace k1

@@ -91,6 +91,7 @@
 //
 // Sentinel: score 3e38 with index N.
 
+#include "async_copy.cuh"
 #include "topk_select.cuh"
 
 namespace {
@@ -98,6 +99,7 @@ namespace {
 using topk::BIG;
 using topk::FULL;
 using topk::key_less;
+using topk::warp_sort;
 
 // The constants marked "must match" are repeated in ops/quant_fused.py.
 constexpr int R_MAX = 1024;      // must match
@@ -156,20 +158,6 @@ __device__ __forceinline__ unsigned long long load_l2(const unsigned long long* 
   return static_cast<unsigned long long>(__ldcg(reinterpret_cast<const long long*>(p)));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
 // c += a . b over one 16 x 8 x 32 int8 tile (a row-major, b column-major).
 __device__ __forceinline__ void mma_s8(int* c, const int* a, const int* b) {
   asm volatile(
@@ -211,35 +199,6 @@ __device__ __forceinline__ void count_less(const float* v, const int* x, int e0,
         if (key_less(v[a], x[a], kv[m], kx[m])) pos[m] = q;
       }
     }
-}
-
-// One warp sorts 32 * U keys held in registers ascending (bitonic): key e
-// is (v[e / 32], x[e / 32]) of lane e % 32.
-template <int U>
-__device__ __forceinline__ void warp_sort(float (&v)[U], int (&x)[U]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 2; k <= 32 * U; k <<= 1)
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1)
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const bool up = (((u << 5) | lane) & k) == 0;
-        if (j >= 32) {  // partner u ^ (j / 32) in the same lane
-          const int w = u ^ (j >> 5);
-          if (w > u && key_less(v[w], x[w], v[u], x[u]) == up) {
-            const float tv = v[u]; v[u] = v[w]; v[w] = tv;
-            const int tx = x[u]; x[u] = x[w]; x[w] = tx;
-          }
-        } else {  // partner lane ^ j; the lower of an ascending pair keeps the min
-          const float ov = __shfl_xor_sync(FULL, v[u], j);
-          const int ox = __shfl_xor_sync(FULL, x[u], j);
-          if (key_less(ov, ox, v[u], x[u]) == (up == ((lane & j) == 0))) {
-            v[u] = ov;
-            x[u] = ox;
-          }
-        }
-      }
 }
 
 // One warp folds a query's nb buffered keys (elements [r, r + nb)) into
@@ -662,8 +621,8 @@ extern "C" int k2_quant_candidates(
     const float* g_sq, int Q, int N, int D, int r, int metric, int splits,
     float* part_v, int* part_i, void* bounds, float* vals, int* idx,
     int* exact, void* stream) {
-  if (Q < 1 || N < 1 || D < VEC || D % VEC || r < 1 || r > R_MAX || r > N ||
-      r > topk::CAP || splits < 1 || splits > MERGE_HEADS * MERGE_THREADS)
+  if (Q < 1 || N < 1 || D < VEC || D % VEC || r < 1 || r > R_MAX || r > N || splits < 1 ||
+      splits > MERGE_HEADS * MERGE_THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* b = static_cast<unsigned long long*>(bounds);

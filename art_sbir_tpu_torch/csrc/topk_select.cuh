@@ -5,12 +5,9 @@
 // the selection equals a stable sort's first k entries whatever order the
 // blocks run in: among equal values the smaller gallery index wins.
 //
-//  * warp_offer: one warp offers 32 candidates, one per lane, to a running
-//    top-k of up to CAP entries kept sorted in shared memory (the first
-//    pass, per split). The insertion position takes two ballots: one over
-//    the last entries of the runs of 32, then one over the entries of the
-//    first run not wholly before the key. The shift moves only the entries
-//    behind that position, one run of 32 at a time.
+//  * warp_sort: one warp sorts 32 * U keys held in its registers (a
+//    bitonic network over shuffles), the first step of both sweeps'
+//    buffer flushes.
 //  * merge_runs: one block takes the k smallest keys of a query's S sorted
 //    partial top-k runs by a tournament: k rounds, each a block-wide minimum
 //    over the S run heads, after which the winning run's owner advances it
@@ -25,7 +22,6 @@
 
 namespace topk {
 
-constexpr int CAP = 1024;       // the largest running top-k warp_offer keeps
 constexpr float BIG = 3.0e38f;  // sentinel value, with index N
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -33,46 +29,33 @@ __device__ __forceinline__ bool key_less(float va, int ia, float vb, int ib) {
   return va < vb || (va == vb && ia < ib);
 }
 
-// Offer lane's (v, n) to the running top-k tv/ti (k <= CAP entries in
-// shared memory, ascending by key). All 32 lanes of the warp call it
-// together; `valid` is false for a lane with no candidate.
-__device__ __forceinline__ void warp_offer(float* tv, int* ti, int k, float v,
-                                           int n, bool valid) {
+// One warp sorts 32 * U keys held in registers ascending (bitonic): key e
+// is (v[e / 32], x[e / 32]) of lane e % 32.
+template <int U>
+__device__ __forceinline__ void warp_sort(float (&v)[U], int (&x)[U]) {
   const int lane = threadIdx.x & 31;
-  unsigned m = __ballot_sync(FULL, valid && key_less(v, n, tv[k - 1], ti[k - 1]));
-  while (m) {
-    const int src = __ffs(m) - 1;
-    m &= m - 1;
-    const float cv = __shfl_sync(FULL, v, src);
-    const int ci = __shfl_sync(FULL, n, src);
-    if (!key_less(cv, ci, tv[k - 1], ti[k - 1])) continue;
-    // insertion position p = the number of entries ordered before (cv, ci).
-    // The list is sorted, so the runs of 32 wholly before the key form a
-    // prefix: lane u tests the last entry of run u. Then the lanes test the
-    // entries of the first run that is not wholly before it. (The k-th entry
-    // is not before the key, so that run exists.)
-    const int last = min(32 * lane + 31, k - 1);
-    const int run = __popc(__ballot_sync(
-        FULL, 32 * lane < k && key_less(tv[last], ti[last], cv, ci)));
-    const int j0 = 32 * run + lane;
-    const int p = 32 * run + __popc(__ballot_sync(
-        FULL, j0 < k && key_less(tv[j0], ti[j0], cv, ci)));
-    // shift entries [p, k - 1) up by one, from the top run down. Within a
-    // run every lane reads before any lane writes; the entry a run's first
-    // lane reads lies in the run below, which is written later.
-    for (int base = (k - 1) & ~31; base + 31 > p; base -= 32) {
-      const int j = base + lane;
-      const bool move = j > p && j < k;
-      float pv = 0.0f;
-      int pi = 0;
-      if (move) { pv = tv[j - 1]; pi = ti[j - 1]; }
-      __syncwarp();
-      if (move) { tv[j] = pv; ti[j] = pi; }
-      __syncwarp();
-    }
-    if (lane == 0) { tv[p] = cv; ti[p] = ci; }
-    __syncwarp();
-  }
+#pragma unroll
+  for (int k = 2; k <= 32 * U; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const bool up = (((u << 5) | lane) & k) == 0;
+        if (j >= 32) {  // partner u ^ (j / 32) in the same lane
+          const int w = u ^ (j >> 5);
+          if (w > u && key_less(v[w], x[w], v[u], x[u]) == up) {
+            const float tv = v[u]; v[u] = v[w]; v[w] = tv;
+            const int tx = x[u]; x[u] = x[w]; x[w] = tx;
+          }
+        } else {  // partner lane ^ j; the lower of an ascending pair keeps the min
+          const float ov = __shfl_xor_sync(FULL, v[u], j);
+          const int ox = __shfl_xor_sync(FULL, x[u], j);
+          if (key_less(ov, ox, v[u], x[u]) == (up == ((lane & j) == 0))) {
+            v[u] = ov;
+            x[u] = ox;
+          }
+        }
+      }
 }
 
 // The k smallest keys of S runs, each sorted ascending by key and `len`

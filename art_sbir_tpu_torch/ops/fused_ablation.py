@@ -31,6 +31,7 @@ CUDA kernel for tensors on the card; there is no fallback between them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,8 +41,7 @@ from art_sbir_tpu_torch.core.cuda_build import (CudaKernel, LaunchCounters,
 BIG = 3.0e38  # a column past the gallery; no distance reaches it
 TILE_N = 1024  # the probe's gallery tile
 LEVELS = (0, 1, 2)
-_TQ = 32  # queries per block; csrc/k1_sweep.cuh TQ
-_TN = 128  # gallery rows per tile; csrc/k1_sweep.cuh TN
+LANES = 128  # tile_n comes in multiples of the TPU kernel's 128 lanes
 
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("fused_ablation", "p1_fused_ablation",
@@ -49,11 +49,24 @@ KERNEL = CudaKernel("fused_ablation", "p1_fused_ablation",
 counters = LaunchCounters()
 
 
+@functools.lru_cache(maxsize=None)
+def first_pass(nq: int, level: int, device_index: int):
+    """(queries per block, gallery rows per tile, blocks per SM) of P1's
+    first pass (K1's) at ``level`` for ``nq`` queries on the card
+    ``device_index``, as the kernel reports them."""
+    tq, tn, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        KERNEL.call("p1_first_pass", [_i32] * 2 + [ctypes.POINTER(_i32)] * 3,
+                    nq, level, ctypes.byref(tq), ctypes.byref(tn),
+                    ctypes.byref(per_sm))
+    return tq.value, tn.value, per_sm.value
+
+
 def _check(n: int, level: int, tile_n: int) -> None:
     if level not in LEVELS:
         raise ValueError(f"level must be one of {LEVELS}, got {level}")
-    if tile_n < _TN or tile_n % _TN:
-        raise ValueError(f"tile_n must be a multiple of {_TN}, got {tile_n}")
+    if tile_n < LANES or tile_n % LANES:
+        raise ValueError(f"tile_n must be a multiple of {LANES}, got {tile_n}")
     if n % tile_n:
         raise ValueError(f"N={n} must be a multiple of tile_n={tile_n}")
 
@@ -105,9 +118,12 @@ def ablate_cuda(q, g, qq, gg, d2pos, pos, *, level: int,
     out = torch.empty((nq, 1), dtype=i32, device=dev)
     if nq == 0:
         return out
-    n_tiles = n // _TN
-    s = grid_splits(-(-nq // _TQ), n_tiles, dev)
-    if level == 0:  # one float32 row sum per 128-row tile
+    tq, tn, per_sm = first_pass(nq, level, dev.index)
+    if tile_n % tn:
+        raise ValueError(f"P1 sums whole {tn}-row tiles: tile_n={tile_n}")
+    n_tiles = n // tn
+    s = grid_splits(-(-nq // tq), n_tiles, dev, per_sm=per_sm)
+    if level == 0:  # one float32 row sum per tile of the kernel
         part_m = torch.empty((n_tiles, nq), dtype=f32, device=dev)
         part_r = torch.empty(0, dtype=i32, device=dev)
     else:

@@ -46,6 +46,7 @@ certificate contract all the same and recomputes flagged rows with
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -58,8 +59,6 @@ from art_sbir_tpu_torch.ops.distance import (COSINE_EPS, PAIRWISE_EPS,
 
 BIG = 3.0e38  # sentinel value: worse than any distance
 K_MAX = 128
-_TQ = 32  # queries per block; csrc/k1_sweep.cuh TQ
-_TN = 128  # gallery rows per tile; csrc/k1_sweep.cuh TN
 _METRICS = {"euclidean": 0, "cosine": 1}
 
 _OPERANDS = {"highest": torch.float32, "default": torch.bfloat16}
@@ -70,6 +69,19 @@ KERNEL = CudaKernel("fused_retrieval", "k1_fused_retrieval",
                     [_ptr] * 5 + [_i32] * 8 + [_ptr] * 8 + [_ptr], label="K1")
 counters = LaunchCounters()  # the float32 form
 bf16_counters = LaunchCounters()  # the bf16 form
+
+
+@functools.lru_cache(maxsize=None)
+def first_pass(nq: int, k: int, bf16: bool, device_index: int):
+    """(queries per block, gallery rows per tile, blocks per SM) of K1's
+    first pass for ``nq`` queries and a top-``k`` in the float32 or bf16
+    form on the card ``device_index``, as the kernel reports them."""
+    tq, tn, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        KERNEL.call("k1_first_pass", [_i32] * 3 + [ctypes.POINTER(_i32)] * 3,
+                    nq, k, int(bf16), ctypes.byref(tq), ctypes.byref(tn),
+                    ctypes.byref(per_sm))
+    return tq.value, tn.value, per_sm.value
 
 
 def form_counters(dtype: torch.dtype) -> LaunchCounters:
@@ -141,7 +153,8 @@ def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
     exact = torch.empty(nq, dtype=i32, device=dev)
     if nq == 0:
         return ranks, vals, idx, exact
-    s = grid_splits(-(-nq // _TQ), -(-n // _TN), dev)
+    tq, tn, per_sm = first_pass(nq, k, op == torch.bfloat16, dev.index)
+    s = grid_splits(-(-nq // tq), -(-n // tn), dev, per_sm=per_sm)
     d2pos = torch.empty(nq, dtype=f32, device=dev)
     part_v = torch.empty((nq, s, k), dtype=f32, device=dev)
     part_i = torch.empty((nq, s, k), dtype=i32, device=dev)
@@ -169,6 +182,34 @@ def fused_sweep(q, qq, pos, g, gg, *, k: int, metric: str,
         return fused_sweep_cuda(q, qq, pos, g, gg, k=k, metric=metric,
                                 with_ranks=with_ranks)
     raise ValueError(f"K1 has no route for device {g.device}")
+
+
+def sum_order_bound(q, g, idx, qq, gg, metric: str) -> torch.Tensor:
+    """(Q, k) bound on how far two sums of the bf16 form's cross term in
+    different orders can move the distances of the columns ``idx``.
+
+    The products of bf16 operands are exact in float32, so two routes
+    differ only in the order (and, on the tensor cores, the rounding) of
+    the float32 sum. Allowing each addition a relative error of 2^-23 (a
+    truncating accumulator), each route's cross term lies within
+    ``g_D = D * 2^-23`` times ``A = sum_d |q_d g_d|`` of the exact one, so
+    the two lie within ``2 g_D A`` of each other. The euclidean distance
+    ``qq + gg - 2 cross`` doubles that; its final subtraction rounds by at
+    most 2^-23 of its terms in each route. The cosine distance ``1 - cross
+    / den`` divides it by ``den``; its division and subtraction round by at
+    most 2^-23 of ``1 + |cross| / den`` in each. ``q`` (Q, D), ``g``
+    (N, D) bf16; ``idx`` (Q, k); ``qq`` (Q, 1), ``gg`` (1, N) float32."""
+    cols = idx.long().clamp(0, g.shape[0] - 1)
+    qf, rows = q.float()[:, None, :], g[cols].float()
+    a = torch.sum(torch.abs(qf * rows), dim=2)
+    cross = torch.sum(qf * rows, dim=2)
+    g_d = q.shape[1] * 2.0 ** -23
+    gsel = torch.gather(gg.expand(q.shape[0], -1), 1, cols)
+    if metric == "euclidean":
+        return (4.0 * g_d * a
+                + 2.0 ** -22 * (qq.abs() + gsel.abs() + 2.0 * cross.abs()))
+    den = torch.clamp(qq * gsel, min=COSINE_EPS)
+    return 2.0 * g_d * a / den + 2.0 ** -22 * (1.0 + cross.abs() / den)
 
 
 def _check_metric(metric: str) -> None:

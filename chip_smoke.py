@@ -11,9 +11,12 @@ Phases, each printing one JSON line:
 2. kernels     -- K1 in both forms against its plain PyTorch version on
                   the card (D = 1024, k = 10, N in {100000, 100003}, Q in
                   {1, 32, 512}, both metrics, ranks on and off, a case with
-                  duplicated gallery rows; the bf16 form with the gallery
-                  passed as float32 and as bf16), and both forms' times at
-                  the serving shape.
+                  duplicated gallery rows, a row copied to every offset mod
+                  128 of a tile with queries at every offset of their tile;
+                  the bf16 form with the gallery passed as float32 and as
+                  bf16, its values held to the sum-order bound), and both
+                  forms' times beside their bounds and library calls at
+                  Q in {1, 4, 32, 512}.
 3. kernels_k2  -- K2 against its plain version on the card, scores and
                   indices bit-identical (D = 1024, N in {1000000,
                   1000003}, Q in {1, 32, 512}, both metrics, r in {40,
@@ -28,7 +31,11 @@ Phases, each printing one JSON line:
                   plain scan's) at the same r and Q in {1, 32}, and the
                   engine's two int8 routes timed at 10,000 to 1,000,000
                   rows.
-4. probe_k1    -- P1's three levels against their plain version (N =
+4. kernels_int8_wide -- the plain int8 scan at D = 2,048 (past the
+                  1,040 columns a float32 sum of int8 products holds
+                  exactly) against the int32 product and the scan on the
+                  CPU, bit-identical, with TF32 off and on.
+5. probe_k1    -- P1's three levels against their plain version (N =
                   102,400, Q in {32, 512}, a d2pos with hits), then P1's
                   levels and K1 in both forms on the probe's own inputs at
                   its two shapes, the serving shape (Q = 32, N = 100,352)
@@ -37,17 +44,17 @@ Phases, each printing one JSON line:
                   (``scripts/probe_fused_overhead.py``: P1's levels, K1 in
                   both forms, the chunked plain route) at those shapes, 3
                   rounds each, each time beside its bound.
-5. encoder     -- the full-width ModifiedResNet50 forward, bf16, batch 32
+6. encoder     -- the full-width ModifiedResNet50 forward, bf16, batch 32
                   at 224 px: finite outputs, cosine similarity to float32
                   (TF32 off), images/s.
-6. serve       -- the serving path at full width: a 100,000 x 1024 feature
+7. serve       -- the serving path at full width: a 100,000 x 1024 feature
                   cache with 8 planted rows, ``cli/serve.py::build_engine``
                   on the card, warmup, then /healthz, 20 rounds of 8
                   concurrent /search and one /search_batch of 8 over HTTP
                   (then one dispatch under torch.profiler, outside the
                   counted run). Each top-1 must be its planted row; K1 must
                   have been launched and never fallen back.
-7. serve_quant -- the same with ``--quantize`` over a 1,000,000 x 1024
+8. serve_quant -- the same with ``--quantize`` over a 1,000,000 x 1024
                   cache (500,000 rows only where the temporary directory
                   cannot hold the larger one): the
                   engine must take the K2 route, K2 must have been launched
@@ -192,14 +199,33 @@ def _as_bf16(inputs, metric, held):
             gallery_norms(g_held, metric))
 
 
-def _compare(out, ref, q, n, with_ranks, rank_tol=2):
+def _compare(out, ref, q, n, with_ranks, rank_tol=2, bound=None):
     """Checks of K1 against its plain version; ``rank_tol``: the ranks'
-    tolerance, one for all rows or one per row."""
+    tolerance, one for all rows or one per row. ``bound`` (the bf16 form):
+    the sum-order bound of each row's values (``rf.sum_order_bound`` at the
+    plain version's columns), else the float32 form's rtol 1e-5. Returns
+    (max |value error|, max rank error, moved indices, max error over the
+    bound)."""
     r1, v1, i1, e1 = (t.cpu().numpy() for t in out)
     r0, v0, i0, _ = (t.cpu().numpy() for t in ref)
     check(e1.all(), "K1 certificate")
-    check((np.sort(i1, 1) == np.sort(i0, 1)).all(), "K1 top-k index sets")
-    check(np.allclose(v1, v0, rtol=1e-5, atol=1e-6), "K1 values rtol 1e-5")
+    over = 0.0
+    if bound is None:
+        check((np.sort(i1, 1) == np.sort(i0, 1)).all(), "K1 top-k index sets")
+        check(np.allclose(v1, v0, rtol=1e-5, atol=1e-6), "K1 values rtol 1e-5")
+    else:
+        # sorted values move by at most the largest bound of their row; a
+        # column swapped into the set lies within that of the k-th value
+        b = bound.cpu().numpy().max(axis=1, keepdims=True)
+        check(bool((np.abs(v1 - v0) <= b).all()),
+              "K1 bf16 values within the sum-order bound")
+        over = float((np.abs(v1 - v0) / np.maximum(b, 1e-30)).max())
+        for row in np.nonzero((np.sort(i1, 1) != np.sort(i0, 1)).any(1))[0]:
+            swapped = ~np.isin(i1[row], i0[row])
+            check(bool((np.abs(v1[row][swapped] - v0[row, -1])
+                        <= 2 * b[row]).all()),
+                  "K1 bf16: a swapped column lies within the bound of the "
+                  "k-th value")
     # rows ordered by (value, index), strictly
     key_ok = (v1[:, 1:] > v1[:, :-1]) | ((v1[:, 1:] == v1[:, :-1])
                                          & (i1[:, 1:] > i1[:, :-1]))
@@ -208,7 +234,21 @@ def _compare(out, ref, q, n, with_ranks, rank_tol=2):
     rank_err = int(rank_diff.max()) if q else 0
     check(bool((rank_diff <= rank_tol).all()) if with_ranks
           else not r1.any(), "K1 ranks within their tolerance")
-    return float(np.abs(v1 - v0).max()), rank_err, int((i1 != i0).sum())
+    return float(np.abs(v1 - v0).max()), rank_err, int((i1 != i0).sum()), over
+
+
+def _bf16_bound(rf, inputs, ref, metric):
+    """The bf16 form's sum-order bound at the plain version's columns."""
+    if inputs[3].dtype != _torch().bfloat16:
+        return None
+    queries, qq, _, g, gg = inputs
+    return rf.sum_order_bound(queries, g, ref[2], qq, gg, metric)
+
+
+def _torch():
+    import torch
+
+    return torch
 
 
 def _k1_ties(rf, inputs, form):
@@ -218,7 +258,8 @@ def _k1_ties(rf, inputs, form):
                               with_ranks=True)
     ref = rf.fused_sweep_reference(*inputs, k=K, metric="euclidean",
                                    with_ranks=True)
-    _compare(out, ref, 32, SERVE_N, True)
+    _compare(out, ref, 32, SERVE_N, True,
+             bound=_bf16_bound(rf, inputs, ref, "euclidean"))
     v1, i1 = out[1].cpu().numpy(), out[2].cpu().numpy()
     for row in range(32):
         p = row % 64
@@ -236,6 +277,42 @@ def _k1_ties(rf, inputs, form):
           "its rank")
 
 
+def _k1_offset_copies(rf, gen, q, dtype):
+    """A row copied to every offset mod 128 of a tile (128 equal rows over
+    N = 100,003) and ``q`` equal queries near it, whose positive is the
+    last copy: every copy's value is the same in every query's row (the
+    queries at every offset of their query tile), the copies come in index
+    order, and the positive's 127 earlier copies count toward its rank."""
+    import torch
+
+    from art_sbir_tpu_torch.ops.retrieval_fused import (gallery_norms,
+                                                        query_norms)
+
+    n = SERVE_N + 3
+    g = torch.randn((n, D), generator=gen, device="cuda")
+    src = 5
+    copies = sorted([src] + [128 * (7 * o % 781) + o for o in range(128)
+                             if o != src])
+    g[copies] = g[src].clone()
+    x = (g[src] + 0.05 * torch.randn(D, generator=gen, device="cuda"))
+    x = x.expand(q, D).contiguous()
+    pos = torch.full((q, 1), copies[-1], dtype=torch.int32, device="cuda")
+    inputs = (x.to(dtype), query_norms(x, "euclidean"), pos,
+              g.to(dtype).contiguous(), gallery_norms(g, "euclidean"))
+    ranks, vals, idx, _ = rf.fused_sweep_cuda(*inputs, k=128,
+                                              metric="euclidean",
+                                              with_ranks=True)
+    want = torch.tensor(copies, dtype=torch.int32, device="cuda")
+    form = "bf16" if dtype == torch.bfloat16 else "float32"
+    check(bool((idx == want[None, :]).all()),
+          f"copies at every tile offset ({form}, Q={q}): index order")
+    check(bool((vals == vals[0, 0]).all()),
+          f"copies at every tile offset ({form}, Q={q}): one value")
+    check(bool((ranks == 127).all()),
+          f"copies at every tile offset ({form}, Q={q}): the positive's "
+          "earlier copies count")
+
+
 def phase_kernels(state) -> None:
     import torch
 
@@ -245,6 +322,7 @@ def phase_kernels(state) -> None:
     bf16, f32 = torch.bfloat16, torch.float32
     cases, bf16_cases = [], []
     max_err = {"f32": 0.0, "bf16": 0.0}
+    max_over = 0.0  # the bf16 form's largest value error over its bound
     for n in (SERVE_N, SERVE_N + 3):
         for metric in ("euclidean", "cosine"):
             for q in (1, 32, 512):
@@ -260,9 +338,11 @@ def phase_kernels(state) -> None:
                         out = rf.fused_sweep_cuda(*inputs, **kw)
                         ref = rf.fused_sweep_reference(*inputs, **kw)
                         torch.cuda.synchronize()
-                        err, rank_err, moved = _compare(out, ref, q, n,
-                                                        with_ranks)
+                        err, rank_err, moved, over = _compare(
+                            out, ref, q, n, with_ranks,
+                            bound=_bf16_bound(rf, inputs, ref, metric))
                         max_err[form] = max(max_err[form], err)
+                        max_over = max(max_over, over)
                         row = [n, q, metric, with_ranks, err, rank_err, moved]
                         if held is None:
                             cases.append(row)
@@ -277,6 +357,13 @@ def phase_kernels(state) -> None:
         _k1_ties(rf, _as_bf16(inputs, "euclidean", held), "bf16")
         bf16_cases.append(["ties", 32, "euclidean", str(held)[6:]])
     del inputs
+    # a row at every offset mod 128 of a tile, queries at every offset of
+    # their tile (Q = 32: one tile of 32; Q = 40: one of 64)
+    for q in (32, 40):
+        for dtype in (f32, bf16):
+            _k1_offset_copies(rf, gen, q, dtype)
+            (cases if dtype == f32 else bf16_cases).append(
+                ["copies at every tile offset", q, "euclidean"])
 
     # times at the serving shape: Q = 32, N = 100,000, euclidean, no ranks
     q, n = 32, SERVE_N
@@ -329,17 +416,34 @@ def phase_kernels(state) -> None:
         "bound_by": bf16_by, "library_ms": bf16_library_ms}
     del inputs, queries, g, b
     # K1 at other batch buckets of the main path, and at an offline-
-    # evaluation batch (512, ranks on), beside each one's bound
+    # evaluation batch (512, ranks on), in both forms, beside each one's
+    # bound and the library calls: cdist + topk (float32), bf16 matmul +
+    # topk (bf16)
     by_q = []
     for q, with_ranks in ((1, False), (4, False), (512, True)):
         inputs = _k1_inputs(n, q, "euclidean", gen)
-        ms = time_ms(lambda: rf.fused_sweep_cuda(
-            *inputs, k=K, metric="euclidean", with_ranks=with_ranks))
-        by_q.append({"q": q, "with_ranks": with_ranks, "ms": ms,
-                     "bound_ms": bound(
-                         4 * (n * D + q * D + n + 2 * q) + q * K * 8 + q * 8,
-                         2 * q * n * D, H100_F32_FLOP_PER_S)[0]})
-        del inputs
+        b = _as_bf16(inputs, "euclidean", bf16)
+        kw = dict(k=K, metric="euclidean", with_ranks=with_ranks)
+        row = {"q": q, "with_ranks": with_ranks}
+        for form, args, op_rate, width in (
+                ("f32", inputs, H100_F32_FLOP_PER_S, 4),
+                ("bf16", b, H100_BF16_FLOP_PER_S, 2)):
+            ms = [time_ms(lambda: rf.fused_sweep_cuda(*args, **kw))]
+            if form == "f32":
+                lib = lambda: torch.topk(torch.cdist(args[0], args[3]), K,
+                                         largest=False)
+            else:
+                lib = lambda: torch.topk(
+                    args[1] + args[4] - 2.0 * torch.matmul(
+                        args[0], args[3].T).float(), K, largest=False)
+            row[form + "_library_ms"] = time_ms(lib)
+            ms.append(time_ms(lambda: rf.fused_sweep_cuda(*args, **kw)))
+            row[form + "_ms"] = min(ms)
+            row[form + "_bound_ms"] = bound(
+                width * (n * D + q * D) + 4 * (n + 2 * q) + q * K * 8 + q * 8,
+                2 * q * n * D, op_rate)[0]
+        by_q.append(row)
+        del inputs, b
     emit({"phase": "kernels", "ok": True, "cases": len(cases) + 1,
           "case_rows": cases, "kernel_ms_runs": [kernel_ms, kernel_ms2],
           **{k: v for k, v in state["k1"].items() if k.endswith("ms")},
@@ -350,7 +454,13 @@ def phase_kernels(state) -> None:
           **{"bf16_" + k: v for k, v in state["k1_bf16"].items()
              if k.endswith("ms") or k == "bound_by"},
           "bf16_library": "torch.matmul of bf16 operands (bf16 output), "
-                          "the norms, torch.topk"})
+                          "the norms, torch.topk",
+          "bf16_value_bound": "|d_kernel - d_plain| <= 4 D 2^-23 "
+                              "sum_d |q_d g_d| + 2^-22 (|qq| + |gg| + "
+                              "2 |cross|) (euclidean), per row "
+                              "(rf.sum_order_bound)",
+          "bf16_max_abs_err": max_err["bf16"],
+          "bf16_max_err_over_bound": max_over})
 
 
 def _k2_inputs(g, q, metric, gen, near=None):
@@ -627,6 +737,51 @@ def phase_kernels_k2(state) -> None:
           "routes_by_n": by_n})
 
 
+def phase_kernels_int8_wide(state) -> None:
+    """The plain int8 scan on the card at D = 2,048, past the 1,040 columns
+    whose int8 products a float32 sum holds exactly: the cross term (float32
+    slices summed in int32) equals the int32 product on the CPU, with TF32
+    off and on; the plain scan's candidates and scores are bit-identical to
+    the CPU's; the plain int8 route finds each query's planted row."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import quant
+    from art_sbir_tpu_torch.ops import quant_fused as qf
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    d, n, q = 2048, 20_000, 32
+    g = torch.randn((n, d), generator=gen, device="cuda")
+    rows = torch.randint(0, n, (q,), generator=gen, device="cuda")
+    x = g[rows] + 0.05 * torch.randn((q, d), generator=gen, device="cuda")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    cases = []
+    for metric in ("euclidean", "cosine"):
+        qg = quant.quantize_gallery(g, metric)
+        q8, s_q = quant._quantize_queries(x, metric)
+        want = qf.int8_cross(q8.cpu(), qg.q8.cpu()).float()
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            check(torch.equal(qf.int8_cross(q8, qg.q8).cpu(), want),
+                  f"int8 cross term at D = {d} ({metric}, TF32 {tf32})")
+        torch.backends.cuda.matmul.allow_tf32 = saved
+        args = (q8, s_q, qg.q8, qg.scale, qg.sq_norm)
+        out = qf.quant_candidates_reference(*args, r=R, metric=metric)
+        ref = qf.quant_candidates_reference(*(t.cpu() for t in args), r=R,
+                                            metric=metric)
+        check(torch.equal(out[1].cpu(), ref[1])
+              and torch.equal(out[0].cpu(), ref[0]),
+              f"plain int8 scan at D = {d} equals the CPU's ({metric})")
+        _, idx = quant.retrieve_quantized(x, qg, g, k=K, rerank_factor=4)
+        check(bool((idx[:, 0] == rows).all()),
+              f"plain int8 route top-1 at D = {d} ({metric})")
+        route_ms = time_ms(lambda: quant.retrieve_quantized(
+            x, qg, g, k=K, rerank_factor=4), reps=5)
+        cases.append({"metric": metric, "d": d, "n": n, "q": q, "r": R,
+                      "plain_route_ms": route_ms})
+        del qg, q8, s_q, out, ref
+    emit({"phase": "kernels_int8_wide", "ok": True, "cases": cases})
+
+
 # --------------------------------------------------------------- probe_k1
 
 def _probe_bounds(q, n):
@@ -648,9 +803,12 @@ def _probe_shape_checks(q, n):
     """P1's three levels and K1 in both forms, called as the probe calls
     them on the probe's own inputs at (Q, N), against their plain versions.
     K1's ranks may differ from the plain version's by as many columns as lie
-    within 4 ulp of the positive's distance, or by 2 where fewer lie there:
+    within reach of the positive's distance, or by 2 where fewer lie there:
     the two sum the cross term in different orders, and a million columns
-    put a few within that reach. Returns P1's rows and K1's."""
+    put a few within that reach. The reach is 4 ulp of the positive's
+    distance in the float32 form, and in the bf16 form the sum-order bound
+    of ``rf.sum_order_bound`` with sum |q_d g_d| bounded by |q| |g|; the
+    bf16 values are held to that bound. Returns P1's rows and K1's."""
     import torch
 
     from art_sbir_tpu_torch.ops import fused_ablation as fa
@@ -678,14 +836,26 @@ def _probe_shape_checks(q, n):
                                      gg=norms)
         ref = rf.fused_sweep_reference(xo, qn, pos2d, go, norms, k=K,
                                        metric="euclidean", with_ranks=True)
-        d = torch.clamp(qn + norms - 2.0 * _cross(xo, go, precision),
-                        min=0.0)
+        cross = _cross(xo, go, precision)
+        d = torch.clamp(qn + norms - 2.0 * cross, min=0.0)
         dpos = torch.gather(d, 1, pos2d.long())
-        ulp = torch.nextafter(dpos, torch.full_like(dpos, float("inf"))) - dpos
-        near = torch.sum(torch.abs(d - dpos) <= 4.0 * ulp, dim=1) - 1
-        del d, dpos
+        if op == torch.bfloat16:  # rf.sum_order_bound, by Cauchy-Schwarz
+            reach = (4.0 * D * 2.0 ** -23
+                     * torch.linalg.vector_norm(xo.float(), dim=1)[:, None]
+                     * torch.linalg.vector_norm(go.float(), dim=1)[None, :]
+                     + 2.0 ** -22 * (qn.abs() + norms.abs()
+                                     + 2.0 * cross.abs()))
+            bound = rf.sum_order_bound(xo, go, ref[2], qn, norms,
+                                       "euclidean")
+        else:
+            reach = 4.0 * (torch.nextafter(
+                dpos, torch.full_like(dpos, float("inf"))) - dpos)
+            bound = None
+        near = torch.sum(torch.abs(d - dpos) <= reach, dim=1) - 1
+        del cross, d, dpos, reach
         rank_tol = np.maximum(near.cpu().numpy(), 2)
-        err, rank_err, moved = _compare(out, ref, q, n, True, rank_tol)
+        err, rank_err, moved, _ = _compare(out, ref, q, n, True, rank_tol,
+                                           bound=bound)
         k1_rows.append([n, q, precision, err, rank_err, moved,
                         int(rank_tol.max())])
         del xo, go, out, ref
@@ -1133,7 +1303,7 @@ def main(argv=None) -> int:
 
     state = {"launches": {}}
     for phase in (phase_build, phase_kernels, phase_kernels_k2,
-                  phase_probe_k1, phase_encoder, phase_serve,
+                  phase_kernels_int8_wide, phase_probe_k1, phase_encoder, phase_serve,
                   phase_serve_quant):
         phase(state)
     emit({"kernels": [{**state[name.lower()],
