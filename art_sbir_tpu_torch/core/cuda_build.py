@@ -118,13 +118,27 @@ class CudaKernel:
         """Call the C entry point; raise if the launch was refused."""
         self.call(self.symbol, self.argtypes, *args)
 
+    def ask(self, symbol: str, args: Sequence[int], n_out: int,
+            device_index: int) -> tuple:
+        """Call the exported C function ``symbol(int..., int* ...)`` on the
+        card ``device_index`` with the int ``args`` and ``n_out`` int
+        outputs (a kernel's shape: its tile, the blocks that fit on an SM);
+        return the outputs."""
+        outs = [ctypes.c_int() for _ in range(n_out)]
+        with torch.cuda.device(device_index):
+            self.call(symbol, [ctypes.c_int] * len(args)
+                      + [ctypes.POINTER(ctypes.c_int)] * n_out, *args,
+                      *(ctypes.byref(o) for o in outs))
+        return tuple(o.value for o in outs)
+
 
 def grid_splits(q_tiles: int, n_tiles: int, device: torch.device,
                 per_sm: int = BLOCKS_PER_SM) -> int:
-    """Gallery splits of a two-pass sweep: enough blocks to fill the card
-    ``BLOCKS_PER_SM`` deep, or ``per_sm`` deep where fewer blocks fit on an
-    SM at once, at most one split per gallery tile and at most
+    """Gallery splits of a two-pass sweep: as many blocks as fill the card
+    once, ``BLOCKS_PER_SM`` deep or ``per_sm`` deep where fewer blocks fit
+    on an SM at once, and no more (a block past the first wave would run
+    alone after it), at most one split per gallery tile and at most
     ``MAX_SPLITS``."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_sm = max(1, min(BLOCKS_PER_SM, per_sm))
-    return max(1, min(n_tiles, MAX_SPLITS, -(-per_sm * sms // q_tiles)))
+    return max(1, min(n_tiles, MAX_SPLITS, per_sm * sms // q_tiles))

@@ -5,7 +5,8 @@
 // whose levels strip the TPU's K1 to measure where its time goes. Here each
 // level strips the port's own K1: the first pass is K1's, k1::sweep_partial
 // (k1_sweep.cuh) with bf16 operands, the same query tiles, ring and
-// products, and only the epilogue cut back; p1_first_pass reports the tile
+// tensor-core products (mma.sync m16n8k16), and only the epilogue cut
+// back; p1_first_pass reports the tile
 // and the blocks that fit on an SM, from which the wrapper sizes the
 // splits. Per query row, into out (Q,) int32:
 //   level 0  the cross term only: the sum over tile_n-column tiles of

@@ -25,15 +25,17 @@
 // its in-order grid; none of them is carried over. Two passes instead
 // (after k1_positive, when ranks are asked for):
 //
-//  0. k1_positive, one thread per query: the positive's own distance with
-//     the same FMA chain as its column in the sweep, in either form. (The
-//     TPU kernel takes it from a separate elementwise sum of the float32
-//     inputs, so a duplicate of the positive can miss the tie by an ulp.)
+//  0. The positive's own distance with the same arithmetic as its column
+//     in the sweep: k1_positive (one thread a query, the FMA chain) in the
+//     float32 form, k1_positive_bf16 (one warp for 8 queries, the same
+//     mma.sync steps) in the bf16 form. (The TPU kernel takes it from a
+//     separate elementwise sum of the float32 inputs, so a duplicate of
+//     the positive can miss the tie by an ulp.)
 //  1. k1::sweep_partial<T, TQ, 3> (k1_sweep.cuh, shared with the ablation
 //     probe P1): a cp.async ring over the gallery, query tiles of 8 to 64
-//     rows chosen from Q, the cross term, and in registers the distances,
-//     the rank hits and a threshold filter in front of each query's sorted
-//     top-k. The block writes a partial (Q, S, k) top-k and (Q, S) rank
+//     rows chosen from Q, the cross term (float32 FMA, or bf16 mma.sync),
+//     and in registers the distances, the rank hits and a threshold filter
+//     in front of each query's sorted top-k. The block writes a partial (Q, S, k) top-k and (Q, S) rank
 //     counts. k1_first_pass reports the query tile and the blocks that fit
 //     on an SM, from which the wrapper sizes the S gallery splits.
 //  2. k1_merge, one block per query: the k smallest of the S sorted partial
@@ -50,21 +52,63 @@ constexpr int K_MAX = 128;  // the TPU kernel's bound on k
 constexpr int MERGE_THREADS = 256;
 constexpr int MERGE_HEADS = 4;  // runs per merge thread: S <= 1024
 
-// The positive's own distance, with the same FMA chain over D as the sweep
-// gives its column, so a duplicate of the positive ties with it exactly.
-template <typename T>
-__global__ void k1_positive(const T* __restrict__ q, const float* __restrict__ qq,
-                            const int* __restrict__ pos, const T* __restrict__ g,
-                            const float* __restrict__ gg, int Q, int N, int D,
-                            int metric, float* __restrict__ d2pos) {
+// The positive's own distance in the float32 form, with the same FMA chain
+// over D as the sweep gives its column, so a duplicate of the positive ties
+// with it exactly. One thread a query.
+__global__ void k1_positive(const float* __restrict__ q, const float* __restrict__ qq,
+                            const int* __restrict__ pos, const float* __restrict__ g,
+                            const float* __restrict__ gg, int Q, int N, int D, int metric,
+                            float* __restrict__ d2pos) {
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
   if (qi >= Q) return;
   const int p = min(max(pos[qi], 0), N - 1);
-  const T* a = q + static_cast<size_t>(qi) * D;
-  const T* b = g + static_cast<size_t>(p) * D;
+  const float* a = q + static_cast<size_t>(qi) * D;
+  const float* b = g + static_cast<size_t>(p) * D;
   float acc = 0.0f;
-  for (int d = 0; d < D; ++d) acc = fmaf(k1::widen(a[d]), k1::widen(b[d]), acc);
+  for (int d = 0; d < D; ++d) acc = fmaf(a[d], b[d], acc);
   d2pos[qi] = k1::column_distance(metric, qq[qi], gg[p], acc);
+}
+
+// The positive's own distance in the bf16 form, from the sweep's own
+// arithmetic: mma.sync m16n8k16 with float32 accumulators from 0, over the
+// same k16 steps in the same order (whole 64-value chunks, the values past
+// D zero). One warp takes 8 queries: row g of A is query g's positive row,
+// column g of B the query, so lane (g, t) with t = g / 2 holds query g's
+// own product. Rows 8-15 of A are zero.
+__global__ void k1_positive_bf16(const __nv_bfloat16* __restrict__ q,
+                                 const float* __restrict__ qq, const int* __restrict__ pos,
+                                 const __nv_bfloat16* __restrict__ g,
+                                 const float* __restrict__ gg, int Q, int N, int D,
+                                 int metric, float* __restrict__ d2pos) {
+  const int lane = threadIdx.x, r = lane >> 2, t = lane & 3;
+  const int qi = blockIdx.x * 8 + r;
+  const bool in = qi < Q;
+  const int p = in ? min(max(pos[qi], 0), N - 1) : 0;
+  // bf16 pairs as 32-bit words (D is a multiple of 8)
+  const unsigned* a = reinterpret_cast<const unsigned*>(g + static_cast<size_t>(p) * D);
+  const unsigned* b = reinterpret_cast<const unsigned*>(q + static_cast<size_t>(in ? qi : 0) * D);
+  auto pair = [&](const unsigned* row, int d) { return in && d < D ? row[d >> 1] : 0u; };
+  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const int steps = (D + 63) / 64 * 4;
+  for (int s = 0; s < steps; ++s) {
+    const int d = 16 * s + 2 * t;
+    const unsigned af[4] = {pair(a, d), 0u, pair(a, d + 8), 0u};
+    k1::mma_bf16(c, af, pair(b, d), pair(b, d + 8));
+  }
+  if (in && (r >> 1) == t) d2pos[qi] = k1::column_distance(metric, qq[qi], gg[p], c[r & 1]);
+}
+
+cudaError_t launch_positive(const float* q, const float* qq, const int* pos, const float* g,
+                            const float* gg, int Q, int N, int D, int metric, float* d2pos,
+                            cudaStream_t st) {
+  k1_positive<<<(Q + 127) / 128, 128, 0, st>>>(q, qq, pos, g, gg, Q, N, D, metric, d2pos);
+  return cudaGetLastError();
+}
+cudaError_t launch_positive(const __nv_bfloat16* q, const float* qq, const int* pos,
+                            const __nv_bfloat16* g, const float* gg, int Q, int N, int D,
+                            int metric, float* d2pos, cudaStream_t st) {
+  k1_positive_bf16<<<(Q + 7) / 8, 32, 0, st>>>(q, qq, pos, g, gg, Q, N, D, metric, d2pos);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(MERGE_THREADS)
@@ -100,9 +144,7 @@ int launch(const T* q, const float* qq, const int* pos, const T* g, const float*
            float* d2pos, float* part_v, int* part_i, int* part_r, int* ranks,
            float* vals, int* idx, int* exact, cudaStream_t st) {
   if (with_ranks) {
-    k1_positive<T><<<(Q + 127) / 128, 128, 0, st>>>(q, qq, pos, g, gg, Q, N, D, metric,
-                                                    d2pos);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err = launch_positive(q, qq, pos, g, gg, Q, N, D, metric, d2pos, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const cudaError_t err = k1::sweep<T, 3>(q, qq, pos, g, gg, d2pos, Q, N, D, k, metric,

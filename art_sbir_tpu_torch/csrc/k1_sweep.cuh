@@ -2,13 +2,15 @@
 // P1 (fused_ablation.cu), so that each ablation level strips K1's own code
 // and nothing else.
 //
-// sweep_partial<T, TQ, LEVEL>, grid (ceil(Q / TQ), S), 4 warps. Split s
-// owns a contiguous range of 128-row gallery tiles (TN). TQ, the queries of
-// a block, is 8, 16, 32 or 64, chosen from Q (choose_tq), so that a block
-// computes no more padded query rows than the smallest tile needs.
+// sweep_partial<T, TQ, LEVEL>, grid (ceil(Q / TQ), S), 4 or 8 warps. Split
+// s owns a contiguous range of 128-row gallery tiles (TN). TQ, the queries
+// of a block, is 8, 16, 32 or 64, chosen from Q (choose_tq), so that a
+// block computes no more padded query rows than the smallest tile needs.
+// Above 64 queries the blocks of the query tiles over one split run
+// together (the grid's fastest dimension), so the L2 serves their repeats.
 //
-// The stream. A ring of `stages` shared-memory stages (2 to 4, as many as
-// let two blocks share an SM, else as many as fit one: choose_stages) is
+// The stream. A ring of `stages` shared-memory stages (3 or 4 where three
+// or two blocks share an SM, else 2 to 4 in one: choose_stages) is
 // filled by 16-byte cp.async copies: each stage holds one 128-byte chunk
 // (a cache line) of each of the TQ query rows and TN gallery rows, as the
 // rows lie in device memory (32 float32 or 64 bf16 values), rows past Q or
@@ -16,26 +18,39 @@
 // at unit u ^ (r & 7), so eight consecutive rows read at the same unit fall
 // on distinct banks: 16-byte shared reads without conflicts, and no padding.
 // The L2 is asked for each gallery row's line a few chunks ahead of the
-// copies, and for the tile's norms.
+// copies. The gallery splits fill the card once (k1_first_pass reports
+// the blocks an SM holds), so no block runs alone in a second wave.
 //
-// The products. Each thread owns TQ / 8 queries x 8 gallery rows and
-// accumulates every q.g with float32 FMAs in one fixed order over D (d = 0,
-// 1, ..., D-1), so a (q, g) pair's value does not depend on where the row
-// or the query sits in a tile, and duplicated gallery rows tie exactly. A
-// product of two bf16 values is exact in float32, so the bf16 form differs
-// from a float32 sum of the widened values only in the order of the sum.
+// The products. The float32 form (FmaTile): each thread owns TQ / 8 (64
+// queries: TQ / 16, over 8 warps) queries x 8 gallery rows and accumulates
+// every q.g with float32 FMAs in one fixed order over D (d = 0, 1, ...,
+// D-1), so a (q, g) pair's value does not depend on where the row or the
+// query sits in a tile, and duplicated gallery rows tie exactly; the
+// positive's distance (k1_positive) takes the same chain. The bf16 form
+// (MmaTile): mma.sync m16n8k16 on the tensor cores, the gallery rows as the
+// M side (16 an instruction) and the queries as N (8 an instruction; a
+// tile of 8 for Q < 8), bf16 operands from the ring by ldmatrix, float32
+// accumulators from 0 over the k16 steps of D in order. A product of two
+// bf16 values is exact in float32, so the form differs from a float32 sum
+// of the widened values only in the order and rounding of the sum inside
+// an instruction, which is the hardware's; the positive's distance
+// (k1_positive_bf16) runs the same instruction over the same steps, and a
+// row's value is the same at every offset of a tile, as M or N operand
+// (chip_smoke.py holds copies at every offset mod 128).
 //
 // The epilogue, in registers, after a tile's last chunk. Each accumulator
 // becomes its distance in the TPU kernel's op order (column_distance); the
 // rank hits are counted from it; and it is tested against its query's
 // current k-th key (value, index), tau. The lanes that hold one query ballot
-// their survivors into the query's buffer of TN slots (one shared atomic
+// their survivors into the query's buffer of 32 slots (one shared atomic
 // per group of lanes). Then one warp a query sorts the buffer in registers
 // and merges it with the query's sorted kept keys (merge path: output p
 // takes the p-th smallest of the two lists), keeping the k smallest, and
-// lowers tau. A tile adds at most TN keys a query, so the buffer never
-// overflows. On random rows a query admits its first tile whole, then about
-// k / t keys from its t-th tile.
+// lowers tau. A key that finds the buffer full stays pending in a bit of
+// its thread and is tested again, against the lowered tau, after the
+// flush: on random rows only a split's first tile (all admitted) and the
+// next few overflow, and a tile with no survivor costs one barrier. A
+// query admits about k / t keys of its t-th tile.
 //
 // LEVEL 3 is K1. LEVELs 0-2 are the probe's stripped forms (the levels of
 // `_ablate_kernel`, scripts/probe_fused_overhead.py:36):
@@ -66,14 +81,11 @@ using topk::FULL;
 using topk::key_less;
 
 constexpr int TN = 128;                // gallery rows per tile
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
 constexpr int CHUNK = 128;             // bytes of a row in one stage: a cache line
 constexpr int UNITS = CHUNK / 16;      // 16-byte units of a staged row
-constexpr int BUF = TN;                // buffered keys a query: one tile's columns
+constexpr int BUF = 32;                // buffered keys a query: one word a lane
 constexpr int PREFETCH = 3;            // chunks past the copies that the L2 is asked for
-constexpr size_t TWO_BLOCKS = 113 * 1024;  // the most two blocks of an SM may each take
-constexpr size_t ONE_BLOCK = 227 * 1024;   // the most one block may take
+constexpr size_t SM_SMEM = 228 * 1024;  // shared memory of an SM
 
 // The queries of a block for Q queries: the smallest tile that holds them,
 // 64 beyond 32.
@@ -81,20 +93,21 @@ __host__ __device__ inline int choose_tq(int Q) {
   return Q <= 8 ? 8 : Q <= 16 ? 16 : Q <= 32 ? 32 : 64;
 }
 
-// Dynamic shared memory of sweep_partial: the ring, the per-query words,
-// and at LEVEL 3 each query's kept keys (k) and buffer (BUF).
-inline size_t sweep_smem(int tq, int k, int stages, bool topk) {
+// Dynamic shared memory of sweep_partial: the ring, the per-query words
+// (8, and one tile sum a warp), and at LEVEL 3 each query's kept keys (k)
+// and buffer (BUF).
+inline size_t sweep_smem(int tq, int warps, int k, int stages, bool topk) {
   return static_cast<size_t>(stages) * (tq + TN) * CHUNK +
-         sizeof(float) * (8 + WARPS) * tq + (topk ? 8ull * tq * (k + BUF) : 0ull);
+         sizeof(float) * (8 + warps) * tq + (topk ? 8ull * tq * (k + BUF) : 0ull);
 }
 
-// Ring stages: the most (of 4, 3, 2) with which two blocks share an SM, else
-// the most that fit one block; 0 where not even two fit.
-inline int choose_stages(int tq, int k, bool topk) {
-  for (int st = 4; st >= 2; --st)
-    if (sweep_smem(tq, k, st, topk) <= TWO_BLOCKS) return st;
-  for (int st = 4; st >= 2; --st)
-    if (sweep_smem(tq, k, st, topk) <= ONE_BLOCK) return st;
+// Ring stages: the most (of 4 and 3) with which three blocks share an SM,
+// else two, else the most (of 4, 3 and 2) that fit one block; 0 where not
+// even two fit. An SM has 228 KB, of which a block reserves 1 KB.
+inline int choose_stages(int tq, int warps, int k, bool topk) {
+  for (int blocks = 3; blocks >= 1; --blocks)
+    for (int st = 4; st >= (blocks == 1 ? 2 : 3); --st)
+      if (sweep_smem(tq, warps, k, st, topk) <= SM_SMEM / blocks - 1024) return st;
   return 0;
 }
 
@@ -105,22 +118,10 @@ template <typename T> struct Elems;
 template <> struct Elems<float> { static constexpr int N = 4; };          // a unit's values
 template <> struct Elems<__nv_bfloat16> { static constexpr int N = 8; };
 
-__device__ __forceinline__ unsigned word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+// Value e of a 16-byte unit of float32 values.
+__device__ __forceinline__ float elem(const uint4& v, int e) {
+  return __uint_as_float(e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w);
 }
-// Value e of a 16-byte unit, widened to float32 (exactly). Little-endian:
-// the lower bf16 half of a word comes first.
-template <typename T> __device__ __forceinline__ float elem(const uint4& v, int e);
-template <> __device__ __forceinline__ float elem<float>(const uint4& v, int e) {
-  return __uint_as_float(word(v, e));
-}
-template <> __device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& v, int e) {
-  const unsigned w = word(v, e >> 1);
-  return __uint_as_float(e & 1 ? w & 0xffff0000u : w << 16);
-}
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // One column's distance from its cross term, in the TPU kernel's op order
 // (explicit round-to-nearest intrinsics: no contraction into FMAs).
@@ -138,7 +139,7 @@ __device__ __forceinline__ float column_distance(int metric, float qv, float gv,
 // Start the copies of one chunk: bytes [d0, d0 + CHUNK) of query rows
 // [q0, q0 + TQ) and gallery rows [n0, n0 + TN), into the stage `dst`
 // (queries first). Rows past Q or N and bytes past D are zero-filled.
-template <typename T, int TQ>
+template <typename T, int TQ, int THREADS>
 __device__ __forceinline__ void stage_chunk(const T* __restrict__ q, int q0, int Q,
                                             const T* __restrict__ g, int n0, int N,
                                             int D, int d0, uint4* __restrict__ dst) {
@@ -161,14 +162,18 @@ __device__ __forceinline__ void wait_ring(int stages) {  // chunk c has landed
   else cp_async_wait<2>();
 }
 
-// The FMA tile: thread (tx, ty) owns queries ty + 8 s (s < TQ / 8) and
-// gallery rows tx + 16 j (j < 8). A warp holds 4 query groups x 8 row
-// groups, so its 16-byte reads touch 4 query rows and 8 consecutive gallery
-// rows: no bank conflicts after the swizzle.
+// The FMA tile (the float32 form): thread (tx, ty) owns queries ty + TY s
+// and gallery rows tx + 16 j (j < 8), TY = 2 * WARPS query groups: 4 warps,
+// 8 warps for 64 queries (4 x 8 a thread, and two warps a scheduler). A
+// warp holds 4 query groups x 8 row groups, so its 16-byte reads touch 4
+// query rows and 8 consecutive gallery rows: no bank conflicts after the
+// swizzle.
 template <int TQ>
 struct FmaTile {
-  static constexpr int NQ = TQ / 8;  // queries a thread holds
-  static constexpr int NC = 8;       // gallery rows a thread holds
+  static constexpr int WARPS = TQ == 64 ? 8 : 4;
+  static constexpr int TY = 2 * WARPS;  // query groups
+  static constexpr int NQ = TQ / TY;    // queries a thread holds
+  static constexpr int NC = 8;          // gallery rows a thread holds
   float acc[NQ][NC];
   int tx, ty;
 
@@ -177,7 +182,7 @@ struct FmaTile {
     tx = (warp & 1) * 8 + (lane & 7);
     ty = (warp >> 1) * 4 + (lane >> 3);
   }
-  __device__ int query(int s) const { return ty + 8 * s; }
+  __device__ int query(int s) const { return ty + TY * s; }
   __device__ int col(int j) const { return tx + 16 * j; }
   __device__ float value(int s, int j) const { return acc[s][j]; }
   // the lanes of the warp that hold the same queries
@@ -193,9 +198,8 @@ struct FmaTile {
 #pragma unroll
       for (int j = 0; j < NC; ++j) acc[s][j] = 0.0f;
   }
-  template <typename T>
-  __device__ void multiply(const uint4* __restrict__ st) {
-    constexpr int V = Elems<T>::N;
+  __device__ void multiply(const uint4* __restrict__ st) {  // float32 rows
+    constexpr int V = Elems<float>::N;
 #pragma unroll
     for (int u = 0; u < UNITS; ++u) {
       uint4 a[NQ], b[NC];
@@ -207,10 +211,10 @@ struct FmaTile {
       for (int e = 0; e < V; ++e) {
         float bv[NC];
 #pragma unroll
-        for (int j = 0; j < NC; ++j) bv[j] = elem<T>(b[j], e);
+        for (int j = 0; j < NC; ++j) bv[j] = elem(b[j], e);
 #pragma unroll
         for (int s = 0; s < NQ; ++s) {
-          const float av = elem<T>(a[s], e);
+          const float av = elem(a[s], e);
 #pragma unroll
           for (int j = 0; j < NC; ++j) acc[s][j] = fmaf(av, bv[j], acc[s][j]);
         }
@@ -219,7 +223,99 @@ struct FmaTile {
   }
 };
 
+// bf16 products on the tensor cores.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const uint4* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const uint4* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+// c += a . b over one 16 x 8 x 16 bf16 tile (a row-major, b column-major),
+// float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The tensor-core tile of the bf16 form: warp w owns gallery rows
+// [32 w, 32 w + 32) (two m16 tiles, the M side) against all TQ queries
+// (TQ / 8 n8 tiles, the N side), and runs mma.sync m16n8k16 on bf16
+// operands with float32 accumulators, four k16 steps a chunk in order over
+// D. Fragments come from the ring by ldmatrix: eight consecutive staged
+// rows at one 16-byte unit each, conflict-free after the swizzle. Lane
+// (g, t) = (lane / 4, lane % 4) holds rows g and g + 8 of each m16 tile
+// against queries 2t and 2t + 1 of each n8 tile. The summation inside one
+// instruction is the hardware's; a row's value does not depend on where it
+// sits in the tile (chip_smoke.py holds copies at every offset).
+template <int TQ>
+struct MmaTile {
+  static constexpr int WARPS = 4;
+  static constexpr int MT = 2;       // m16 tiles of a warp
+  static constexpr int NT = TQ / 8;  // n8 tiles
+  static constexpr int NQ = 2 * NT;  // queries a thread holds
+  static constexpr int NC = 2 * MT;  // gallery rows a thread holds
+  float acc[MT][NT][4];
+  int lane, warp;
+
+  __device__ MmaTile() : lane(threadIdx.x & 31), warp(threadIdx.x >> 5) {}
+  __device__ int query(int s) const { return (s >> 1) * 8 + 2 * (lane & 3) + (s & 1); }
+  __device__ int col(int j) const { return warp * 32 + (j >> 1) * 16 + (lane >> 2) + 8 * (j & 1); }
+  __device__ float value(int s, int j) const { return acc[j >> 1][s >> 1][(j & 1) * 2 + (s & 1)]; }
+  __device__ unsigned group() const { return 0x11111111u << (lane & 3); }
+  __device__ bool reduce_cols(float& x) const {
+    for (int off = 4; off < 32; off <<= 1) x += __shfl_xor_sync(FULL, x, off);
+    return lane < 4;
+  }
+  __device__ void zero() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  }
+  __device__ void multiply(const uint4* __restrict__ st) {  // bf16 rows
+#pragma unroll
+    for (int ks = 0; ks < UNITS / 2; ++ks) {
+      unsigned a[MT][4], b[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)  // rows 0-7 and 8-15, values 0-7 and 8-15
+        ldmatrix_x4(a[mt], st + swz(TQ + warp * 32 + mt * 16 + (lane & 7) + (lane & 8),
+                                    2 * ks + (lane >> 4)));
+      if constexpr (NT == 1) {
+        ldmatrix_x2(b[0], st + swz(lane & 7, 2 * ks + ((lane >> 3) & 1)));
+      } else {
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {  // queries 0-7 and 8-15 of a pair of n8 tiles
+          unsigned r[4];
+          ldmatrix_x4(r, st + swz(p * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                  2 * ks + ((lane >> 3) & 1)));
+          b[2 * p][0] = r[0];
+          b[2 * p][1] = r[1];
+          b[2 * p + 1][0] = r[2];
+          b[2 * p + 1][1] = r[3];
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
+    }
+  }
+};
+
 template <typename T, int TQ> struct TileOf { using type = FmaTile<TQ>; };
+template <int TQ> struct TileOf<__nv_bfloat16, TQ> { using type = MmaTile<TQ>; };
 
 // The per-query state of a block in shared memory.
 struct Block {
@@ -240,47 +336,40 @@ struct Block {
 
 // Append the lanes' admitted keys to their queries' buffers: one ballot,
 // one shared atomic per group of lanes that hold the same query. Called by
-// the whole warp.
-__device__ __forceinline__ void append(bool admit, int qr, float v, int n, unsigned group,
+// the whole warp. Returns false for an admitted key that found the buffer
+// full (the count still grows, and the flush takes the first BUF), else
+// true.
+__device__ __forceinline__ bool append(bool admit, int qr, float v, int n, unsigned group,
                                        const Block& b) {
   const unsigned ball = __ballot_sync(FULL, admit);
-  if (!ball) return;  // warp-uniform
+  if (!ball) return true;  // warp-uniform
   const int lane = threadIdx.x & 31;
   const unsigned m = ball & group;
   const int leader = m ? __ffs(m) - 1 : lane;
   int base = 0;
   if (m && lane == leader) base = atomicAdd(b.nb + qr, __popc(m));
   base = __shfl_sync(FULL, base, leader);
-  if (admit) {
-    const int slot = qr * BUF + base + __popc(m & ((1u << lane) - 1));
-    b.bv[slot] = v;
-    b.bi[slot] = n;
-  }
+  const int slot = base + __popc(m & ((1u << lane) - 1));
+  if (!admit || slot >= BUF) return !admit;
+  b.bv[qr * BUF + slot] = v;
+  b.bi[qr * BUF + slot] = n;
+  return true;
 }
 
-// One warp folds query qr's buffered keys into its kept keys, keeping the
-// k smallest, and lowers its tau. U = buffer words a lane sorts.
-template <int U>
+// One warp folds query qr's buffered keys (the first BUF of its count)
+// into its kept keys, keeping the k smallest, and lowers its tau.
 __device__ void flush_query(const Block& b, int qr, int k) {
   const int lane = threadIdx.x & 31;
-  const int nb = b.nb[qr], nk = b.nk[qr];
+  const int nb = min(b.nb[qr], BUF), nk = b.nk[qr];
   float* bv = b.bv + qr * BUF;
   int* bi = b.bi + qr * BUF;
   const float* kv = b.kv + qr * k;
   const int* ki = b.ki + qr * k;
-  float v[U];
-  int x[U];
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const int j = 32 * u + lane;
-    v[u] = j < nb ? bv[j] : INFINITY;
-    x[u] = j < nb ? bi[j] : INT32_MAX;
-  }
-  topk::warp_sort<U>(v, x);
+  float v[1] = {lane < nb ? bv[lane] : INFINITY};
+  int x[1] = {lane < nb ? bi[lane] : INT32_MAX};
+  topk::warp_sort<1>(v, x);
   __syncwarp();
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-    if (32 * u + lane < nb) { bv[32 * u + lane] = v[u]; bi[32 * u + lane] = x[u]; }
+  if (lane < nb) { bv[lane] = v[0]; bi[lane] = x[0]; }
   __syncwarp();
   // merge path: output p takes i kept and p - i buffered keys, i the
   // smallest with kept[i] not before buffered[p - 1 - i]
@@ -318,7 +407,7 @@ __device__ void flush_query(const Block& b, int qr, int k) {
 }
 
 template <typename T, int TQ, int LEVEL>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32 * TileOf<T, TQ>::type::WARPS, 2)
 sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
               const int* __restrict__ pos, const T* __restrict__ g,
               const float* __restrict__ gg, const float* __restrict__ d2pos,
@@ -326,6 +415,7 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
               float* __restrict__ part_v, int* __restrict__ part_i,
               int* __restrict__ part_r, float* __restrict__ part_m) {
   using Tile = typename TileOf<T, TQ>::type;
+  constexpr int WARPS = Tile::WARPS, THREADS = 32 * WARPS;
   constexpr int STAGE = (TQ + TN) * UNITS;  // uint4 of a stage
   constexpr int DK = UNITS * Elems<T>::N;   // values of a row in a chunk
   extern __shared__ uint4 smem[];
@@ -372,7 +462,7 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
   };
   auto load = [&](int c) {
     if (ld_t < t_end) {
-      stage_chunk<T, TQ>(q, q0, Q, g, ld_t * TN, N, D, ld_d, smem + (c % stages) * STAGE);
+      stage_chunk<T, TQ, THREADS>(q, q0, Q, g, ld_t * TN, N, D, ld_d, smem + (c % stages) * STAGE);
       advance(ld_t, ld_d);
     }
     cp_async_commit();  // an empty group keeps the count in step
@@ -393,11 +483,11 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
     load(c + stages - 1);
     if (pf_t < t_end) {  // each gallery row's line, PREFETCH chunks past the copies
       const int row = pf_t * TN + tid;
-      if (row < N)
+      if (tid < TN && row < N)
         asm volatile("prefetch.global.L2 [%0];\n" ::"l"(g + static_cast<size_t>(row) * D + pf_d));
       advance(pf_t, pf_d);
     }
-    tile.template multiply<T>(smem + (c % stages) * STAGE);
+    tile.multiply(smem + (c % stages) * STAGE);
     if (c % kc != kc - 1) continue;
 
     // the tile's epilogue, from the accumulators
@@ -423,6 +513,10 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
         const int n = n0 + tile.col(j);
         gv[j] = n < N ? __ldg(gg + n) : 0.0f;
       }
+      // one pass: distances, rank hits and the filter; an admitted key
+      // that finds its query's buffer full stays pending
+      bool appended = false;
+      unsigned long long pending = 0;  // bit i * NC + j
 #pragma unroll
       for (int i = 0; i < Tile::NQ; ++i) {
         const int qr = tile.query(i), qi = q0 + qr;
@@ -443,20 +537,40 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
             hits[i] += near;
             g1 = near && v < g1 ? v : g1;
           }
-          if constexpr (LEVEL == 3)
-            append(valid && key_less(v, n, tv, ti), qr, v, n, tile.group(), b);
+          if constexpr (LEVEL == 3) {
+            const bool admit = valid && key_less(v, n, tv, ti);
+            appended |= admit;
+            if (!append(admit, qr, v, n, tile.group(), b))  // the whole warp calls it
+              pending |= 1ull << (i * Tile::NC + j);
+          }
         }
       }
       if constexpr (LEVEL == 3) {
-        __syncthreads();  // every buffer is written
-        for (int qr = warp; qr < TQ; qr += WARPS) {
-          const int nb = b.nb[qr];
-          if (nb == 0) continue;  // warp-uniform
-          if (nb <= 32) flush_query<1>(b, qr, k);
-          else if (nb <= 64) flush_query<2>(b, qr, k);
-          else flush_query<4>(b, qr, k);
+        // flush the buffers; retry the pending keys against the lowered
+        // taus, until none is left (only a split's first tiles overflow)
+        while (__syncthreads_or(appended || pending != 0)) {  // every buffer is written
+          for (int qr = warp; qr < TQ; qr += WARPS)
+            if (b.nb[qr]) flush_query(b, qr, k);  // warp-uniform
+          __syncthreads();  // the new keys and taus
+          appended = false;
+          if (!__any_sync(FULL, pending != 0)) continue;  // warp-uniform
+#pragma unroll
+          for (int i = 0; i < Tile::NQ; ++i) {
+            const int qr = tile.query(i);
+            const float tv = b.tau_v[qr], qv = b.qq[qr];
+            const int ti = b.tau_i[qr];
+#pragma unroll
+            for (int j = 0; j < Tile::NC; ++j) {
+              const unsigned long long bit = 1ull << (i * Tile::NC + j);
+              const int n = n0 + tile.col(j);
+              const float v = column_distance(metric, qv, gv[j], tile.value(i, j));
+              const bool admit = (pending & bit) && key_less(v, n, tv, ti);
+              pending &= ~bit;
+              appended |= admit;
+              if (!append(admit, qr, v, n, tile.group(), b)) pending |= bit;
+            }
+          }
         }
-        // the next tile's epilogue reads tau after the ring's next barrier
       }
     }
     tile.zero();
@@ -492,14 +606,18 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
 // Let sweep_partial<T, TQ, LEVEL> take the shared memory it needs for a
 // top-k of k (0 below LEVEL 3) with `stages` stages, and report how many of
 // its blocks fit on an SM of the current device (blocks_per_sm may be null).
+template <typename T, int TQ>
+constexpr int warps_of = TileOf<T, TQ>::type::WARPS;
+
 template <typename T, int TQ, int LEVEL>
 cudaError_t prepare(int k, int stages, int* blocks_per_sm) {
   const auto kernel = sweep_partial<T, TQ, LEVEL>;
-  const size_t smem = sweep_smem(TQ, k, stages, LEVEL == 3);
+  const size_t smem = sweep_smem(TQ, warps_of<T, TQ>, k, stages, LEVEL == 3);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess || !blocks_per_sm) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                       32 * warps_of<T, TQ>, smem);
 }
 
 template <typename T, int TQ, int LEVEL>
@@ -507,12 +625,14 @@ cudaError_t launch_sweep(const T* q, const float* qq, const int* pos, const T* g
                          const float* gg, const float* d2pos, int Q, int N, int D, int k,
                          int metric, int with_ranks, int splits, float* part_v, int* part_i,
                          int* part_r, float* part_m, cudaStream_t st) {
-  const int stages = choose_stages(TQ, k, LEVEL == 3);
+  constexpr int WARPS = warps_of<T, TQ>;
+  const int stages = choose_stages(TQ, WARPS, k, LEVEL == 3);
   if (!stages) return cudaErrorInvalidConfiguration;
   const cudaError_t err = prepare<T, TQ, LEVEL>(k, stages, nullptr);
   if (err != cudaSuccess) return err;
   const dim3 grid((Q + TQ - 1) / TQ, splits);
-  sweep_partial<T, TQ, LEVEL><<<grid, THREADS, sweep_smem(TQ, k, stages, LEVEL == 3), st>>>(
+  const size_t smem = sweep_smem(TQ, WARPS, k, stages, LEVEL == 3);
+  sweep_partial<T, TQ, LEVEL><<<grid, 32 * WARPS, smem, st>>>(
       q, qq, pos, g, gg, d2pos, Q, N, D, k, metric, with_ranks, stages, part_v, part_i,
       part_r, part_m);
   return cudaGetLastError();
@@ -520,7 +640,7 @@ cudaError_t launch_sweep(const T* q, const float* qq, const int* pos, const T* g
 
 template <typename T, int TQ, int LEVEL>
 cudaError_t occupancy(int k, int* blocks_per_sm) {
-  const int stages = choose_stages(TQ, k, LEVEL == 3);
+  const int stages = choose_stages(TQ, warps_of<T, TQ>, k, LEVEL == 3);
   if (!stages) return cudaErrorInvalidConfiguration;
   return prepare<T, TQ, LEVEL>(k, stages, blocks_per_sm);
 }

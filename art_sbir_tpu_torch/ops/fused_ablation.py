@@ -54,12 +54,7 @@ def first_pass(nq: int, level: int, device_index: int):
     """(queries per block, gallery rows per tile, blocks per SM) of P1's
     first pass (K1's) at ``level`` for ``nq`` queries on the card
     ``device_index``, as the kernel reports them."""
-    tq, tn, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device_index):
-        KERNEL.call("p1_first_pass", [_i32] * 2 + [ctypes.POINTER(_i32)] * 3,
-                    nq, level, ctypes.byref(tq), ctypes.byref(tn),
-                    ctypes.byref(per_sm))
-    return tq.value, tn.value, per_sm.value
+    return KERNEL.ask("p1_first_pass", (nq, level), 3, device_index)
 
 
 def _check(n: int, level: int, tile_n: int) -> None:

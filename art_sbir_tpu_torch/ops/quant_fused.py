@@ -52,11 +52,7 @@ def _first_pass(r: int, device_index: int):
     """(queries per block, blocks per SM) of K2's first pass for a budget
     of ``r`` on the card ``device_index``, as the kernel's occupancy
     reports them."""
-    tq, per_sm = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device_index):
-        KERNEL.call("k2_first_pass", [_i32] + [ctypes.POINTER(_i32)] * 2, r,
-                    ctypes.byref(tq), ctypes.byref(per_sm))
-    return tq.value, per_sm.value
+    return KERNEL.ask("k2_first_pass", (r,), 2, device_index)
 
 
 def sliced_int8_cross(q8: torch.Tensor, g8: torch.Tensor,

@@ -10,7 +10,10 @@ how it is built. It is compiled with ``nvcc`` at first use into
 Under ``'default'`` only the cross term sees bf16 operands: the queries
 and the gallery are rounded to bf16 (no copy for a gallery the caller
 already holds in bf16), their products are exact in float32 and summed in
-float32. The norms come from the caller's arrays in float32, as the TPU
+float32 (the CUDA kernel on the tensor cores, whose sum order and rounding
+inside an instruction are the hardware's: :func:`sum_order_bound` bounds
+how far that moves a distance). The norms come from the caller's arrays in
+float32, as the TPU
 kernel's ``_prep_norms`` takes them before ``_sweep`` casts, so an
 engine's cached gallery norms serve both forms.
 
@@ -24,8 +27,9 @@ winning ties; the sentinel is value 3e38 at index N.
 
 One difference from the TPU kernel: the positive's distance comes from the
 same arithmetic as its column in each route (the plain version gathers it
-from its distance matrix, the CUDA kernel computes it with the sweep's FMA
-chain), not from a separate elementwise sum, so a duplicate of the
+from its distance matrix, the CUDA kernel computes it with the sweep's own
+FMA chain or tensor-core instruction), not from a separate elementwise
+sum, so a duplicate of the
 positive ties with it exactly, as in ``ops/distance.py::rank_of_positive``.
 On the CPU, ``torch.sum`` and ``torch.matmul`` round the same dot product
 differently, so an elementwise sum would miss such ties that the JAX
@@ -76,12 +80,7 @@ def first_pass(nq: int, k: int, bf16: bool, device_index: int):
     """(queries per block, gallery rows per tile, blocks per SM) of K1's
     first pass for ``nq`` queries and a top-``k`` in the float32 or bf16
     form on the card ``device_index``, as the kernel reports them."""
-    tq, tn, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device_index):
-        KERNEL.call("k1_first_pass", [_i32] * 3 + [ctypes.POINTER(_i32)] * 3,
-                    nq, k, int(bf16), ctypes.byref(tq), ctypes.byref(tn),
-                    ctypes.byref(per_sm))
-    return tq.value, tn.value, per_sm.value
+    return KERNEL.ask("k1_first_pass", (nq, k, int(bf16)), 3, device_index)
 
 
 def form_counters(dtype: torch.dtype) -> LaunchCounters:

@@ -132,6 +132,24 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean device time of the kernels that ``fn`` launches
+    (torch.profiler), without the host work between them, which
+    ``time_ms`` also sees where the host, not the device, sets the pace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
 # ------------------------------------------------------------------ build
 
 def phase_build(state) -> None:
@@ -238,17 +256,14 @@ def _compare(out, ref, q, n, with_ranks, rank_tol=2, bound=None):
 
 
 def _bf16_bound(rf, inputs, ref, metric):
-    """The bf16 form's sum-order bound at the plain version's columns."""
-    if inputs[3].dtype != _torch().bfloat16:
-        return None
-    queries, qq, _, g, gg = inputs
-    return rf.sum_order_bound(queries, g, ref[2], qq, gg, metric)
-
-
-def _torch():
+    """The bf16 form's sum-order bound at the plain version's columns (None
+    for the float32 form)."""
     import torch
 
-    return torch
+    queries, qq, _, g, gg = inputs
+    if g.dtype != torch.bfloat16:
+        return None
+    return rf.sum_order_bound(queries, g, ref[2], qq, gg, metric)
 
 
 def _k1_ties(rf, inputs, form):
@@ -375,6 +390,7 @@ def phase_kernels(state) -> None:
     library_ms = time_ms(lambda: torch.topk(torch.cdist(queries, g), K,
                                             largest=False))
     kernel_ms2 = time_ms(lambda: rf.fused_sweep_cuda(*inputs, **kw))
+    kernel_device_ms = device_ms(lambda: rf.fused_sweep_cuda(*inputs, **kw))
     # the norms around the sweep: the queries' on every search, the
     # gallery's once when the engine is built
     query_norms_ms = time_ms(lambda: rf.query_norms(queries, "euclidean"))
@@ -404,6 +420,7 @@ def phase_kernels(state) -> None:
 
     bf16_library_ms = time_ms(bf16_library)
     bf16_ms2 = time_ms(lambda: rf.fused_sweep_cuda(*b, **kw))
+    bf16_device_ms = device_ms(lambda: rf.fused_sweep_cuda(*b, **kw))
     bf16_bound, bf16_by = bound(
         2 * (n * D + q * D) + 4 * (n + 2 * q) + q * K * 8 + q * 8, ops,
         H100_BF16_FLOP_PER_S)
@@ -439,6 +456,8 @@ def phase_kernels(state) -> None:
             row[form + "_library_ms"] = time_ms(lib)
             ms.append(time_ms(lambda: rf.fused_sweep_cuda(*args, **kw)))
             row[form + "_ms"] = min(ms)
+            row[form + "_device_ms"] = device_ms(
+                lambda: rf.fused_sweep_cuda(*args, **kw))
             row[form + "_bound_ms"] = bound(
                 width * (n * D + q * D) + 4 * (n + 2 * q) + q * K * 8 + q * 8,
                 2 * q * n * D, op_rate)[0]
@@ -451,6 +470,7 @@ def phase_kernels(state) -> None:
           "gallery_norms_ms": gallery_norms_ms, "by_q": by_q,
           "bf16_cases": len(bf16_cases), "bf16_case_rows": bf16_cases,
           "bf16_kernel_ms_runs": [bf16_ms, bf16_ms2],
+          "device_ms": kernel_device_ms, "bf16_device_ms": bf16_device_ms,
           **{"bf16_" + k: v for k, v in state["k1_bf16"].items()
              if k.endswith("ms") or k == "bound_by"},
           "bf16_library": "torch.matmul of bf16 operands (bf16 output), "

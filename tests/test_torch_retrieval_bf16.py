@@ -125,6 +125,29 @@ def test_default_is_the_bf16_cross_term(rng):
                                    rtol=1e-6, atol=1e-4)
 
 
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_sum_order_bound_holds_for_another_order(metric):
+    """The bf16 form's value bound covers the distance of a bf16 cross
+    term summed in float32 against the same sum taken exactly (float64):
+    one route's share of the bound, so half of it must suffice."""
+    queries, g, pos = (torch.from_numpy(a) for a in _inputs(8, 500, 6,
+                                                             d=256))
+    qb, gb = queries.to(torch.bfloat16), g.to(torch.bfloat16)
+    qq, gg = rf.query_norms(queries, metric), rf.gallery_norms(g, metric)
+    _, v32, idx, _ = rf.fused_sweep_reference(
+        qb, qq, pos.int()[:, None], gb, gg, k=10, metric=metric,
+        with_ranks=False)
+    c64 = qb.double() @ gb.double().T
+    if metric == "euclidean":
+        d64 = torch.clamp(qq.double() + gg.double() - 2.0 * c64, min=0.0)
+    else:
+        d64 = 1.0 - c64 / torch.clamp(qq.double() * gg.double(), min=1e-8)
+    err = torch.abs(torch.gather(d64, 1, idx.long()) - v32.double())
+    bound = rf.sum_order_bound(qb, gb, idx, qq, gg, metric)
+    assert bool((bound > 0).all())
+    assert bool((err <= 0.5 * bound.double()).all())
+
+
 def test_unknown_precision_raises(rng):
     queries, g, pos = (torch.from_numpy(a) for a in _inputs(4, 64, 2))
     with pytest.raises(ValueError, match="unknown precision"):
