@@ -6,7 +6,7 @@
 // level strips the port's own K1: the first pass is K1's, k1::sweep_partial
 // (k1_sweep.cuh) with bf16 operands, the same query tiles, ring and
 // tensor-core products (mma.sync m16n8k16), and only the epilogue cut
-// back; p1_first_pass reports the tile
+// back (query tiles of 32 and 64 only: P1_MIN_TQ); p1_first_pass reports the tile
 // and the blocks that fit on an SM, from which the wrapper sizes the
 // splits. Per query row, into out (Q,) int32:
 //   level 0  the cross term only: the sum over tile_n-column tiles of
@@ -30,6 +30,11 @@
 // from another implementation by one per tile.
 
 #include "k1_sweep.cuh"
+
+// P1's smallest query tile. The probe runs Q = 32 and Q = 512 (tiles 32 and
+// 64), so only those two tiles are built, each at three levels; a smaller Q
+// runs on the tile of 32.
+constexpr int P1_MIN_TQ = 32;
 
 namespace {
 
@@ -66,9 +71,9 @@ extern "C" int p1_first_pass(int Q, int level, int* tq, int* tn, int* blocks_per
   if (Q < 1 || level < 0 || level > 2) return static_cast<int>(cudaErrorInvalidValue);
   using bf16 = __nv_bfloat16;
   return static_cast<int>(
-      level == 0   ? k1::first_pass<bf16, 0>(Q, 0, tq, tn, blocks_per_sm)
-      : level == 1 ? k1::first_pass<bf16, 1>(Q, 0, tq, tn, blocks_per_sm)
-                   : k1::first_pass<bf16, 2>(Q, 0, tq, tn, blocks_per_sm));
+      level == 0   ? k1::first_pass<bf16, 0, P1_MIN_TQ>(Q, 0, tq, tn, blocks_per_sm)
+      : level == 1 ? k1::first_pass<bf16, 1, P1_MIN_TQ>(Q, 0, tq, tn, blocks_per_sm)
+                   : k1::first_pass<bf16, 2, P1_MIN_TQ>(Q, 0, tq, tn, blocks_per_sm));
 }
 
 // Plain C entry point (loaded with ctypes). Shapes: q (Q, D) and g (N, D)
@@ -89,13 +94,13 @@ extern "C" int p1_fused_ablation(
   const auto* gb = static_cast<const __nv_bfloat16*>(g);
   cudaError_t err;
   if (level == 0)
-    err = k1::sweep<__nv_bfloat16, 0>(qb, qq, pos, gb, gg, d2pos, Q, N, D, 0, 0, 1, splits,
+    err = k1::sweep<__nv_bfloat16, 0, P1_MIN_TQ>(qb, qq, pos, gb, gg, d2pos, Q, N, D, 0, 0, 1, splits,
                                       nullptr, nullptr, part_r, part_m, st);
   else if (level == 1)
-    err = k1::sweep<__nv_bfloat16, 1>(qb, qq, pos, gb, gg, d2pos, Q, N, D, 0, 0, 1, splits,
+    err = k1::sweep<__nv_bfloat16, 1, P1_MIN_TQ>(qb, qq, pos, gb, gg, d2pos, Q, N, D, 0, 0, 1, splits,
                                       nullptr, nullptr, part_r, part_m, st);
   else
-    err = k1::sweep<__nv_bfloat16, 2>(qb, qq, pos, gb, gg, d2pos, Q, N, D, 0, 0, 1, splits,
+    err = k1::sweep<__nv_bfloat16, 2, P1_MIN_TQ>(qb, qq, pos, gb, gg, d2pos, Q, N, D, 0, 0, 1, splits,
                                       nullptr, nullptr, part_r, part_m, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (level == 0)

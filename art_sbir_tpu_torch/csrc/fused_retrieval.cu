@@ -147,7 +147,7 @@ int launch(const T* q, const float* qq, const int* pos, const T* g, const float*
     const cudaError_t err = launch_positive(q, qq, pos, g, gg, Q, N, D, metric, d2pos, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const cudaError_t err = k1::sweep<T, 3>(q, qq, pos, g, gg, d2pos, Q, N, D, k, metric,
+  const cudaError_t err = k1::sweep<T, 3, 8>(q, qq, pos, g, gg, d2pos, Q, N, D, k, metric,
                                           with_ranks, splits, part_v, part_i, part_r,
                                           nullptr, st);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -166,8 +166,8 @@ int launch(const T* q, const float* qq, const int* pos, const T* g, const float*
 extern "C" int k1_first_pass(int Q, int k, int bf16, int* tq, int* tn, int* blocks_per_sm) {
   if (Q < 1 || k < 1 || k > K_MAX) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
-      bf16 ? k1::first_pass<__nv_bfloat16, 3>(Q, k, tq, tn, blocks_per_sm)
-           : k1::first_pass<float, 3>(Q, k, tq, tn, blocks_per_sm));
+      bf16 ? k1::first_pass<__nv_bfloat16, 3, 8>(Q, k, tq, tn, blocks_per_sm)
+           : k1::first_pass<float, 3, 8>(Q, k, tq, tn, blocks_per_sm));
 }
 
 // Plain C entry point (loaded with ctypes). Shapes: q (Q, D), g (N, D),

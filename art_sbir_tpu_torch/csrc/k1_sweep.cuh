@@ -5,7 +5,8 @@
 // sweep_partial<T, TQ, LEVEL>, grid (ceil(Q / TQ), S), 4 or 8 warps. Split
 // s owns a contiguous range of 128-row gallery tiles (TN). TQ, the queries
 // of a block, is 8, 16, 32 or 64, chosen from Q (choose_tq), so that a
-// block computes no more padded query rows than the smallest tile needs.
+// block computes no more padded query rows than the smallest tile needs
+// (K1 builds all four tiles; P1 only 32 and 64, the probe's).
 // Above 64 queries the blocks of the query tiles over one split run
 // together (the grid's fastest dimension), so the L2 serves their repeats.
 //
@@ -87,10 +88,11 @@ constexpr int BUF = 32;                // buffered keys a query: one word a lane
 constexpr int PREFETCH = 3;            // chunks past the copies that the L2 is asked for
 constexpr size_t SM_SMEM = 228 * 1024;  // shared memory of an SM
 
-// The queries of a block for Q queries: the smallest tile that holds them,
-// 64 beyond 32.
-__host__ __device__ inline int choose_tq(int Q) {
-  return Q <= 8 ? 8 : Q <= 16 ? 16 : Q <= 32 ? 32 : 64;
+// The queries of a block for Q queries: the smallest tile of at least
+// min_tq that holds them, 64 beyond 32.
+inline int choose_tq(int Q, int min_tq) {
+  const int tq = Q <= 8 ? 8 : Q <= 16 ? 16 : Q <= 32 ? 32 : 64;
+  return tq < min_tq ? min_tq : tq;
 }
 
 // Dynamic shared memory of sweep_partial: the ring, the per-query words
@@ -647,21 +649,22 @@ cudaError_t occupancy(int k, int* blocks_per_sm) {
 
 // The first pass's shape for Q queries and a top-k of k (0 below LEVEL 3)
 // on the current device: queries a block (*tq), gallery rows a tile (*tn)
-// and blocks that fit on an SM at once (*blocks_per_sm).
-template <typename T, int LEVEL>
+// and blocks that fit on an SM at once (*blocks_per_sm). Query tiles below
+// MIN_TQ (8, 16 or 32) are not instantiated: Q takes the tile of MIN_TQ.
+template <typename T, int LEVEL, int MIN_TQ>
 cudaError_t first_pass(int Q, int k, int* tq, int* tn, int* blocks_per_sm) {
-  *tq = choose_tq(Q);
+  *tq = choose_tq(Q, MIN_TQ);
   *tn = TN;
-  switch (*tq) {
-    case 8: return occupancy<T, 8, LEVEL>(k, blocks_per_sm);
-    case 16: return occupancy<T, 16, LEVEL>(k, blocks_per_sm);
-    case 32: return occupancy<T, 32, LEVEL>(k, blocks_per_sm);
-    default: return occupancy<T, 64, LEVEL>(k, blocks_per_sm);
-  }
+  if constexpr (MIN_TQ <= 8)
+    if (*tq == 8) return occupancy<T, 8, LEVEL>(k, blocks_per_sm);
+  if constexpr (MIN_TQ <= 16)
+    if (*tq == 16) return occupancy<T, 16, LEVEL>(k, blocks_per_sm);
+  if (*tq == 32) return occupancy<T, 32, LEVEL>(k, blocks_per_sm);
+  return occupancy<T, 64, LEVEL>(k, blocks_per_sm);
 }
 
-// The first pass on the query tile chosen for Q.
-template <typename T, int LEVEL>
+// The first pass on the query tile chosen for Q (see first_pass).
+template <typename T, int LEVEL, int MIN_TQ>
 cudaError_t sweep(const T* q, const float* qq, const int* pos, const T* g, const float* gg,
                   const float* d2pos, int Q, int N, int D, int k, int metric,
                   int with_ranks, int splits, float* part_v, int* part_i, int* part_r,
@@ -669,12 +672,13 @@ cudaError_t sweep(const T* q, const float* qq, const int* pos, const T* g, const
 #define K1_SWEEP(TQ)                                                                     \
   launch_sweep<T, TQ, LEVEL>(q, qq, pos, g, gg, d2pos, Q, N, D, k, metric, with_ranks, \
                              splits, part_v, part_i, part_r, part_m, st)
-  switch (choose_tq(Q)) {
-    case 8: return K1_SWEEP(8);
-    case 16: return K1_SWEEP(16);
-    case 32: return K1_SWEEP(32);
-    default: return K1_SWEEP(64);
-  }
+  const int tq = choose_tq(Q, MIN_TQ);
+  if constexpr (MIN_TQ <= 8)
+    if (tq == 8) return K1_SWEEP(8);
+  if constexpr (MIN_TQ <= 16)
+    if (tq == 16) return K1_SWEEP(16);
+  if (tq == 32) return K1_SWEEP(32);
+  return K1_SWEEP(64);
 #undef K1_SWEEP
 }
 

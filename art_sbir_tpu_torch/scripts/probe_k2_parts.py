@@ -25,6 +25,7 @@ import argparse
 import contextlib
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -77,8 +78,8 @@ def variant_kernel(name: str, patches) -> CudaKernel:
             raise RuntimeError(f"probe_k2_parts: {old!r} not found once in "
                                "quant_candidates.cu")
         src = src.replace(old, new)
-    src = src.replace('#include "topk_select.cuh"',
-                      f'#include "{CSRC / "topk_select.cuh"}"')
+    src = re.sub(r'#include "(\w+\.cuh)"',
+                 lambda m: f'#include "{CSRC / m.group(1)}"', src)
     if patches is _COUNTED:
         src += _READ
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -14,7 +14,8 @@ column. So the data here are separated: each query lies within two
 standard deviations of its positive, a few tens of rows at most rank ahead
 of it, and with these seeds no other row lies within the bf16 rounding of
 the positive's distance; the ranks must then be equal. The CUDA kernel itself is held against the
-plain version by the ``cuda``-marked test at the end and by
+plain version by the ``cuda``-marked test at the end, by the query-tile and
+tie tests of ``tests/test_torch_retrieval_fused.py`` (both forms) and by
 ``chip_smoke.py``."""
 
 import jax.numpy as jnp
@@ -186,81 +187,3 @@ def test_cuda_kernel_matches_plain_version():
                                    args[4], "euclidean")
         assert bool((torch.abs(out[1] - ref[1]) <= bound).all())
         assert np.abs(out[0].cpu().numpy() - ref[0].cpu().numpy()).max() <= 2
-
-
-def _cuda_or_skip():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc (run by chip_smoke.py)")
-
-
-def _cuda_args(queries, g, pos, metric, dtype):
-    """K1's operands on the card: norms from the float32 arrays, the
-    cross term's operands in ``dtype``."""
-    dev = torch.device("cuda")
-    tq, tg, tp = (torch.from_numpy(a).to(dev) for a in (queries, g, pos))
-    return (tq.to(dtype).contiguous(), rf.query_norms(tq, metric),
-            tp.int().reshape(-1, 1).contiguous(), tg.to(dtype).contiguous(),
-            rf.gallery_norms(tg, metric))
-
-
-def _offset_copies(rng, q, d=64):
-    """A gallery of 8 tiles and 3 rows in which one row has a copy at every
-    offset mod 128 of a tile (128 equal rows), and ``q`` equal queries
-    near it whose positive is the last copy."""
-    g = rng.standard_normal((128 * 8 + 3, d)).astype(np.float32)
-    src = 5
-    copies = sorted([src] + [128 * (o % 8) + o for o in range(128)
-                             if o != src])
-    g[copies] = g[src]
-    near = g[src] + 0.05 * rng.standard_normal(d).astype(np.float32)
-    queries = np.repeat(near[None], q, axis=0)
-    pos = np.full(q, copies[-1], np.int32)
-    return queries, g, pos, copies
-
-
-def _assert_offset_ties(out, copies):
-    """Every copy ties exactly with every other, in every query's row, in
-    index order; the positive (the last copy) ranks behind the other 127."""
-    ranks, vals, idx = (t.cpu().numpy() for t in out[:3])
-    assert (idx == np.array(copies, np.int32)[None, :]).all()
-    assert (vals == vals[0, 0]).all()
-    assert (ranks == len(copies) - 1).all()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 128])
-@pytest.mark.parametrize("q", [1, 7, 8, 9, 16, 17, 32, 33, 512])
-def test_cuda_query_tiles(rng, q, k):
-    """On the card: K1's bf16 form against its plain version across the
-    query tiles and their edges, k at both ends, a ragged N: indices
-    exact, values within the sum-order bound."""
-    _cuda_or_skip()
-    queries, g, pos = _inputs(q, 1003, q)
-    for metric in ("euclidean", "cosine"):
-        args = _cuda_args(queries, g, pos, metric, torch.bfloat16)
-        kw = dict(k=k, metric=metric, with_ranks=True)
-        out = rf.fused_sweep_cuda(*args, **kw)
-        ref = rf.fused_sweep_reference(*args, **kw)
-        np.testing.assert_array_equal(out[2].cpu().numpy(),
-                                      ref[2].cpu().numpy())
-        bound = rf.sum_order_bound(args[0], args[3], out[2], args[1],
-                                   args[4], metric)
-        assert bool((torch.abs(out[1] - ref[1]) <= bound).all())
-        assert np.abs(out[0].cpu().numpy()
-                      - ref[0].cpu().numpy()).max() <= 2
-        assert out[3].cpu().numpy().all()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("q", [8, 32, 40])
-def test_cuda_copies_at_every_tile_offset_tie(rng, q):
-    """On the card: a row copied to every offset mod 128 of a tile gives
-    one bf16-form value in every query's row (the queries at every offset
-    of their tile), the copies in index order, and the positive's earlier
-    copies count toward its rank: the positive's distance comes from the
-    sweep's own arithmetic."""
-    _cuda_or_skip()
-    queries, g, pos, copies = _offset_copies(rng, q)
-    args = _cuda_args(queries, g, pos, "euclidean", torch.bfloat16)
-    _assert_offset_ties(rf.fused_sweep_cuda(*args, k=128, metric="euclidean",
-                                            with_ranks=True), copies)

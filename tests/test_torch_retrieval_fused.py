@@ -240,24 +240,48 @@ def _assert_offset_ties(out, copies):
     assert (ranks == len(copies) - 1).all()
 
 
+FORMS = {"float32": torch.float32, "bf16": torch.bfloat16}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 128])
 @pytest.mark.parametrize("q", [1, 7, 8, 9, 16, 17, 32, 33, 512])
-def test_cuda_query_tiles(rng, q, k):
-    """On the card: K1's float32 form against its plain version across the
-    query tiles and their edges, k at both ends, a ragged N."""
+@pytest.mark.parametrize("form", FORMS)
+def test_cuda_query_tiles(rng, form, q, k):
+    """On the card: K1 in each form against its plain version across the
+    query tiles and their edges, k at both ends, a ragged N. Float32:
+    indices exact, values at rtol 1e-5. Bf16: values within the sum-order
+    bound (``rf.sum_order_bound``, its largest in the row), and each index
+    exact unless the plain version's distance of the kernel's column there
+    lies within twice that bound of the plain version's value (at k = 128 of 1,003 columns some
+    neighbours lie closer than the two sums' orders can tell apart)."""
     _cuda_or_skip()
-    queries, g, pos = _inputs(rng, 1003, q, d=64)
+    n = 1003
+    queries, g, pos = _inputs(rng, n, q, d=64)
     for metric in ("euclidean", "cosine"):
-        args = _cuda_args(queries, g, pos, metric, torch.float32)
+        args = _cuda_args(queries, g, pos, metric, FORMS[form])
         kw = dict(k=k, metric=metric, with_ranks=True)
         out = rf.fused_sweep_cuda(*args, **kw)
         ref = rf.fused_sweep_reference(*args, **kw)
-        np.testing.assert_array_equal(out[2].cpu().numpy(),
-                                      ref[2].cpu().numpy())
-        np.testing.assert_allclose(out[1].cpu().numpy(),
-                                   ref[1].cpu().numpy(), rtol=1e-5,
-                                   atol=1e-6)
+        if form == "float32":
+            np.testing.assert_array_equal(out[2].cpu().numpy(),
+                                          ref[2].cpu().numpy())
+            np.testing.assert_allclose(out[1].cpu().numpy(),
+                                       ref[1].cpu().numpy(), rtol=1e-5,
+                                       atol=1e-6)
+        else:
+            bound = rf.sum_order_bound(args[0], args[3], ref[2], args[1],
+                                       args[4], metric).amax(1, keepdim=True)
+            assert bool((torch.abs(out[1] - ref[1]) <= bound).all())
+            _, v_all, i_all, _ = rf.fused_sweep_reference(
+                *args, k=n, metric=metric, with_ranks=False)
+            plain = torch.empty_like(v_all).scatter_(1, i_all.long(), v_all)
+            at_out = torch.gather(plain, 1, out[2].long())
+            moved = out[2] != ref[2]
+            assert bool((torch.abs(at_out - ref[1])
+                         <= 2 * bound)[moved].all())
+            cols = torch.sort(out[2], 1).values  # each column once
+            assert bool((cols[:, 1:] > cols[:, :-1]).all())
         assert np.abs(out[0].cpu().numpy()
                       - ref[0].cpu().numpy()).max() <= 2
         assert out[3].cpu().numpy().all()
@@ -265,13 +289,15 @@ def test_cuda_query_tiles(rng, q, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("q", [8, 32, 40])
-def test_cuda_copies_at_every_tile_offset_tie(rng, q):
+@pytest.mark.parametrize("form", FORMS)
+def test_cuda_copies_at_every_tile_offset_tie(rng, form, q):
     """On the card: a row copied to every offset mod 128 of a tile gives
     one value in every query's row (the queries at every offset of their
     tile), the copies in index order, and the positive's earlier copies
-    count toward its rank."""
+    count toward its rank: in the bf16 form too, whose positive's distance
+    comes from the sweep's own tensor-core arithmetic."""
     _cuda_or_skip()
     queries, g, pos, copies = _offset_copies(rng, q)
-    args = _cuda_args(queries, g, pos, "euclidean", torch.float32)
+    args = _cuda_args(queries, g, pos, "euclidean", FORMS[form])
     _assert_offset_ties(rf.fused_sweep_cuda(*args, k=128, metric="euclidean",
                                             with_ranks=True), copies)
