@@ -1,0 +1,133 @@
+"""Retrieval-evaluation CLI: recompute the inference of saved run folders.
+
+    python -m art_sbir_tpu_torch.cli.inference --folder <run> [--data_root <root>]
+        [--device cuda|cpu]
+
+Counterpart of ``art_sbir_tpu/cli/inference.py`` (reference
+`inference.py:167-244`): read the run's JSONs, restore the encoder from
+``<models_root>/<run>.pt`` (a seeded fresh init, with a note, when it is
+missing), rebuild the test catalog, evaluate (gallery and queries
+embedded by the bf16 encoder, ranked on the card: K1 with ranks from
+50,000 gallery rows) and write ``inference_updated.json`` and the plots
+into the run folder. BatchNorm recalibration comes with the training
+slice and several cards with the multi-card slice; asking for either
+exits with a message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from art_sbir_tpu_torch.core.device import resolve_device
+from art_sbir_tpu_torch.core.results import load_results
+from art_sbir_tpu_torch.retrieval.engine import (rebuild_test_catalog,
+                                                 restore_encoder,
+                                                 run_inference)
+from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
+
+
+def evaluate_folder(folder: str, results_root: Path | str = "results",
+                    models_root: Path | str = "models", data_root=None,
+                    device: str | torch.device | None = None,
+                    feature_root: Path | str = "data/image_features",
+                    trace: Dict | None = None) -> Dict | None:
+    """The run's inference dict (``run_inference`` over its test catalog,
+    ``trace`` passed on), or None, with a note, when the folder has no
+    ``data_params.json``."""
+    dev = resolve_device(device)
+    results = load_results(Path(results_root) / folder)
+    if "data_params" not in results:
+        print(f"Results {folder} are not available", flush=True)
+        return None
+    data_dict = results["data_params"]
+    param_dict = results.get("training_params", {})
+    model, restored = restore_encoder(folder, param_dict, models_root, dev)
+    if not restored:
+        print(f"Model {folder} is not available — evaluating fresh init",
+              flush=True)
+
+    def forward(images_uint8):
+        return model(finish_gallery_batch(images_uint8))
+
+    # the geometry the run recorded; None -> the catalog family's
+    resize_mode = param_dict.get("resize_mode") or data_dict.get("resize_mode")
+    return run_inference(
+        forward, rebuild_test_catalog(data_dict, data_root), None,
+        param_dict.get("loss_type", "euclidean"),
+        image_size=int(param_dict.get("image_size", 224)),
+        resize_mode=resize_mode, model_name=type(model).__name__,
+        feature_root=feature_root, device=dev, trace=trace)
+
+
+def rerun_folder(folder: str, results_root: Path | str = "results",
+                 models_root: Path | str = "models", data_root=None,
+                 device: str | torch.device | None = None,
+                 feature_root: Path | str = "data/image_features",
+                 trace: Dict | None = None) -> None:
+    """:func:`evaluate_folder`, then ``inference_updated.json`` and the
+    plots into the run folder."""
+    inference_dict = evaluate_folder(folder, results_root, models_root,
+                                     data_root, device, feature_root, trace)
+    if inference_dict is None:
+        return
+    from art_sbir_tpu_torch.viz.plots import visualize
+
+    run_dir = Path(results_root) / folder
+    (run_dir / "inference_updated.json").write_text(
+        json.dumps(inference_dict, indent=4, default=float))
+    visualize(run_dir, load_results(run_dir).get("training", {}),
+              inference_dict)
+    print(f"RUN INFERENCE AND VISUALIZATION FOR {folder}", flush=True)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description="recomputes Inference for given folder")
+    p.add_argument("--folder", default=None)
+    p.add_argument("-a", "--all", action="store_true")
+    p.add_argument("--results_root", type=str, default="results")
+    p.add_argument("--models_root", type=str, default="models")
+    p.add_argument("--data_root", type=str, default=None)
+    p.add_argument("--feature_root", type=str, default="data/image_features",
+                   help="where the embedded gallery's cache is saved")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain versions")
+    p.add_argument("--n_devices", type=int, default=1,
+                   help="cards for the embedding sweep; only 1 so far")
+    p.add_argument("--bn_recalibrate", default="off",
+                   choices=["off", "mixed", "per_modality"],
+                   help="recalibrate BatchNorm running stats over the run's "
+                        "train split first; only 'off' so far")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    if args.n_devices != 1:
+        raise SystemExit(
+            f"--n_devices {args.n_devices}: evaluating on several cards is "
+            "still to port (ROADMAP.md queue 1 item 8); use --n_devices 1")
+    if args.bn_recalibrate != "off":
+        raise SystemExit(
+            f"--bn_recalibrate {args.bn_recalibrate}: BatchNorm "
+            "recalibration comes with the training slice (ROADMAP.md queue 1 "
+            "item 4); use --bn_recalibrate off")
+    device = resolve_device(args.device)
+    results_root = Path(args.results_root)
+    folders = [args.folder] if args.folder else []
+    if args.all:
+        folders = [d.name for d in results_root.glob("ModifiedResNet*")
+                   if d.is_dir()]
+    print(folders, flush=True)
+    for folder in folders:
+        rerun_folder(folder, results_root, args.models_root, args.data_root,
+                     device, args.feature_root)
+
+
+if __name__ == "__main__":
+    main()

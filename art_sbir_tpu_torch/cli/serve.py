@@ -1,12 +1,16 @@
 """Retrieval serving CLI: a long-lived HTTP service on the card.
 
-    python -m art_sbir_tpu_torch.cli.serve -f <run> --features <cache> [--warmup]
+    python -m art_sbir_tpu_torch.cli.serve -f <run> [--features <cache>]
+        [--data_root <root>] [--warmup]
         [--quantize [--rerank_factor 4] [--rerank_dtype float32|bfloat16]]
 
 Counterpart of ``art_sbir_tpu/cli/serve.py``. The query encoder is
 restored from ``<models_root>/<run>.pt`` (a seeded fresh init when it is
-missing) and runs in bf16; the gallery is a saved feature cache under
-``--feature_root``, resident on the card. The HTTP layer is stdlib
+missing) and runs in bf16; the gallery, resident on the card, is a saved
+feature cache under ``--feature_root`` or, without ``--features``, the
+run's test gallery (its ``data_params.json`` catalog under
+``--data_root``) embedded at startup, deduplicated and sorted as the
+offline evaluation embeds it. The HTTP layer is stdlib
 ``ThreadingHTTPServer``. ``--quantize`` serves through the int8 candidate
 scan and an exact rerank (K2 on the card).
 
@@ -21,9 +25,6 @@ Endpoints
 * ``POST /add`` with ``{"image_b64": ..., "path": "name.jpg"}``,
   ``POST /remove`` with ``{"paths": [...]}`` and ``POST /save``: online
   index updates (requires ``--capacity``)
-
-Serving a run's test gallery embedded at startup (``--folder`` without
-``--features``) needs the dataset catalogs, which are still to port.
 """
 
 from __future__ import annotations
@@ -37,13 +38,14 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from art_sbir_tpu_torch.core.checkpoint import checkpoint_path, load_state_dict
 from art_sbir_tpu_torch.core.device import resolve_device
 from art_sbir_tpu_torch.core.results import load_results
-from art_sbir_tpu_torch.models.resnet import create_encoder
-from art_sbir_tpu_torch.retrieval.server import (MicroBatcher,
+from art_sbir_tpu_torch.retrieval.engine import (embed_test_gallery,
+                                                 rebuild_test_catalog,
+                                                 restore_encoder)
+from art_sbir_tpu_torch.retrieval.server import (MicroBatcher, RetrievalEngine,
                                                  engine_from_feature_cache)
 from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
 
@@ -52,31 +54,20 @@ def build_engine(args):
     """(engine, batcher) from parsed CLI arguments. Programmatic callers
     may pass a partial namespace: absent options take their defaults."""
     device = resolve_device(getattr(args, "device", None))
-    if not args.features:
-        raise SystemExit(
-            "serving a run's test gallery (--folder without --features) "
-            "needs the dataset catalogs, which the PyTorch port does not "
-            "have yet (ROADMAP.md); serve a saved gallery with --features")
-    results = load_results(Path(args.results_root) / args.folder)
+    run_dir = Path(args.results_root) / args.folder
+    results = load_results(run_dir)
+    data_dict = results.get("data_params", {})
     param_dict = results.get("training_params", {})
+    if not args.features and "dataset" not in data_dict:
+        raise SystemExit(
+            f"results folder {run_dir} has no data_params.json — pass a "
+            "trained run folder, or serve a saved gallery with --features")
 
     loss_type = args.metric or param_dict.get("loss_type", "euclidean")
-    model_type = param_dict.get("model_type") or args.folder.split("_")[0]
-    with_classification = ("with_classification" in model_type
-                           or "WithClassification" in args.folder)
     image_size = int(param_dict.get("image_size", 224))
-    model = create_encoder(
-        with_classification=with_classification,
-        num_classes=int(param_dict.get("num_classes", 125)),
-        num_classes2=int(param_dict.get("num_classes2", 0)),
-        compute_dtype=torch.bfloat16, device=device,
-        seed=0, input_resolution=image_size,
-        width=int(param_dict.get("width", 64)),
-        layers=tuple(param_dict.get("layers", (3, 4, 6, 3))))
-    ckpt = checkpoint_path(args.models_root, args.folder)
-    if ckpt.is_file():
-        model.load_state_dict(load_state_dict(ckpt))
-    else:
+    model, restored = restore_encoder(args.folder, param_dict,
+                                      args.models_root, device)
+    if not restored:
         print(f"Model {args.folder} not found — serving fresh init",
               flush=True)
 
@@ -95,7 +86,7 @@ def build_engine(args):
     if bn_arg != "off":
         sib = (checkpoint_path(args.models_root, f"{args.folder}_bn_sketch")
                if bn_arg == "auto" else Path(bn_arg))
-        if sib.is_file() and (bn_arg != "auto" or ckpt.is_file()):
+        if sib.is_file() and (bn_arg != "auto" or restored):
             query_model = copy.deepcopy(model)
             bad = query_model.load_state_dict(load_state_dict(sib),
                                               strict=False).unexpected_keys
@@ -107,17 +98,31 @@ def build_engine(args):
         elif bn_arg != "auto":
             raise SystemExit(f"--bn_stats {bn_arg}: no export at {sib}")
 
-    engine = engine_from_feature_cache(
-        make_forward(model), args.features, root=args.feature_root,
-        metric=loss_type, image_size=image_size,
-        resize_mode=param_dict.get("resize_mode") or "square",
-        k_max=getattr(args, "k_max", 10),
-        max_batch=getattr(args, "max_batch", 32),
-        capacity=getattr(args, "capacity", None),
-        quantize=getattr(args, "quantize", False),
-        rerank_factor=getattr(args, "rerank_factor", 4),
-        rerank_dtype=getattr(args, "rerank_dtype", "float32"),
-        query_forward_fn=query_forward, device=device)
+    forward = make_forward(model)
+    kw = dict(metric=loss_type, image_size=image_size,
+              k_max=getattr(args, "k_max", 10),
+              max_batch=getattr(args, "max_batch", 32),
+              capacity=getattr(args, "capacity", None),
+              quantize=getattr(args, "quantize", False),
+              rerank_factor=getattr(args, "rerank_factor", 4),
+              rerank_dtype=getattr(args, "rerank_dtype", "float32"),
+              query_forward_fn=query_forward, device=device)
+    resize_mode = param_dict.get("resize_mode")  # else the catalog's
+    if args.features:
+        engine = engine_from_feature_cache(
+            forward, args.features, root=args.feature_root,
+            resize_mode=resize_mode or "square", **kw)
+    else:
+        # the offline evaluation's gallery: engine.run_inference embeds it
+        test_cat = rebuild_test_catalog(data_dict,
+                                        getattr(args, "data_root", None))
+        resize_mode = resize_mode or getattr(test_cat, "resize_mode",
+                                             "square")
+        paths, feats = embed_test_gallery(
+            forward, test_cat, image_size, resize_mode,
+            getattr(args, "embed_batch", 256), device)
+        engine = RetrievalEngine(forward, feats, paths,
+                                 resize_mode=resize_mode, **kw)
     return engine, MicroBatcher(engine, window_ms=args.window_ms)
 
 
@@ -231,7 +236,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("-f", "--folder", required=True,
                    help="results run folder (checkpoint + training params)")
     p.add_argument("--features", default=None,
-                   help="serve a saved gallery cache from feature_root")
+                   help="serve a saved gallery cache from feature_root; "
+                        "without it, embed the run's test gallery")
+    p.add_argument("--data_root", default=None,
+                   help="dataset root of the run's catalog (without "
+                        "--features)")
+    p.add_argument("--embed_batch", type=int, default=256,
+                   help="batch of the startup gallery embedding")
     p.add_argument("--results_root", default="results")
     p.add_argument("--models_root", default="models")
     p.add_argument("--feature_root", default="data/image_features")

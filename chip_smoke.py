@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
                   limit from nvidia-smi.
 2. kernels     -- K1 in both forms against its plain PyTorch version on
                   the card (D = 1024, k = 10, N in {100000, 100003}, Q in
-                  {1, 32, 512}, both metrics, ranks on and off, a case with
+                  {1, 32, 512}, both metrics, ranks on and off; at N =
+                  100,003 also Q in {76, 1024} with ranks, the query
+                  chunks of inference_k1; a case with
                   duplicated gallery rows, a row copied to every offset mod
                   128 of a tile with queries at every offset of their tile;
                   the bf16 form with the gallery passed as float32 and as
@@ -59,12 +61,45 @@ Phases, each printing one JSON line:
                   cannot hold the larger one): the
                   engine must take the K2 route, K2 must have been launched
                   and never fallen back.
+9. inference   -- the offline evaluation end to end: a synthetic Sketchy
+                  corpus (25 classes x 110 photos x 4 sketches, about
+                  1,100 test queries), a run folder and the full-width
+                  encoder's seed-0 weights as ``models/<run>.pt``, then
+                  ``cli/inference.py`` on the card (``evaluate_folder`` and
+                  the JSON alone where matplotlib is missing): the
+                  reference keys, the deduplicated gallery's size, a finite
+                  MRR, a non-decreasing topk_acc, each dict's scores
+                  recomputed here from its ranks, and the dict against
+                  ``evaluate_retrieval`` on the CPU over the same features
+                  (ranks within the two float32 distance matrices'
+                  measured difference, every key within what that rank
+                  tolerance lets it move). Then ``cli/serve.py --folder``
+                  without ``--features``: the same gallery paths and rows,
+                  8 sketches searched. Prints the decode backend, the
+                  gallery embedding's images/s and the wall time split
+                  into decode, embed and rank (``run_inference``'s trace).
+10. inference_k1 -- ``run_inference`` over a 100,003-row feature cache (the
+                  corpus's test photos and random rows), both metrics: K1
+                  launched once per 1,024-query chunk with ranks, never
+                  falling back; against the same call with the threshold
+                  raised above N (the exact route): every query's top-k
+                  values at rtol 1e-5 with an 8-ulp floor and its index
+                  set exact but for near-ties at the k-th place, then the
+                  ranks within the columns near the positive's distance
+                  (the probe's rank reach) and the dicts within what that
+                  lets each key move; rank moves past the kernels phase's
+                  tolerance of 2 are listed. Then ``evaluate_retrieval``
+                  whole on both routes at N from 10,000 to 10^6 with Q =
+                  1,024, and K1 at Q = 1,024 with ranks beside its bound,
+                  its plain version and the library composition.
 
-Every kernel count is set to 0 just before each serve phase's requests
-and before the probe's runs, and read just after them; the launch counts
-in the kernels line come from those runs alone: K1's float32 form's from
-``serve``, K2's from ``serve_quant``, K1's bf16 form's and P1's from the
-probe. Any failed check exits non-zero. The last line is
+Every kernel count is set to 0 just before each counted run (each serve
+phase's requests, the probe's runs, each ``inference`` and
+``inference_k1`` evaluation) and read just after it; the launch counts in
+the kernels line are the sums over those runs: K1's float32 form's from
+``serve`` and ``inference_k1`` (``inference`` ranks its small gallery on
+the exact route), K2's from ``serve_quant``, K1's bf16 form's and P1's
+from the probe. Any failed check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
 """
@@ -72,11 +107,14 @@ Imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -90,6 +128,7 @@ QUANT_N = 1_000_000  # the int8 route's serving gallery
 R = 40  # K2's candidates at the serving engine's k_max 10, rerank_factor 4
 R_WIDE = (256, 512, 1024)  # K2's budgets past the JAX engine's 128
 PROBE_SHAPES = ((32, 100_352), (512, 999_424))  # (Q, N) of the K1 probe
+EVAL_CHUNKS = (76, 1024)  # inference_k1's query chunks: partial, full
 
 
 def bound(nbytes: float, ops: float, op_rate: float):
@@ -97,6 +136,25 @@ def bound(nbytes: float, ops: float, op_rate: float):
     and the operations over the peak rate of their type."""
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / op_rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_library(q, g, qq, gg, pos2d, with_ranks: bool):
+    """One library composition of K1's function: ``torch.cdist`` (float32
+    operands) or a bf16 ``torch.matmul`` with the norm arithmetic (bf16
+    operands; its bf16 output rounds the cross term, so it is a yardstick
+    of speed, not the same function), then ``torch.topk`` and, with ranks,
+    the rank count (columns strictly closer than the positive)."""
+    import torch
+
+    if q.dtype == torch.bfloat16:
+        d = qq + gg - 2.0 * torch.matmul(q, g.T).float()
+    else:
+        d = torch.cdist(q, g)
+    out = torch.topk(d, K, largest=False)
+    if with_ranks:
+        dpos = torch.gather(d, 1, pos2d.long())
+        return out, torch.sum(d < dpos, dim=1)
+    return out
 
 
 def emit(obj) -> None:
@@ -350,9 +408,13 @@ def phase_kernels(state) -> None:
     cases, bf16_cases = [], []
     max_err = {"f32": 0.0, "bf16": 0.0}
     max_over = 0.0  # the bf16 form's largest value error over its bound
-    for n in (SERVE_N, SERVE_N + 3):
+    # Q in {1, 32, 512}, ranks on and off; at N = 100,003 (inference_k1's
+    # gallery) also evaluate_retrieval's query chunks there, ranks on: a
+    # full chunk of 1,024 and the partial one of its ~1,100 queries
+    for n, qs in ((SERVE_N, (1, 32, 512)),
+                  (SERVE_N + 3, (1, 32, 512) + EVAL_CHUNKS)):
         for metric in ("euclidean", "cosine"):
-            for q in (1, 32, 512):
+            for q in qs:
                 base = _k1_inputs(n, q, metric, gen)
                 # the float32 form; the bf16 form with the gallery held as
                 # float32, then as bf16
@@ -360,7 +422,8 @@ def phase_kernels(state) -> None:
                                    ("bf16", bf16)):
                     inputs = (base if held is None
                               else _as_bf16(base, metric, held))
-                    for with_ranks in (True, False):
+                    for with_ranks in ((True,) if q in EVAL_CHUNKS
+                                       else (True, False)):
                         kw = dict(k=K, metric=metric, with_ranks=with_ranks)
                         out = rf.fused_sweep_cuda(*inputs, **kw)
                         ref = rf.fused_sweep_reference(*inputs, **kw)
@@ -444,12 +507,13 @@ def phase_kernels(state) -> None:
         "plain_ms": bf16_plain_ms, "bound_ms": bf16_bound,
         "bound_by": bf16_by, "library_ms": bf16_library_ms}
     del inputs, queries, g, b
-    # K1 at other batch buckets of the main path, and at an offline-
-    # evaluation batch (512, ranks on), in both forms, beside each one's
-    # bound and the library calls: cdist + topk (float32), bf16 matmul +
-    # topk (bf16)
+    # K1 at other batch buckets of the main path, and at offline-evaluation
+    # batches (512, and evaluate_retrieval's chunk of 1,024; ranks on; here,
+    # before the serve phases' profiler runs, device_ms is read reliably),
+    # in both forms, beside each one's
+    # bound, its plain version and the library calls (k1_library)
     by_q = []
-    for q, with_ranks in ((1, False), (4, False), (512, True)):
+    for q, with_ranks in ((1, False), (4, False), (512, True), (1024, True)):
         inputs = _k1_inputs(n, q, "euclidean", gen)
         b = _as_bf16(inputs, "euclidean", bf16)
         kw = dict(k=K, metric="euclidean", with_ranks=with_ranks)
@@ -458,14 +522,10 @@ def phase_kernels(state) -> None:
                 ("f32", inputs, H100_F32_FLOP_PER_S, 4),
                 ("bf16", b, H100_BF16_FLOP_PER_S, 2)):
             ms = [time_ms(lambda: rf.fused_sweep_cuda(*args, **kw))]
-            if form == "f32":
-                lib = lambda: torch.topk(torch.cdist(args[0], args[3]), K,
-                                         largest=False)
-            else:
-                lib = lambda: torch.topk(
-                    args[1] + args[4] - 2.0 * torch.matmul(
-                        args[0], args[3].T).float(), K, largest=False)
-            row[form + "_library_ms"] = time_ms(lib)
+            row[form + "_plain_ms"] = time_ms(
+                lambda: rf.fused_sweep_reference(*args, **kw))
+            row[form + "_library_ms"] = time_ms(lambda: k1_library(
+                args[0], args[3], args[1], args[4], args[2], with_ranks))
             ms.append(time_ms(lambda: rf.fused_sweep_cuda(*args, **kw)))
             row[form + "_ms"] = min(ms)
             row[form + "_device_ms"] = device_ms(
@@ -707,9 +767,24 @@ def phase_kernels_k2(state) -> None:
     by_q = []
     for q, r in ((1, R), (8, R), (32, 128), (512, R)):
         inputs = _k2_inputs(g, q, "euclidean", gen)
-        ms = time_ms(lambda: qf.quant_candidates_cuda(
-            *inputs, r=r, metric="euclidean"))
-        by_q.append({"q": q, "r": r, "ms": ms, "bound_ms": k2_bound(q, r)[0]})
+        kw = dict(r=r, metric="euclidean")
+        ms = time_ms(lambda: qf.quant_candidates_cuda(*inputs, **kw))
+        row = {"q": q, "r": r, "ms": ms, "bound_ms": k2_bound(q, r)[0]}
+        if q == 512:  # the offline batch, beside its plain and library calls
+            q8, s_q, g8, g_scale, g_sq = inputs
+
+            def q_library():
+                cross = torch._int_mm(q8, g8.t())
+                dot = cross.float() * (s_q[:, None] * g_scale[None, :])
+                return torch.topk(g_sq[None, :] - 2.0 * dot, r, largest=False)
+
+            row["plain_ms"] = time_ms(
+                lambda: qf.quant_candidates_reference(*inputs, **kw), reps=5)
+            row["library_ms"] = time_ms(q_library, reps=5)
+            row["ms_again"] = time_ms(
+                lambda: qf.quant_candidates_cuda(*inputs, **kw))
+            del q8, g8
+        by_q.append(row)
         del inputs
     # the int8 route whole past the JAX engine's 128 candidates
     # (rerank_factor 8, k = r / 8) at Q in {1, 32}: K2's and the plain
@@ -959,6 +1034,21 @@ def phase_probe_k1(state) -> None:
           "K1 never fell back in the probe")
     state["launches"]["K1_bf16"] = launches["K1_bf16"]
     state["launches"]["P1"] = launches["P1"]
+    # the library compositions of K1's function with ranks at the probe's
+    # shapes and inputs (k1_library), in both forms
+    library = []
+    for q_, n_ in PROBE_SHAPES:
+        x, g, p, qq, gg, _ = probe.make_inputs(n_, q_, torch.device("cuda"))
+        pos2d = p[:, None].contiguous()
+        x32, g32 = x.float(), g.float()
+        library.append({
+            "q": q_, "n": n_,
+            "full_library_ms": time_ms(lambda: k1_library(
+                x, g, qq, gg, pos2d, True), reps=5),
+            "full_f32_library_ms": time_ms(lambda: k1_library(
+                x32, g32, qq, gg, pos2d, True), reps=5)})
+        del x, g, p, qq, gg, pos2d, x32, g32
+        torch.cuda.empty_cache()
     shapes = []
     for res in runs:
         bounds = _probe_bounds(res["q"], res["n"])
@@ -982,7 +1072,10 @@ def phase_probe_k1(state) -> None:
     emit({"phase": "probe_k1", "ok": True, "cases": len(cases),
           "case_rows": cases, "k1_case_rows": k1_cases,
           "p1_plain_ms_level2": p1_plain_ms,
-          "launches": launches, "shapes": shapes})
+          "launches": launches, "shapes": shapes, "library": library,
+          "library_calls": "k1_library: torch.cdist (full_f32) or bf16 "
+                           "torch.matmul with the norms (full), torch.topk, "
+                           "the rank count"})
 
 
 # ---------------------------------------------------------------- encoder
@@ -1231,7 +1324,8 @@ def _serve(state, phase: str, n_rows: int, route: str, flags: list) -> None:
     check(all(v == 0 for name, v in launches.items() if name != route),
           f"no other kernel than {route} launched on this path")
     check(fallback == 0, f"{route} never fell back")
-    state["launches"][route] = launches[route]
+    state["launches"][route] = (state["launches"].get(route, 0)
+                                + launches[route])
     n_req = 8 * rounds
     timed = dispatches[:n_timed]
     dispatch_ms = [1e3 * t for _, t in timed]
@@ -1317,6 +1411,598 @@ def _profile_dispatch(engine, sketches, prefix: str, reps: int = 3) -> dict:
             "top_device_ms": [[k[:60], v] for k, v in top]}
 
 
+# -------------------------------------------------------------- inference
+
+# the synthetic Sketchy corpus of the inference phases: 11,000 sketches,
+# whose 10% test split gives about 1,100 queries
+CORPUS = dict(n_classes=25, photos_per_class=110, sketches_per_photo=4)
+RUN = "ModifiedResNet_SketchyV1_ChipSmoke"
+K1_ROWS = 100_003  # the offline gallery of inference_k1
+ROUTE_NS = (10_000, 25_000, 50_000, K1_ROWS, 1_000_000)  # route timings
+ULPS = 8 * 2.0 ** -23  # the sample distances' floor (see _same_samples)
+RANK_TOL = 2  # the kernels phase's rank tolerance (_compare)
+
+
+STAT_KEYS = ("mean_reciprocal_rank", "size", "count", "mean", "std", "min",
+             "25%", "50%", "75%", "max", "topk_acc")
+ORDER_KEYS = ("min", "25%", "50%", "75%", "max")
+
+
+def _scores(ranks: np.ndarray) -> dict:
+    """MRR, the eight keys of pandas' ``describe()`` and topk_acc of the
+    0-based ``ranks``, computed here (a sort, pandas' linear
+    interpolation), apart from the port's ``_describe``."""
+    r = np.sort(ranks.astype(np.float64)) + 1.0
+    n = len(r)
+    mean = r.sum() / n
+
+    def at(p):
+        h = p * (n - 1)
+        lo = int(h)
+        return r[lo] + (h - lo) * (r[min(lo + 1, n - 1)] - r[lo])
+
+    return {"mean_reciprocal_rank": (1.0 / r).sum() / n, "count": float(n),
+            "mean": mean, "std": float(np.sqrt(((r - mean) ** 2).sum()
+                                               / (n - 1))),
+            "min": r[0], "25%": at(0.25), "50%": at(0.5), "75%": at(0.75),
+            "max": r[-1],
+            "topk_acc": [np.count_nonzero(ranks <= j) / n for j in range(K)]}
+
+
+def _check_scores(d: dict, ranks: np.ndarray, what: str) -> None:
+    """The dict's MRR, rank statistics and topk_acc are those of
+    ``ranks`` (rtol 1e-12: sums in another order)."""
+    want = _scores(ranks)
+    keys = [k for k in want if k != "topk_acc"]
+    check(np.allclose([d[k] for k in keys] + list(d["topk_acc"]),
+                      [want[k] for k in keys] + want["topk_acc"],
+                      rtol=1e-12, atol=0.0),
+          f"{what}: MRR, rank statistics and topk_acc come from its ranks")
+
+
+def _dicts_within(a: dict, b: dict, ranks_b: np.ndarray, tol: np.ndarray,
+                  what: str) -> dict:
+    """Dict ``a``, whose ranks lie within ``tol`` (per query) of dict
+    ``b``'s ``ranks_b``, against ``b`` key by key, by as much as ``tol``
+    lets each key move: MRR by the mean of 1/(r - t + 1) - 1/(r + 1),
+    topk_acc[j] by the share of queries with r - t <= j < r + t, the mean
+    by the mean of t, the order statistics by the largest t, std by
+    sqrt(sum t^2 / (Q - 1)); count and size equal. Exact where ``tol`` is
+    0 everywhere. Returns each key's difference."""
+    q = len(ranks_b)
+    r, t = ranks_b.astype(np.float64), tol.astype(np.float64)
+    lim = {"mean_reciprocal_rank": float(np.sum(
+               1.0 / (np.maximum(r - t, 0) + 1) - 1.0 / (r + 1)) / q),
+           "mean": float(t.sum() / q),
+           "std": float(np.sqrt(np.sum(t * t) / max(q - 1, 1))),
+           **{k: float(t.max(initial=0.0)) for k in ORDER_KEYS}}
+    diff = {k: abs(a[k] - b[k]) for k in lim}
+    ok = all(diff[k] <= lim[k] + 1e-12 * abs(b[k]) for k in lim)
+    for j in range(K):
+        straddle = np.count_nonzero((t > 0) & (r - t <= j) & (j < r + t))
+        d = abs(a["topk_acc"][j] - b["topk_acc"][j])
+        diff[f"topk_acc[{j}]"] = d
+        ok = ok and d <= straddle / q + 1e-12
+    check(ok and a["count"] == b["count"] and a["size"] == b["size"],
+          f"{what}: the dicts within what the rank tolerance lets each key "
+          "move")
+    return diff
+
+
+def _rank_tolerance(d, pos: np.ndarray, reach) -> np.ndarray:
+    """Per query, the columns other than the positive whose distance in
+    ``d`` (Q, N) lies within ``reach`` (a number, or (Q, 1)) of the
+    positive's: how far two float32 computations of the same ranks may
+    differ. 0 for a query without a positive."""
+    import torch
+
+    p = torch.as_tensor(np.where(pos < 0, 0, pos), device=d.device)[:, None]
+    dpos = torch.gather(d, 1, p.long())
+    near = (torch.sum(torch.abs(d - dpos) <= reach, dim=1) - 1).cpu().numpy()
+    return np.where(pos < 0, 0, near)
+
+
+def _chunked(fn, queries, gallery, chunk: int = 1024):
+    """``fn(q, gallery)`` over the query chunks of evaluate_retrieval, so
+    that each chunk sees the arithmetic (and the library's kernel choice)
+    of the route it stands for."""
+    import torch
+
+    return torch.cat([fn(queries[s:s + chunk], gallery)
+                      for s in range(0, queries.shape[0], chunk)])
+
+
+def _same_topk(a: dict, b: dict, metric: str, qq: np.ndarray,
+               gg: np.ndarray, what: str):
+    """Every query's top-k in evaluate_retrieval's trace ``a`` against
+    trace ``b``: the values position by position at rtol 1e-5 with the
+    8-ulp floor of ``_same_samples`` (``qq``, ``gg``: the squared norms of
+    the queries and the gallery rows), and the index sets equal, except
+    that a column only one side holds must lie within twice that
+    tolerance of the other side's k-th value (a near-tie at the k-th
+    place). Returns (the largest |difference|, on squared distances for
+    euclidean; the rows whose sets differ)."""
+    va, vb = (t["values"].astype(np.float64) for t in (a, b))
+    ia, ib = a["indices"], b["indices"]
+    if metric == "euclidean":  # compared as squared distances
+        va, vb = va * va, vb * vb
+        lim = 1e-5 * vb + ULPS * (qq[:, None] + np.maximum(gg[ia], gg[ib]))
+    else:
+        lim = 1e-5 * np.abs(vb) + ULPS
+    diff = np.abs(va - vb)
+    check(bool((diff <= lim).all()),
+          f"{what}: every query's top-k values within rtol 1e-5 and the "
+          "8-ulp floor")
+    a_in_b = (ia[:, :, None] == ib[:, None, :]).any(2)
+    b_in_a = (ib[:, :, None] == ia[:, None, :]).any(2)
+    near = 2 * lim[:, -1:]
+    check(bool((a_in_b | (np.abs(va - vb[:, -1:]) <= near)).all()
+               and (b_in_a | (np.abs(vb - va[:, -1:]) <= near)).all()),
+          f"{what}: every query's top-k index set the same but for "
+          "near-ties at the k-th place")
+    return float(diff.max()), int(np.count_nonzero(~a_in_b.all(1)))
+
+
+def _same_samples(got, want, metric, queries, gallery, sketch_paths,
+                  image_paths):
+    """The retrieval samples: the same queries; distances position by
+    position at rtol 1e-5 with a floor of 8 float32 ulps of the terms that
+    cancel, on the squared distance (euclidean: 8 * 2^-23 * (|q|^2 +
+    |g|^2)) or on ``1 - cos`` (cosine: 8 * 2^-23); the same paths, except
+    two columns whose distances lie within that tolerance may trade places
+    (or one cross the k-th place). Returns (largest |difference|, the
+    places that traded)."""
+    q_row = {str(p): i for i, p in enumerate(sketch_paths)}
+    g_row = {str(p): i for i, p in enumerate(image_paths)}
+    check(len(got) == len(want), "the same number of retrieval samples")
+    worst, traded = 0.0, 0
+    for gs, ws in zip(got, want):
+        (gk, gv), = gs.items()
+        (wk, wv), = ws.items()
+        check(gk == wk and len(gv) == len(wv),
+              "retrieval samples: the same queries")
+        a = np.array([x for _, x in gv], np.float64)
+        b = np.array([x for _, x in wv], np.float64)
+        worst = max(worst, float(np.abs(a - b).max()))
+        if metric == "euclidean":  # compared as squared distances
+            q = np.asarray(queries[q_row[gk]], np.float64)
+            g2 = np.maximum(*(np.sum(np.asarray(
+                gallery[[g_row[p] for p, _ in v]], np.float64) ** 2, axis=1)
+                for v in (gv, wv)))
+            a, b = a * a, b * b
+            lim = 1e-5 * b + ULPS * (q @ q + g2)
+        else:
+            lim = 1e-5 * np.abs(b) + ULPS
+        check(bool((np.abs(a - b) <= lim).all()), "retrieval sample "
+              "distances within rtol 1e-5 and the 8-ulp floor")
+        other = {p: x for (p, _), x in zip(wv, b)}
+        for j, (path, _) in enumerate(gv):
+            if path == wv[j][0]:
+                continue
+            traded += 1
+            check((path in other and abs(other[path] - a[j]) <= 2 * lim[j])
+                  or abs(a[j] - b[-1]) <= 2 * lim[j],
+                  "retrieval samples: paths trade places only within the "
+                  "distance tolerance")
+    return worst, traded
+
+
+def phase_inference(state) -> None:
+    """``cli/inference.py`` end to end on the card over a synthetic Sketchy
+    corpus with the full-width encoder, then ``cli/serve.py --folder``
+    without ``--features`` over the same corpus."""
+    import torch
+
+    from art_sbir_tpu_torch.cli import inference, serve
+    from art_sbir_tpu_torch.core.checkpoint import save_state_dict
+    from art_sbir_tpu_torch.data import loader, native_loader
+    from art_sbir_tpu_torch.data.synthetic import make_synthetic_sketchy
+    from art_sbir_tpu_torch.models.resnet import create_encoder
+    from art_sbir_tpu_torch.ops.distance import pairwise_distance
+    from art_sbir_tpu_torch.retrieval import rank
+    from art_sbir_tpu_torch.retrieval.embed import load_image_features
+    from art_sbir_tpu_torch.retrieval.engine import rebuild_test_catalog
+
+    check(state["pil"], "PIL is installed: the inference phase writes its "
+          "corpus with it")
+    tmp = Path(state["tmp"])
+    t0 = time.perf_counter()
+    root = make_synthetic_sketchy(tmp / "sketchy", **CORPUS)
+    write_s = time.perf_counter() - t0
+    run_dir = tmp / "results" / RUN
+    run_dir.mkdir(parents=True)
+    data_params = {"dataset": "SketchyDatasetV1", "size": 1.0}
+    (run_dir / "data_params.json").write_text(json.dumps(data_params))
+    (run_dir / "training_params.json").write_text(json.dumps(
+        {"image_size": 224, "loss_type": "euclidean"}))
+    # the full-width ModifiedResNet50, seed-0 weights, as the run's .pt
+    save_state_dict(tmp / "models" / f"{RUN}.pt",
+                    create_encoder(device="cuda", seed=0).state_dict())
+    test_cat = rebuild_test_catalog(data_params, root)
+    try:  # decode_paths' "auto": native where the library builds, else PIL
+        native_loader.load()
+        backend, native_error = "native", None
+    except native_loader.NativeUnavailable as e:
+        backend, native_error = "pil", str(e)[-400:]
+    plots = importlib.util.find_spec("matplotlib") is not None
+    args = ["--folder", RUN, "--results_root", str(tmp / "results"),
+            "--models_root", str(tmp / "models"), "--data_root", str(root),
+            "--feature_root", str(tmp / "features"), "--device", "cuda"]
+
+    counters = _counters()
+    trace = {}  # what run_inference saw: features, ranks, times
+    for c in counters.values():  # this path's run starts here
+        c.reset()
+    t0 = time.perf_counter()
+    folder = (RUN, tmp / "results", tmp / "models", root, "cuda",
+              tmp / "features")
+    if plots:
+        inference.rerun_folder(*folder, trace=trace)
+    else:  # no matplotlib on this host: the evaluation and its JSON
+        out = inference.evaluate_folder(*folder, trace=trace)
+        (run_dir / "inference_updated.json").write_text(
+            json.dumps(out, indent=4, default=float))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    got = json.loads((run_dir / "inference_updated.json").read_text())
+
+    keys = STAT_KEYS + ("inference_time", "retrieval_samples",
+                        "image_features")
+    check(set(got) == set(keys), "inference_updated.json has the reference "
+          "keys")
+    paths, gallery = load_image_features(got["image_features"],
+                                         tmp / "features")
+    n_gallery = len(set(test_cat.photo_paths))
+    check(got["size"] == n_gallery == len(paths),
+          "size is the deduplicated test gallery")
+    check(np.isfinite(got["mean_reciprocal_rank"]), "MRR finite")
+    check(all(b >= a for a, b in zip(got["topk_acc"], got["topk_acc"][1:])),
+          "topk_acc does not decrease")
+    (card,) = trace["passes"]
+    check(n_gallery < rank.FUSED_GALLERY_THRESHOLD and card["route"] == "exact"
+          and all(v == 0 for v in launches.values()),
+          "a gallery below FUSED_GALLERY_THRESHOLD takes the exact route: "
+          "no kernel launched")
+    queries = card["queries"].cpu().numpy()
+    check(np.array_equal(trace["gallery"].cpu().numpy(), gallery),
+          "the cache holds the embedded gallery")
+    check(bool(np.isfinite(queries).all()) and queries.shape
+          == (len(test_cat), 1024), "query features finite, (Q, 1024)")
+    # the same features ranked again on the CPU. The two float32 distance
+    # matrices (cuBLAS and the CPU's, chunk by chunk as the route computes
+    # them) differ by at most `moved`; a column can change sides of the
+    # positive between them only where it lies within 2 * moved of the
+    # positive's distance on the card, so a query's ranks may differ by at
+    # most the columns there (exact where there are none)
+    pos = rank.positive_indices(test_cat.sketch_paths, paths)
+    cpu_trace = {}
+    cpu = rank.evaluate_retrieval(queries, gallery, test_cat.sketch_paths,
+                                  paths, device="cpu", trace=cpu_trace)
+    card_ranks, cpu_ranks = card["ranks"], cpu_trace["ranks"]
+    qt, gt = torch.from_numpy(queries), torch.from_numpy(gallery)
+    d_card = _chunked(pairwise_distance, qt.cuda(), gt.cuda())
+    moved = float(torch.max(torch.abs(
+        d_card - _chunked(pairwise_distance, qt, gt).cuda())))
+    rank_tol = _rank_tolerance(d_card, pos, 2.0 * moved)
+    del d_card
+    rank_diff = np.abs(card_ranks - cpu_ranks)
+    check(bool((rank_diff <= rank_tol).all()),
+          "the card's ranks equal the CPU's but for columns within the two "
+          "float32 matrices' difference of the positive's distance")
+    _check_scores(got, card_ranks, "the card's dict")
+    _check_scores(cpu, cpu_ranks, "the CPU's dict")
+    dict_diff = _dicts_within(got, cpu, cpu_ranks, rank_tol,
+                              "the card's dict against the CPU's")
+    sample_err, traded = _same_samples(
+        got["retrieval_samples"], cpu["retrieval_samples"], "euclidean",
+        queries, gallery, test_cat.sketch_paths, paths)
+
+    # serve --folder without --features over the same corpus
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    engine, batcher = serve.build_engine(serve.parse_args(
+        args[:8] + ["--device", "cuda"]))
+    build_s = time.perf_counter() - t0
+    try:
+        check(engine.image_paths == [str(p) for p in paths],
+              "serve --folder: the evaluation's gallery paths")
+        rows = engine.gallery.cpu().numpy()
+        cos = np.sum(rows * gallery, 1) / (np.linalg.norm(rows, axis=1)
+                                          * np.linalg.norm(gallery, axis=1))
+        check(float(cos.min()) >= 0.999, "serve --folder: rows within the "
+              "bf16 encoder's batch-to-batch tolerance (cosine >= 0.999)")
+        sketches = loader.decode_paths(test_cat.sketch_paths[:8], 224,
+                                       test_cat.resize_mode)
+        t0 = time.perf_counter()
+        vals, idx = engine.search_arrays(sketches)
+        search_ms = 1e3 * (time.perf_counter() - t0)
+        check(idx.shape == (8, 10) and bool(np.isfinite(vals).all())
+              and bool((np.diff(vals, axis=1) >= 0).all())
+              and bool((idx < len(paths)).all()),
+              "serve --folder: 8 sketches searched, ascending finite "
+              "distances")
+        serve_launches = {name: c.launches for name, c in counters.items()}
+        check(engine.route == "exact"
+              and all(v == 0 for v in serve_launches.values()),
+              "serve --folder over this gallery takes the exact route")
+    finally:
+        batcher.close()
+    state["corpus"] = {"root": root, "cache": got["image_features"],
+                       "test_cat": test_cat}
+    emit({"phase": "inference", "ok": True, "corpus": CORPUS,
+          "queries": len(test_cat), "gallery": n_gallery,
+          "decode_backend": backend, "native_error": native_error,
+          "plots": plots,
+          "corpus_write_s": write_s, "wall_s": wall_s,
+          "decode_s": trace["decode_s"],
+          "embed_s": trace["gallery_embed_s"] + card["embed_s"],
+          "rank_s": card["rank_s"],
+          "split_note": "decode runs on embed_batched's prefetch thread, "
+                        "inside embed_s; embed_s ends in a synchronize",
+          "gallery_embed_images_per_s": n_gallery / trace["gallery_embed_s"],
+          "mean_reciprocal_rank": got["mean_reciprocal_rank"],
+          "topk_acc": got["topk_acc"], "launches": launches,
+          "cpu_rank_diff_rows": int(np.count_nonzero(rank_diff)),
+          "cpu_rank_max_diff": int(rank_diff.max()),
+          "cpu_rank_tol_max": int(rank_tol.max()),
+          "cpu_rank_tol_rows": int(np.count_nonzero(rank_tol)),
+          "cpu_distance_max_abs_diff": moved,
+          "cpu_stats_equal": all(got[k] == cpu[k] for k in STAT_KEYS),
+          "cpu_dict_diff": dict_diff,
+          "cpu_mrr": cpu["mean_reciprocal_rank"],
+          "cpu_sample_max_abs_diff": sample_err,
+          "cpu_sample_places_traded": traded,
+          "serve_build_s": build_s, "serve_search_8_ms": search_ms,
+          "serve_rows_cos_min": float(cos.min()),
+          "serve_rows_bit_identical": bool(np.array_equal(rows, gallery)),
+          "serve_rows_max_abs_diff": float(np.abs(rows - gallery).max())})
+
+
+def _k1_gallery(real, real_paths, n: int, seed: int):
+    """(n, D) float32 rows: the ``real`` rows at seeded random slots, the
+    rest random with the real rows' per-dimension mean and spread, under
+    stems (``r0000000``) that match no sketch."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    real = torch.as_tensor(real, device="cuda")
+    feats = (torch.randn((n, real.shape[1]), generator=gen, device="cuda")
+             * real.std(0) + real.mean(0))
+    slots = torch.randperm(n, generator=gen, device="cuda")[:len(real)]
+    feats[slots] = real
+    paths = [f"random/r{i:07d}.jpg" for i in range(n)]
+    for s, p in zip(slots.tolist(), real_paths):
+        paths[s] = str(p)
+    return feats.cpu().numpy(), paths
+
+
+def _route_times(gen) -> list:
+    """evaluate_retrieval whole (host work included) on K1's route and on
+    the exact route at Q = 1,024 over random galleries of ROUTE_NS rows;
+    the better of two calls, one call at 10^6 rows. ``host_s``: its
+    positive lookup over the N paths alone (``positive_indices``), which
+    both routes run. ``*_rank_ms``: each route's ranking of the chunk alone
+    (CUDA events; K1's with the gallery norms and its certificate read)."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
+    from art_sbir_tpu_torch.ops.distance import retrieve
+    from art_sbir_tpu_torch.retrieval import rank
+
+    q = 1024
+    image_paths = [f"g/g{i}.jpg" for i in range(max(ROUTE_NS))]
+    saved, rows = rank.FUSED_GALLERY_THRESHOLD, []
+    try:
+        for n in ROUTE_NS:
+            g = torch.randn((n, D), generator=gen, device="cuda")
+            pos = torch.randint(0, n, (q,), generator=gen, device="cuda")
+            x = g[pos] + torch.randn((q, D), generator=gen, device="cuda")
+            sketch_paths = [f"s/g{p}-1.png" for p in pos.tolist()]
+            t0 = time.perf_counter()
+            rank.positive_indices(sketch_paths, image_paths[:n])
+            row = {"n": n, "q": q, "host_s": time.perf_counter() - t0}
+            reps = 1 if n >= 1_000_000 else 2
+            row["k1_rank_ms"] = time_ms(lambda: rf.retrieve_fused(
+                x, g, pos, k=K, gg=rf.gallery_norms(g, "euclidean")),
+                reps=reps + 1, warmup=1)
+            row["exact_rank_ms"] = time_ms(lambda: retrieve(x, g, pos, k=K),
+                                           reps=reps + 1, warmup=1)
+            for name, threshold in (("k1_route_s", 0),
+                                    ("exact_route_s", n + 1)):
+                rank.FUSED_GALLERY_THRESHOLD = threshold
+                best = float("inf")
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rank.evaluate_retrieval(x, g, sketch_paths,
+                                            image_paths[:n])
+                    best = min(best, time.perf_counter() - t0)
+                row[name] = best
+                torch.cuda.empty_cache()
+            rows.append(row)
+            del g, x, pos
+    finally:
+        rank.FUSED_GALLERY_THRESHOLD = saved
+    return rows
+
+
+def phase_inference_k1(state) -> None:
+    """``run_inference`` over a feature cache of K1_ROWS rows (the corpus's
+    test photos under their real paths, random rows beside them), both
+    metrics, on K1's route and, with the threshold raised, the exact one;
+    then both routes timed by gallery size and K1 at Q = 1,024 with
+    ranks."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
+    from art_sbir_tpu_torch.ops.distance import (PAIRWISE_EPS,
+                                                 pairwise_cosine,
+                                                 pairwise_sq_l2)
+    from art_sbir_tpu_torch.retrieval import engine as engine_mod
+    from art_sbir_tpu_torch.retrieval import rank
+    from art_sbir_tpu_torch.retrieval.embed import (load_image_features,
+                                                    save_image_features)
+    from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
+
+    tmp = Path(state["tmp"])
+    corpus = state["corpus"]
+    test_cat = corpus["test_cat"]
+    real_paths, real = load_image_features(corpus["cache"], tmp / "features")
+    feats, paths = _k1_gallery(real, real_paths, K1_ROWS, seed=5)
+    t0 = time.perf_counter()
+    cache = save_image_features("ChipSmoke", "SketchyK1", paths, feats,
+                                root=tmp / "features", timestamp="k1")
+    save_s = time.perf_counter() - t0
+    gallery = torch.from_numpy(feats).cuda()
+    gg = np.sum(feats.astype(np.float64) ** 2, axis=1)
+    del feats
+    pos = rank.positive_indices(test_cat.sketch_paths, paths)
+    model, restored = engine_mod.restore_encoder(RUN, {}, tmp / "models",
+                                                 torch.device("cuda"))
+    check(restored, "the run's encoder restored from its .pt")
+
+    def forward(x):
+        return model(finish_gallery_batch(x))
+
+    q = len(test_cat)
+    chunks = -(-q // 1024)
+    counters = _counters()
+    metrics, main_launches = [], 0
+    for metric in ("euclidean", "cosine"):
+        out, tr = {}, {}
+        for route, threshold in (("k1", rank.FUSED_GALLERY_THRESHOLD),
+                                 ("exact", K1_ROWS + 1)):
+            trace = {}
+            saved = rank.FUSED_GALLERY_THRESHOLD
+            rank.FUSED_GALLERY_THRESHOLD = threshold
+            try:
+                for c in counters.values():  # the main path's run
+                    c.reset()
+                t0 = time.perf_counter()
+                out[route] = engine_mod.run_inference(
+                    forward, test_cat, feature_folder=cache,
+                    loss_type=metric, image_size=224,
+                    feature_root=tmp / "features", device="cuda",
+                    trace=trace)
+                out[route]["wall_s"] = time.perf_counter() - t0
+                launches = {n: c.launches for n, c in counters.items()}
+                fallback = rf.counters.fallback_rows
+            finally:
+                rank.FUSED_GALLERY_THRESHOLD = saved
+            (tr[route],) = trace["passes"]
+            if route == "k1":
+                check(tr[route]["route"] == "K1" and launches["K1"] == chunks
+                      and fallback == 0
+                      and all(v == 0 for n, v in launches.items()
+                              if n != "K1"),
+                      f"K1 launched once per query chunk ({chunks}), never "
+                      f"fell back, alone ({metric})")
+                main_launches += launches["K1"]
+            else:
+                check(tr[route]["route"] == "exact"
+                      and all(v == 0 for v in launches.values()),
+                      f"the raised threshold takes the exact route ({metric})")
+        qt = tr["exact"]["queries"]
+        check(bool(torch.equal(tr["k1"]["queries"], qt)),
+              "the queries embed to the same features in both calls")
+        # every query's top-k on K1's route against the exact route's,
+        # before the rank reach below may use their difference
+        qn = qt.cpu().numpy()
+        moved_by, set_rows = _same_topk(
+            tr["k1"], tr["exact"], metric,
+            np.sum(qn.astype(np.float64) ** 2, axis=1), gg,
+            f"K1's route against the exact route ({metric})")
+        # the rank tolerance of the probe_k1 phase: the columns within
+        # reach of the positive's distance (twice the largest value error
+        # between the routes' top-k, held above to rtol 1e-5 and the 8-ulp
+        # floor; at least 4 ulp of the positive's distance), counted on
+        # the exact route's own distances, squared for euclidean as K1
+        # ranks. No floor: a query with no column there ranks exactly
+        if metric == "euclidean":
+            d = _chunked(lambda a, b: pairwise_sq_l2(a, b, eps=PAIRWISE_EPS),
+                         qt, gallery)
+        else:
+            d = _chunked(pairwise_cosine, qt, gallery)
+        p = torch.as_tensor(np.where(pos < 0, 0, pos), device="cuda")[:, None]
+        dpos = torch.gather(d, 1, p.long())
+        reach = torch.clamp(4.0 * (torch.nextafter(
+            dpos, torch.full_like(dpos, float("inf"))) - dpos),
+            min=2.0 * moved_by)
+        rank_tol = _rank_tolerance(d, pos, reach)
+        del d, dpos, reach
+        ranks = {r: tr[r]["ranks"] for r in tr}
+        diff = np.abs(ranks["k1"] - ranks["exact"])
+        check(bool((diff <= rank_tol).all()),
+              f"K1's ranks within the rank tolerance of the exact route's "
+              f"({metric})")
+        moved_rows = np.nonzero(diff)[0]
+        over = np.nonzero(diff > RANK_TOL)[0]  # past the kernels phase's
+        for route in ("k1", "exact"):  # each dict scores its own ranks
+            _check_scores(out[route], ranks[route], f"the {route} route")
+        dict_diff = _dicts_within(out["k1"], out["exact"], ranks["exact"],
+                                  rank_tol, f"K1's route against the exact "
+                                  f"route ({metric})")
+        sample_err, traded = _same_samples(
+            out["k1"]["retrieval_samples"], out["exact"]["retrieval_samples"],
+            metric, qn, gallery.cpu().numpy(), test_cat.sketch_paths, paths)
+        metrics.append({
+            "metric": metric, "queries": q, "gallery": K1_ROWS,
+            "chunks": chunks, "k1_launches": chunks,
+            "topk_value_max_abs_diff": moved_by,
+            "topk_set_diff_rows": set_rows,
+            "rank_diff_rows": int(len(moved_rows)),
+            "rank_diff_first": moved_rows.tolist()[:10],
+            "rank_max_diff": int(diff.max()),
+            "rank_tol_max": int(rank_tol.max()),
+            "rank_tol_zero_rows": int(np.count_nonzero(rank_tol == 0)),
+            "rank_diff_over_kernels_tol_rows": int(len(over)),
+            "rank_diff_over_kernels_tol": [
+                [int(i), int(diff[i]), int(rank_tol[i])] for i in over[:10]],
+            "mrr": {r: out[r]["mean_reciprocal_rank"] for r in out},
+            "topk_acc_k1": out["k1"]["topk_acc"],
+            "stats_equal": all(out["k1"][k] == out["exact"][k]
+                               for k in STAT_KEYS),
+            "dict_diff": dict_diff,
+            "sample_max_abs_diff": sample_err,
+            "sample_places_traded": traded,
+            "wall_s": {r: out[r]["wall_s"] for r in out},
+            "rank_s": {r: tr[r]["rank_s"] for r in tr},
+            "inference_time_s": {r: out[r]["inference_time"] for r in out}})
+        del qt
+    state["launches"]["K1"] = state["launches"].get("K1", 0) + main_launches
+    del model, gallery
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    routes = _route_times(gen)
+    # K1 at the offline chunk, Q = 1,024 with ranks, N = K1_ROWS, beside its
+    # bound, its plain version and the library composition (its device time
+    # alone is the kernels phase's, by_q)
+    n, qn = K1_ROWS, 1024
+    inputs = _k1_inputs(n, qn, "euclidean", gen)
+    kw = dict(k=K, metric="euclidean", with_ranks=True)
+    ms = [time_ms(lambda: rf.fused_sweep_cuda(*inputs, **kw), reps=10)]
+    plain_ms = time_ms(lambda: rf.fused_sweep_reference(*inputs, **kw),
+                       reps=5)
+    library_ms = time_ms(lambda: k1_library(inputs[0], inputs[3], inputs[1],
+                                            inputs[4], inputs[2], True),
+                         reps=10)
+    ms.append(time_ms(lambda: rf.fused_sweep_cuda(*inputs, **kw), reps=10))
+    bound_ms, bound_by = bound(
+        4 * (n * D + qn * D + n + 2 * qn) + qn * K * 8 + qn * 8,
+        2 * qn * n * D, H100_F32_FLOP_PER_S)
+    emit({"phase": "inference_k1", "ok": True, "cache_save_s": save_s,
+          "metrics": metrics, "routes_by_n": routes,
+          "k1_q1024": {"n": n, "q": qn, "with_ranks": True, "ms": min(ms),
+                       "kernel_ms_runs": ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "library": "torch.cdist, torch.topk, the rank count",
+                       "bound_ms": bound_ms, "bound_by": bound_by},
+          "launches": {"K1": main_launches}})
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -1331,11 +2017,13 @@ def main(argv=None) -> int:
         return 1
     import art_sbir_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    state = {"launches": {}}
-    for phase in (phase_build, phase_kernels, phase_kernels_k2,
-                  phase_kernels_int8_wide, phase_probe_k1, phase_encoder, phase_serve,
-                  phase_serve_quant):
-        phase(state)
+    with tempfile.TemporaryDirectory() as tmp:
+        state = {"launches": {}, "tmp": tmp}
+        for phase in (phase_build, phase_kernels, phase_kernels_k2,
+                      phase_kernels_int8_wide, phase_probe_k1, phase_encoder,
+                      phase_serve, phase_serve_quant, phase_inference,
+                      phase_inference_k1):
+            phase(state)
     emit({"kernels": [{**state[name.lower()],
                        "launches": state["launches"][name]}
                       for name in ("K1", "K1_bf16", "K2", "P1")]})

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX stack, nothing of ``art_sbir_tpu``,
-no PIL at import time, and no quiet fall back to the CPU."""
+no PIL, triton, pandas or matplotlib at import time (the card's host may
+lack them), and no quiet fall back to the CPU."""
 
 import argparse
 import ast
@@ -50,7 +51,8 @@ def test_pil_and_triton_only_inside_functions():
             if isinstance(node, (ast.Import, ast.ImportFrom)):
                 names = [a.name for a in node.names] if isinstance(
                     node, ast.Import) else [node.module or ""]
-                assert not any(n.split(".")[0] in ("PIL", "triton")
+                assert not any(n.split(".")[0] in ("PIL", "triton", "pandas",
+                                                   "matplotlib")
                                for n in names), path
 
 
@@ -60,9 +62,11 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
-    from art_sbir_tpu_torch.cli import serve
+    from art_sbir_tpu_torch.cli import inference, serve
     from art_sbir_tpu_torch.models.resnet import create_encoder
     from art_sbir_tpu_torch.retrieval.embed import embed_batched
+    from art_sbir_tpu_torch.retrieval.engine import run_inference
+    from art_sbir_tpu_torch.retrieval.rank import evaluate_retrieval
     from art_sbir_tpu_torch.retrieval.server import RetrievalEngine
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -80,6 +84,18 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         serve.build_engine(args)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.build_engine(serve.parse_args(["-f", "Run", "--features", "c"]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.build_engine(serve.parse_args(["-f", "Run"]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        inference.main(["--folder", "Run", "--results_root", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        inference.evaluate_folder("Run", tmp_path, tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_inference(lambda x: x, None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_retrieval(np.zeros((1, 4), np.float32),
+                           np.zeros((2, 4), np.float32), ["a-1.png"],
+                           ["a.jpg", "b.jpg"])
 
 
 def test_cpu_when_asked(no_cuda):

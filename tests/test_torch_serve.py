@@ -47,6 +47,7 @@ import art_sbir_tpu_torch.retrieval.rank as port_rank
 from art_sbir_tpu_torch.cli import serve as port_serve
 from art_sbir_tpu_torch.core.checkpoint import save_state_dict
 from art_sbir_tpu_torch.data.loader import decode_bytes, decode_image
+from art_sbir_tpu_torch.models.resnet import create_encoder
 from art_sbir_tpu_torch.ops import quant_fused as qf
 from art_sbir_tpu_torch.ops import resize as port_resize
 from art_sbir_tpu_torch.ops import retrieval_fused as rf
@@ -553,7 +554,7 @@ def test_bn_sketch_needs_the_main_checkpoint(tmp_path):
     ``_bn_sketch`` sibling even when the main checkpoint is missing. The
     port loads it only beside a restored checkpoint."""
     args = _served_run(tmp_path)
-    encoder = port_serve.create_encoder(
+    encoder = create_encoder(
         device="cpu", input_resolution=32, width=8, layers=(1, 1, 1, 1))
     stats = {k: v + 1.0 for k, v in encoder.state_dict().items()
              if k.endswith(("running_mean", "running_var"))}
