@@ -1,7 +1,7 @@
 """Retrieval-evaluation CLI: recompute the inference of saved run folders.
 
     python -m art_sbir_tpu_torch.cli.inference --folder <run> [--data_root <root>]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--n_devices N]
 
 Counterpart of ``art_sbir_tpu/cli/inference.py`` (reference
 `inference.py:167-244`): read the run's JSONs, restore the encoder from
@@ -9,14 +9,17 @@ Counterpart of ``art_sbir_tpu/cli/inference.py`` (reference
 missing), rebuild the test catalog, evaluate (gallery and queries
 embedded by the bf16 encoder, ranked on the card: K1 with ranks from
 50,000 gallery rows) and write ``inference_updated.json`` and the plots
-into the run folder. BatchNorm recalibration comes with the training
-slice and several cards with the multi-card slice; asking for either
-exits with a message.
+into the run folder. ``--n_devices N`` (-1: every card) makes an
+encoder replica on each of the first N cards, splits each embedding
+batch over them and shards the ranked gallery's rows over them (with
+``--device cpu``, N shards on the CPU). BatchNorm recalibration comes
+with the training slice; asking for it exits with a message.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 from pathlib import Path
 from typing import Dict
@@ -25,6 +28,7 @@ import torch
 
 from art_sbir_tpu_torch.core.device import resolve_device
 from art_sbir_tpu_torch.core.results import load_results
+from art_sbir_tpu_torch.parallel.mesh import mesh_from_args
 from art_sbir_tpu_torch.retrieval.engine import (rebuild_test_catalog,
                                                  restore_encoder,
                                                  run_inference)
@@ -35,11 +39,13 @@ def evaluate_folder(folder: str, results_root: Path | str = "results",
                     models_root: Path | str = "models", data_root=None,
                     device: str | torch.device | None = None,
                     feature_root: Path | str = "data/image_features",
-                    trace: Dict | None = None) -> Dict | None:
+                    trace: Dict | None = None, mesh=None) -> Dict | None:
     """The run's inference dict (``run_inference`` over its test catalog,
-    ``trace`` passed on), or None, with a note, when the folder has no
-    ``data_params.json``."""
-    dev = resolve_device(device)
+    ``trace`` and ``mesh`` passed on), or None, with a note, when the
+    folder has no ``data_params.json``. With a ``mesh``, ``device`` is
+    ``mesh.devices[0]`` and each other card of the mesh gets a replica of
+    the encoder."""
+    dev = resolve_device(device if mesh is None else mesh.devices[0])
     results = load_results(Path(results_root) / folder)
     if "data_params" not in results:
         print(f"Results {folder} are not available", flush=True)
@@ -51,8 +57,13 @@ def evaluate_folder(folder: str, results_root: Path | str = "results",
         print(f"Model {folder} is not available — evaluating fresh init",
               flush=True)
 
+    # one encoder a card of the mesh; the forward takes the batch's card's
+    replicas = {d: model if d == dev else copy.deepcopy(model).to(d)
+                for d in ([] if mesh is None else mesh.distinct_devices())}
+
     def forward(images_uint8):
-        return model(finish_gallery_batch(images_uint8))
+        return replicas.get(images_uint8.device, model)(
+            finish_gallery_batch(images_uint8))
 
     # the geometry the run recorded; None -> the catalog family's
     resize_mode = param_dict.get("resize_mode") or data_dict.get("resize_mode")
@@ -61,18 +72,19 @@ def evaluate_folder(folder: str, results_root: Path | str = "results",
         param_dict.get("loss_type", "euclidean"),
         image_size=int(param_dict.get("image_size", 224)),
         resize_mode=resize_mode, model_name=type(model).__name__,
-        feature_root=feature_root, device=dev, trace=trace)
+        feature_root=feature_root, device=dev, trace=trace, mesh=mesh)
 
 
 def rerun_folder(folder: str, results_root: Path | str = "results",
                  models_root: Path | str = "models", data_root=None,
                  device: str | torch.device | None = None,
                  feature_root: Path | str = "data/image_features",
-                 trace: Dict | None = None) -> None:
+                 trace: Dict | None = None, mesh=None) -> None:
     """:func:`evaluate_folder`, then ``inference_updated.json`` and the
     plots into the run folder."""
     inference_dict = evaluate_folder(folder, results_root, models_root,
-                                     data_root, device, feature_root, trace)
+                                     data_root, device, feature_root, trace,
+                                     mesh)
     if inference_dict is None:
         return
     from art_sbir_tpu_torch.viz.plots import visualize
@@ -98,7 +110,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions")
     p.add_argument("--n_devices", type=int, default=1,
-                   help="cards for the embedding sweep; only 1 so far")
+                   help="cards for the embedding sweep and the sharded "
+                        "gallery (1 = one card, -1 = all; N shards on the "
+                        "CPU with --device cpu)")
     p.add_argument("--bn_recalibrate", default="off",
                    choices=["off", "mixed", "per_modality"],
                    help="recalibrate BatchNorm running stats over the run's "
@@ -108,16 +122,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.n_devices != 1:
-        raise SystemExit(
-            f"--n_devices {args.n_devices}: evaluating on several cards is "
-            "still to port (ROADMAP.md queue 1 item 8); use --n_devices 1")
     if args.bn_recalibrate != "off":
         raise SystemExit(
             f"--bn_recalibrate {args.bn_recalibrate}: BatchNorm "
             "recalibration comes with the training slice (ROADMAP.md queue 1 "
             "item 4); use --bn_recalibrate off")
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args.n_devices, device=device)
     results_root = Path(args.results_root)
     folders = [args.folder] if args.folder else []
     if args.all:
@@ -126,7 +137,7 @@ def main(argv=None) -> None:
     print(folders, flush=True)
     for folder in folders:
         rerun_folder(folder, results_root, args.models_root, args.data_root,
-                     device, args.feature_root)
+                     device, args.feature_root, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -3,6 +3,7 @@
     python -m art_sbir_tpu_torch.cli.serve -f <run> [--features <cache>]
         [--data_root <root>] [--warmup]
         [--quantize [--rerank_factor 4] [--rerank_dtype float32|bfloat16]]
+        [--n_devices N]
 
 Counterpart of ``art_sbir_tpu/cli/serve.py``. The query encoder is
 restored from ``<models_root>/<run>.pt`` (a seeded fresh init when it is
@@ -12,7 +13,10 @@ run's test gallery (its ``data_params.json`` catalog under
 ``--data_root``) embedded at startup, deduplicated and sorted as the
 offline evaluation embeds it. The HTTP layer is stdlib
 ``ThreadingHTTPServer``. ``--quantize`` serves through the int8 candidate
-scan and an exact rerank (K2 on the card).
+scan and an exact rerank (K2 on the card). ``--n_devices N`` (-1: every
+card) serves the gallery row-sharded over the first N cards (with
+``--device cpu``, N shards on the CPU); the queries are embedded on the
+first.
 
 Endpoints
 ---------
@@ -42,6 +46,7 @@ import numpy as np
 from art_sbir_tpu_torch.core.checkpoint import checkpoint_path, load_state_dict
 from art_sbir_tpu_torch.core.device import resolve_device
 from art_sbir_tpu_torch.core.results import load_results
+from art_sbir_tpu_torch.parallel.mesh import mesh_from_args
 from art_sbir_tpu_torch.retrieval.engine import (embed_test_gallery,
                                                  rebuild_test_catalog,
                                                  restore_encoder)
@@ -50,10 +55,17 @@ from art_sbir_tpu_torch.retrieval.server import (MicroBatcher, RetrievalEngine,
 from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
 
 
-def build_engine(args):
+def build_engine(args, mesh=None):
     """(engine, batcher) from parsed CLI arguments. Programmatic callers
-    may pass a partial namespace: absent options take their defaults."""
+    may pass a partial namespace: absent options take their defaults.
+    ``mesh`` (:class:`~art_sbir_tpu_torch.parallel.mesh.Mesh`) takes the
+    place of the one ``--n_devices`` builds, such as several shards on one
+    card."""
     device = resolve_device(getattr(args, "device", None))
+    if mesh is None:
+        mesh = mesh_from_args(getattr(args, "n_devices", 1), device=device)
+    if mesh is not None:
+        device = mesh.devices[0]
     run_dir = Path(args.results_root) / args.folder
     results = load_results(run_dir)
     data_dict = results.get("data_params", {})
@@ -106,7 +118,7 @@ def build_engine(args):
               quantize=getattr(args, "quantize", False),
               rerank_factor=getattr(args, "rerank_factor", 4),
               rerank_dtype=getattr(args, "rerank_dtype", "float32"),
-              query_forward_fn=query_forward, device=device)
+              query_forward_fn=query_forward, device=device, mesh=mesh)
     resize_mode = param_dict.get("resize_mode")  # else the catalog's
     if args.features:
         engine = engine_from_feature_cache(
@@ -265,6 +277,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="bfloat16 keeps the rerank gallery resident in "
                         "bf16 (0.75 B/elem total vs 1.25 f32) at ~1e-2 "
                         "relative value rounding; quantized mode only")
+    p.add_argument("--n_devices", type=int, default=1,
+                   help="shard the gallery's rows over the first N cards "
+                        "(-1: all; N shards on the CPU with --device cpu); "
+                        "rows (or capacity) divisible by N")
     p.add_argument("--max_batch", type=int, default=32)
     p.add_argument("--window_ms", type=float, default=2.0)
     p.add_argument("--bn_stats", default="auto",
@@ -287,7 +303,8 @@ def main(argv=None):
           f"http://{args.host}:{httpd.server_address[1]} "
           f"(metric={engine.metric}, k_max={engine.k_max}, "
           f"max_batch={engine.max_batch}, device={engine.device}, "
-          f"route={engine.route})", flush=True)
+          f"shards={engine.n_shards}, route={engine.route})",
+          flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -30,7 +30,12 @@
 //     float32 form, k1_positive_bf16 (one warp for 8 queries, the same
 //     mma.sync steps) in the bf16 form. (The TPU kernel takes it from a
 //     separate elementwise sum of the float32 inputs, so a duplicate of
-//     the positive can miss the tie by an ulp.)
+//     the positive can miss the tie by an ulp.) A shard of a row-sharded
+//     gallery is given it instead (pos_given): the shard that owns the
+//     positive computes it alone (k1_positive_distance), with its own
+//     norms, and the result is given to every shard. The sweep's
+//     arithmetic does not depend on a row's place, so the shards' columns
+//     and the positive's distance have the bits of the unsharded sweep's.
 //  1. k1::sweep_partial<T, TQ, 3> (k1_sweep.cuh, shared with the ablation
 //     probe P1): a cp.async ring over the gallery, query tiles of 8 to 64
 //     rows chosen from Q, the cross term (float32 FMA, or bf16 mma.sync),
@@ -52,15 +57,22 @@ constexpr int K_MAX = 128;  // the TPU kernel's bound on k
 constexpr int MERGE_THREADS = 256;
 constexpr int MERGE_HEADS = 4;  // runs per merge thread: S <= 1024
 
+// Whether query qi's positive is taken: always (owned = 0, its column
+// clamped into the gallery), or only where it lies in this gallery (owned =
+// 1: a shard of a row-sharded gallery, whose other shards own the rest).
+__device__ __forceinline__ bool take_positive(const int* pos, int qi, int Q, int N, int owned) {
+  return qi < Q && (!owned || (pos[qi] >= 0 && pos[qi] < N));
+}
+
 // The positive's own distance in the float32 form, with the same FMA chain
 // over D as the sweep gives its column, so a duplicate of the positive ties
 // with it exactly. One thread a query.
 __global__ void k1_positive(const float* __restrict__ q, const float* __restrict__ qq,
                             const int* __restrict__ pos, const float* __restrict__ g,
                             const float* __restrict__ gg, int Q, int N, int D, int metric,
-                            float* __restrict__ d2pos) {
+                            int owned, float* __restrict__ d2pos) {
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= Q) return;
+  if (!take_positive(pos, qi, Q, N, owned)) return;
   const int p = min(max(pos[qi], 0), N - 1);
   const float* a = q + static_cast<size_t>(qi) * D;
   const float* b = g + static_cast<size_t>(p) * D;
@@ -74,15 +86,16 @@ __global__ void k1_positive(const float* __restrict__ q, const float* __restrict
 // same k16 steps in the same order (whole 64-value chunks, the values past
 // D zero). One warp takes 8 queries: row g of A is query g's positive row,
 // column g of B the query, so lane (g, t) with t = g / 2 holds query g's
-// own product. Rows 8-15 of A are zero.
+// own product. Rows 8-15 of A are zero, and so are the rows of queries not
+// taken (the whole warp runs the mma.sync steps).
 __global__ void k1_positive_bf16(const __nv_bfloat16* __restrict__ q,
                                  const float* __restrict__ qq, const int* __restrict__ pos,
                                  const __nv_bfloat16* __restrict__ g,
                                  const float* __restrict__ gg, int Q, int N, int D,
-                                 int metric, float* __restrict__ d2pos) {
+                                 int metric, int owned, float* __restrict__ d2pos) {
   const int lane = threadIdx.x, r = lane >> 2, t = lane & 3;
   const int qi = blockIdx.x * 8 + r;
-  const bool in = qi < Q;
+  const bool in = take_positive(pos, qi, Q, N, owned);
   const int p = in ? min(max(pos[qi], 0), N - 1) : 0;
   // bf16 pairs as 32-bit words (D is a multiple of 8)
   const unsigned* a = reinterpret_cast<const unsigned*>(g + static_cast<size_t>(p) * D);
@@ -99,15 +112,17 @@ __global__ void k1_positive_bf16(const __nv_bfloat16* __restrict__ q,
 }
 
 cudaError_t launch_positive(const float* q, const float* qq, const int* pos, const float* g,
-                            const float* gg, int Q, int N, int D, int metric, float* d2pos,
-                            cudaStream_t st) {
-  k1_positive<<<(Q + 127) / 128, 128, 0, st>>>(q, qq, pos, g, gg, Q, N, D, metric, d2pos);
+                            const float* gg, int Q, int N, int D, int metric, int owned,
+                            float* d2pos, cudaStream_t st) {
+  k1_positive<<<(Q + 127) / 128, 128, 0, st>>>(q, qq, pos, g, gg, Q, N, D, metric, owned,
+                                               d2pos);
   return cudaGetLastError();
 }
 cudaError_t launch_positive(const __nv_bfloat16* q, const float* qq, const int* pos,
                             const __nv_bfloat16* g, const float* gg, int Q, int N, int D,
-                            int metric, float* d2pos, cudaStream_t st) {
-  k1_positive_bf16<<<(Q + 7) / 8, 32, 0, st>>>(q, qq, pos, g, gg, Q, N, D, metric, d2pos);
+                            int metric, int owned, float* d2pos, cudaStream_t st) {
+  k1_positive_bf16<<<(Q + 7) / 8, 32, 0, st>>>(q, qq, pos, g, gg, Q, N, D, metric, owned,
+                                               d2pos);
   return cudaGetLastError();
 }
 
@@ -140,11 +155,11 @@ k1_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
 
 template <typename T>
 int launch(const T* q, const float* qq, const int* pos, const T* g, const float* gg,
-           int Q, int N, int D, int k, int metric, int with_ranks, int splits,
+           int Q, int N, int D, int k, int metric, int with_ranks, int splits, int pos_given,
            float* d2pos, float* part_v, int* part_i, int* part_r, int* ranks,
            float* vals, int* idx, int* exact, cudaStream_t st) {
-  if (with_ranks) {
-    const cudaError_t err = launch_positive(q, qq, pos, g, gg, Q, N, D, metric, d2pos, st);
+  if (with_ranks && !pos_given) {
+    const cudaError_t err = launch_positive(q, qq, pos, g, gg, Q, N, D, metric, 0, d2pos, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const cudaError_t err = k1::sweep<T, 3, 8>(q, qq, pos, g, gg, d2pos, Q, N, D, k, metric,
@@ -173,15 +188,20 @@ extern "C" int k1_first_pass(int Q, int k, int bf16, int* tq, int* tn, int* bloc
 // Plain C entry point (loaded with ctypes). Shapes: q (Q, D), g (N, D),
 // float32 (bf16 = 0) or bf16 (bf16 = 1); qq (Q,), gg (N,) float32; pos (Q,)
 // int32; all contiguous, q and g 16-byte aligned, D a multiple of 4
-// (float32) or 8 (bf16), 1 <= k <= 128, 1 <= splits <= 1024. Scratch: d2pos
-// (Q,), part_v (Q, S, k), part_i (Q, S, k), part_r (Q, S). Outputs: ranks
-// (Q,), vals (Q, k), idx (Q, k), exact (Q,). Launches on `stream`, does not
-// synchronise, returns cudaGetLastError().
+// (float32) or 8 (bf16), 1 <= k <= 128, 1 <= splits <= 1024. d2pos (Q,):
+// scratch for the positive's distance, or with pos_given = 1 that distance
+// given (a shard of a row-sharded gallery: computed by the shard that owns
+// the positive, k1_positive_distance); pos is then the positive's column in
+// this gallery, -1 when it lies before it and N after it, and only
+// compared. Scratch: part_v (Q, S, k), part_i (Q, S, k), part_r (Q, S).
+// Outputs: ranks (Q,), vals (Q, k), idx (Q, k), exact (Q,). Launches on
+// `stream`, does not synchronise, returns cudaGetLastError().
 extern "C" int k1_fused_retrieval(
     const void* q, const float* qq, const int* pos, const void* g,
     const float* gg, int Q, int N, int D, int k, int metric, int with_ranks,
-    int bf16, int splits, float* d2pos, float* part_v, int* part_i,
-    int* part_r, int* ranks, float* vals, int* idx, int* exact, void* stream) {
+    int bf16, int splits, int pos_given, float* d2pos, float* part_v,
+    int* part_i, int* part_r, int* ranks, float* vals, int* idx, int* exact,
+    void* stream) {
   const int vec = bf16 ? 8 : 4;
   if (Q < 1 || N < 1 || D < vec || D % vec || k < 1 || k > K_MAX || splits < 1 ||
       splits > MERGE_HEADS * MERGE_THREADS)
@@ -190,8 +210,29 @@ extern "C" int k1_fused_retrieval(
   if (bf16)
     return launch(static_cast<const __nv_bfloat16*>(q), qq, pos,
                   static_cast<const __nv_bfloat16*>(g), gg, Q, N, D, k, metric, with_ranks,
-                  splits, d2pos, part_v, part_i, part_r, ranks, vals, idx, exact, st);
+                  splits, pos_given, d2pos, part_v, part_i, part_r, ranks, vals, idx, exact,
+                  st);
   return launch(static_cast<const float*>(q), qq, pos, static_cast<const float*>(g), gg, Q,
-                N, D, k, metric, with_ranks, splits, d2pos, part_v, part_i, part_r, ranks,
-                vals, idx, exact, st);
+                N, D, k, metric, with_ranks, splits, pos_given, d2pos, part_v, part_i, part_r,
+                ranks, vals, idx, exact, st);
+}
+
+// The positive's distance alone, as k1_fused_retrieval computes it before
+// its sweep, for the queries whose positive pos[qi] lies in this gallery
+// (0 <= pos < N); d2pos of the other queries is left as it was. Shapes and
+// forms as k1_fused_retrieval's. Launches on `stream`, does not
+// synchronise, returns cudaGetLastError().
+extern "C" int k1_positive_distance(const void* q, const float* qq, const int* pos,
+                                    const void* g, const float* gg, int Q, int N, int D,
+                                    int metric, int bf16, float* d2pos, void* stream) {
+  const int vec = bf16 ? 8 : 4;
+  if (Q < 1 || N < 1 || D < vec || D % vec) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bf16 ? launch_positive(static_cast<const __nv_bfloat16*>(q), qq, pos,
+                             static_cast<const __nv_bfloat16*>(g), gg, Q, N, D, metric, 1,
+                             d2pos, st)
+           : launch_positive(static_cast<const float*>(q), qq, pos,
+                             static_cast<const float*>(g), gg, Q, N, D, metric, 1, d2pos,
+                             st));
 }

@@ -17,7 +17,8 @@ Counterpart of ``art_sbir_tpu/ops/quant.py``, with its contract:
 
 The candidate scan runs through :mod:`art_sbir_tpu_torch.ops.quant_fused`:
 its plain version inside :func:`retrieve_quantized`, and K2 (CUDA) on the
-card inside :func:`retrieve_quantized_fused`.
+card inside :func:`retrieve_quantized_fused` and, on each shard of a
+row-sharded gallery, :func:`retrieve_quantized_sharded`.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import torch
 
 from art_sbir_tpu_torch.ops import quant_fused
 from art_sbir_tpu_torch.ops.distance import cosine_distance, euclidean_distance
+from art_sbir_tpu_torch.ops.sharded import gather_to, lexsort_topk_merge
+from art_sbir_tpu_torch.parallel.mesh import shard_rows
 
 _METRICS = ("euclidean", "cosine")
 # The streamed route's largest candidate budget: the JAX package's, whose
@@ -192,10 +195,104 @@ def retrieve_quantized_fused(queries: torch.Tensor, qg: QuantGallery,
     return vals, idx
 
 
-def retrieve_quantized_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "the sharded int8 route (gallery rows over several cards) is still "
-        "to port (ROADMAP.md)")
+def shard_quant_gallery(qg, gallery_f32, mesh):
+    """(QuantGallery shards, rerank-row shards), shard ``i`` on
+    ``mesh.devices[i]``: contiguous ``N / S`` rows of a whole
+    :class:`QuantGallery` and its rerank rows, or sequences of S shards
+    already placed (returned as lists)."""
+    if isinstance(qg, QuantGallery):
+        qg = [QuantGallery(*parts, qg.metric) for parts in zip(
+            shard_rows(qg.q8, mesh), shard_rows(qg.scale, mesh),
+            shard_rows(qg.sq_norm, mesh))]
+    if isinstance(gallery_f32, torch.Tensor):
+        gallery_f32 = shard_rows(gallery_f32, mesh)
+    qg, gallery_f32 = list(qg), list(gallery_f32)
+    if len(qg) != mesh.size or len(gallery_f32) != mesh.size:
+        raise ValueError(f"want {mesh.size} shards, got {len(qg)} int8 and "
+                         f"{len(gallery_f32)} rerank shards")
+    return qg, gallery_f32
+
+
+def retrieve_quantized_sharded(queries: torch.Tensor, qg, gallery_f32, mesh,
+                               k: int = 10, rerank_factor: int = 4,
+                               use_kernel: bool | None = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(top-k values, int32 global indices) on ``mesh.devices[0]``: the
+    int8 route over a row-sharded gallery. ``qg`` and ``gallery_f32`` as
+    :func:`shard_quant_gallery` takes them.
+
+    The queries are quantized once. Each shard scans ITS rows for its own
+    top-``r``, ``r = min(max(rerank_factor * k, k), N / S)``, on its own
+    device: K2 where ``use_kernel`` (default: where
+    :func:`~art_sbir_tpu_torch.ops.quant_fused.kernel_takes` the shard's
+    device, ``r`` and D), else the plain int8 scan; then it reranks those
+    candidates exactly on its own rows. The (Q, k) partials, with global
+    indices, merge by (value, index) on the first device
+    (:func:`~art_sbir_tpu_torch.ops.sharded.lexsort_topk_merge`).
+
+    Contract: "per-shard top-r + local exact rerank + merge", a superset
+    of the single-device candidate set (each global top-r candidate is in
+    its shard's top-r), so it equals :func:`retrieve_quantized` on
+    separated data and may differ (for the better) elsewhere. Rows whose
+    K2 certificate failed are recomputed with ``use_kernel=False``, padded
+    to a power of two, and counted in ``quant_fused.counters``."""
+    sizes = ([int(qg.q8.shape[0])] if isinstance(qg, QuantGallery)
+             else [int(s.q8.shape[0]) for s in qg])
+    n = sum(sizes)
+    nl = n // mesh.size
+    if n % mesh.size or (len(sizes) > 1 and set(sizes) != {nl}):
+        raise ValueError(
+            f"gallery rows ({n}) must be divisible by the "
+            f"'{mesh.axis_name}' mesh axis ({mesh.size}); pad the gallery "
+            "(parallel.mesh.pad_to_multiple)")
+    if k > nl:
+        raise ValueError(
+            f"k={k} exceeds the per-shard gallery size {nl}; shrink the "
+            "mesh axis or pad the gallery")
+    qg, gallery_f32 = shard_quant_gallery(qg, gallery_f32, mesh)
+    r = min(max(rerank_factor * k, k), nl)
+    metric = qg[0].metric
+    dev0 = mesh.devices[0]
+    kernel = [quant_fused.kernel_takes(d, r, int(s.q8.shape[1]))
+              if use_kernel is None else bool(use_kernel)
+              for d, s in zip(mesh.devices, qg)]
+    with torch.no_grad():
+        qf = queries.to(dev0).float()
+        q8, s_q = _quantize_queries(qf, metric)
+        # the queries reach every card before any shard's kernel is queued
+        # (a copy between cards runs behind the source card's queued work)
+        sent = [(q8.to(d), s_q.to(d), qf.to(d)) for d in mesh.devices]
+        vals, idx, cert = [], [], []
+        for i, (s, rows, (q8_d, s_q_d, qf_d)) in enumerate(
+                zip(qg, gallery_f32, sent)):
+            scan = (quant_fused.quant_candidates_fused if kernel[i]
+                    else quant_fused.quant_candidates_reference)
+            _, cand, c = scan(q8_d, s_q_d, s.q8, s.scale, s.sq_norm, r=r,
+                              metric=metric)
+            cand = torch.sort(cand, dim=1).values
+            v, il = _rerank(qf_d, cand, rows, metric, k)
+            vals.append(v)
+            idx.append(il + i * nl)
+            cert.append(c)
+        vals, idx = lexsort_topk_merge(gather_to(vals, dev0),
+                                       gather_to(idx, dev0), k)
+        cert_h = gather_to(cert, dev0).amin(0).cpu().numpy()
+    if cert_h.all() or not any(kernel):
+        return vals, idx
+    bad = np.nonzero(cert_h == 0)[0]
+    nbad = len(bad)
+    quant_fused.counters.add(fallback_rows=nbad)
+    pad = 1 << (nbad - 1).bit_length() if nbad > 1 else 1
+    pad = min(pad, qf.shape[0])
+    sel = torch.as_tensor(np.pad(bad, (0, pad - nbad), mode="edge"),
+                          device=dev0)
+    vb, ib = retrieve_quantized_sharded(
+        qf[sel], qg, gallery_f32, mesh, k=k, rerank_factor=rerank_factor,
+        use_kernel=False)
+    bad_t = torch.as_tensor(bad, device=dev0)
+    vals[bad_t] = vb[:nbad]
+    idx[bad_t] = ib[:nbad]
+    return vals, idx
 
 
 def topk_overlap(idx_a, idx_b) -> float:

@@ -1,8 +1,9 @@
 """K1: fused pairwise distance + rank-of-positive + top-k over the gallery.
 
-Counterpart of ``art_sbir_tpu/ops/retrieval_pallas.py`` (the single-device
-forms of ``_kernel``: float32 operands under ``precision='highest'``, the
-bf16 gallery stream under ``'default'``). The kernel is hand-written CUDA
+Counterpart of ``art_sbir_tpu/ops/retrieval_pallas.py`` (the forms of
+``_kernel``: float32 operands under ``precision='highest'``, the bf16
+gallery stream under ``'default'``, each on one device or over a
+row-sharded gallery, :func:`retrieve_fused_sharded`). The kernel is hand-written CUDA
 for Hopper, ``csrc/fused_retrieval.cu``; its note says what bounds it and
 how it is built. It is compiled with ``nvcc`` at first use into
 ``art_sbir_tpu_torch/_build/`` and loaded with ``ctypes``.
@@ -60,6 +61,8 @@ from art_sbir_tpu_torch.core.cuda_build import (CudaKernel, LaunchCounters,
                                                 grid_splits)
 from art_sbir_tpu_torch.ops.distance import (COSINE_EPS, PAIRWISE_EPS,
                                              _cross, retrieve_chunked)
+from art_sbir_tpu_torch.ops.sharded import gather_to, lexsort_topk_merge
+from art_sbir_tpu_torch.parallel.mesh import shard_rows
 
 BIG = 3.0e38  # sentinel value: worse than any distance
 K_MAX = 128
@@ -70,9 +73,12 @@ _VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte load
 
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("fused_retrieval", "k1_fused_retrieval",
-                    [_ptr] * 5 + [_i32] * 8 + [_ptr] * 8 + [_ptr], label="K1")
+                    [_ptr] * 5 + [_i32] * 9 + [_ptr] * 8 + [_ptr], label="K1")
+# the standalone launch of K1's positive-distance kernels (sharded K1)
+POSITIVE_ARGTYPES = [_ptr] * 5 + [_i32] * 5 + [_ptr] * 2
 counters = LaunchCounters()  # the float32 form
 bf16_counters = LaunchCounters()  # the bf16 form
+positive_counters = LaunchCounters()  # k1_positive_distance, both forms
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,21 +96,28 @@ def form_counters(dtype: torch.dtype) -> LaunchCounters:
 
 # ------------------------------------------------------------- the sweep
 
-def fused_sweep_reference(q, qq, pos, g, gg, *, k: int, metric: str,
-                          with_ranks: bool):
-    """Plain PyTorch version of the sweep (the CPU route, and the card's
-    yardstick for the kernel). Inputs as :func:`fused_sweep_cuda`;
-    returns (ranks (Q,), vals (Q, k), idx (Q, k), exact (Q,))."""
+def _distances(q, qq, g, gg, metric):
+    """(Q, N) distances of the plain version, in the sweep's formula."""
     cross = _cross(q, g, "default" if g.dtype == torch.bfloat16
                    else "highest")
     if metric == "euclidean":
-        d = torch.clamp(qq + gg - 2.0 * cross, min=0.0)
-    else:
-        d = 1.0 - cross / torch.clamp(qq * gg, min=COSINE_EPS)
+        return torch.clamp(qq + gg - 2.0 * cross, min=0.0)
+    return 1.0 - cross / torch.clamp(qq * gg, min=COSINE_EPS)
+
+
+def fused_sweep_reference(q, qq, pos, g, gg, *, k: int, metric: str,
+                          with_ranks: bool, d2pos=None):
+    """Plain PyTorch version of the sweep (the CPU route, and the card's
+    yardstick for the kernel). Inputs as :func:`fused_sweep_cuda`;
+    returns (ranks (Q,), vals (Q, k), idx (Q, k), exact (Q,))."""
+    d = _distances(q, qq, g, gg, metric)
     nq, n = d.shape
     if with_ranks:
         col = torch.arange(n, device=d.device)[None, :]
-        d2pos = torch.gather(d, 1, torch.clamp(pos.long(), 0, n - 1))
+        if d2pos is None:
+            d2pos = torch.gather(d, 1, torch.clamp(pos.long(), 0, n - 1))
+        else:
+            d2pos = d2pos.reshape(nq, 1)
         hit = (d < d2pos) | ((d == d2pos) & (col < pos))
         hit = hit & (d < BIG) & (col != pos)
         ranks = torch.sum(hit, dim=1).to(torch.int32)
@@ -118,23 +131,19 @@ def fused_sweep_reference(q, qq, pos, g, gg, *, k: int, metric: str,
     return ranks, vals, idx, torch.ones(nq, dtype=torch.int32, device=d.device)
 
 
-def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
-                     with_ranks: bool):
-    """Launch K1 on the card. ``q`` (Q, D) and ``g`` (N, D) both float32
-    (the ``'highest'`` form) or both bf16 (the ``'default'`` form), ``qq``
-    (Q, 1) float32, ``pos`` (Q, 1) int32, ``gg`` (1, N) float32; all
-    contiguous on one CUDA device, q and g 16-byte aligned, D a multiple
-    of 4 (float32) or 8 (bf16)."""
+def _check_inputs(q, qq, pos, g, gg, d2pos=None):
+    """K1's input contract (see :func:`fused_sweep_cuda`)."""
     dev = g.device
     nq, d = q.shape
     n = g.shape[0]
     op, f32, i32 = g.dtype, torch.float32, torch.int32
     if op not in _VEC:
         raise ValueError(f"K1 takes float32 or bf16 operands, got {op}")
+    given = () if d2pos is None else (("d2pos", d2pos, f32, (nq,)),)
     for name, t, dtype, shape in (
             ("q", q, op, (nq, d)), ("qq", qq, f32, (nq, 1)),
             ("pos", pos, i32, (nq, 1)),
-            ("g", g, op, (n, d)), ("gg", gg, f32, (1, n))):
+            ("g", g, op, (n, d)), ("gg", gg, f32, (1, n))) + given:
         if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(
@@ -144,6 +153,23 @@ def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
     if d % vec or q.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError(f"K1 reads 16-byte rows of {op}: D={d} must be a "
                          f"multiple of {vec} and q, g 16-byte aligned")
+
+
+def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
+                     with_ranks: bool, d2pos=None):
+    """Launch K1 on the card. ``q`` (Q, D) and ``g`` (N, D) both float32
+    (the ``'highest'`` form) or both bf16 (the ``'default'`` form), ``qq``
+    (Q, 1) float32, ``pos`` (Q, 1) int32, ``gg`` (1, N) float32; all
+    contiguous on one CUDA device, q and g 16-byte aligned, D a multiple
+    of 4 (float32) or 8 (bf16). ``d2pos`` (Q,) float32: the positive's
+    distance given (a shard of a row-sharded gallery, whose ``pos`` is
+    then the positive's local column, -1 before the shard, N after it),
+    else K1 computes it from ``pos`` before its sweep."""
+    _check_inputs(q, qq, pos, g, gg, d2pos)
+    dev = g.device
+    nq, d = q.shape
+    n = g.shape[0]
+    op, f32, i32 = g.dtype, torch.float32, torch.int32
     if not 1 <= k <= K_MAX:
         raise ValueError(f"K1 takes 1 <= k <= {K_MAX}, got {k}")
     ranks = torch.empty(nq, dtype=i32, device=dev)
@@ -154,7 +180,9 @@ def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
         return ranks, vals, idx, exact
     tq, tn, per_sm = first_pass(nq, k, op == torch.bfloat16, dev.index)
     s = grid_splits(-(-nq // tq), -(-n // tn), dev, per_sm=per_sm)
-    d2pos = torch.empty(nq, dtype=f32, device=dev)
+    given = d2pos is not None
+    if not given:
+        d2pos = torch.empty(nq, dtype=f32, device=dev)
     part_v = torch.empty((nq, s, k), dtype=f32, device=dev)
     part_i = torch.empty((nq, s, k), dtype=i32, device=dev)
     part_r = torch.empty((nq, s), dtype=i32, device=dev)
@@ -163,7 +191,8 @@ def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
         KERNEL.launch(q.data_ptr(), qq.data_ptr(), pos.data_ptr(),
                       g.data_ptr(), gg.data_ptr(), nq, n, d, k,
                       _METRICS[metric], int(with_ranks),
-                      int(op == torch.bfloat16), s, d2pos.data_ptr(),
+                      int(op == torch.bfloat16), s, int(given),
+                      d2pos.data_ptr(),
                       part_v.data_ptr(), part_i.data_ptr(), part_r.data_ptr(),
                       ranks.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                       exact.data_ptr(), stream)
@@ -172,14 +201,60 @@ def fused_sweep_cuda(q, qq, pos, g, gg, *, k: int, metric: str,
 
 
 def fused_sweep(q, qq, pos, g, gg, *, k: int, metric: str,
-                with_ranks: bool):
+                with_ranks: bool, d2pos=None):
     """The plain version for CPU tensors, the CUDA kernel for CUDA ones."""
     if g.device.type == "cpu":
         return fused_sweep_reference(q, qq, pos, g, gg, k=k, metric=metric,
-                                     with_ranks=with_ranks)
+                                     with_ranks=with_ranks, d2pos=d2pos)
     if g.device.type == "cuda":
         return fused_sweep_cuda(q, qq, pos, g, gg, k=k, metric=metric,
-                                with_ranks=with_ranks)
+                                with_ranks=with_ranks, d2pos=d2pos)
+    raise ValueError(f"K1 has no route for device {g.device}")
+
+
+# ----------------------------------------------- the positive's distance
+
+def positive_distance_reference(q, qq, pos, g, gg, *, metric: str, out):
+    """Plain version of :func:`positive_distance_cuda`: the positive's
+    column of the plain sweep's distances, written into ``out`` (Q,) for
+    the queries whose ``pos`` lies in ``[0, N)``."""
+    n = g.shape[0]
+    p = pos.reshape(-1).long()
+    own = (p >= 0) & (p < n)
+    d = torch.gather(_distances(q, qq, g, gg, metric), 1,
+                     torch.clamp(p, 0, n - 1)[:, None])[:, 0]
+    out.copy_(torch.where(own, d, out))
+    return out
+
+
+def positive_distance_cuda(q, qq, pos, g, gg, *, metric: str, out):
+    """Launch K1's positive-distance kernel alone on the card (the one
+    K1 runs before its sweep, same arithmetic): ``out[i]`` becomes query
+    ``i``'s distance to its positive ``pos[i]`` where ``0 <= pos[i] < N``
+    and is left as it was elsewhere. Inputs as :func:`fused_sweep_cuda`'s;
+    ``out`` (Q,) float32 on the same card."""
+    _check_inputs(q, qq, pos, g, gg, out)
+    nq, d = q.shape
+    if nq == 0:
+        return out
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        KERNEL.call("k1_positive_distance", POSITIVE_ARGTYPES, q.data_ptr(),
+                    qq.data_ptr(), pos.data_ptr(), g.data_ptr(),
+                    gg.data_ptr(), nq, g.shape[0], d, _METRICS[metric],
+                    int(g.dtype == torch.bfloat16), out.data_ptr(), stream)
+    positive_counters.add(launches=1)
+    return out
+
+
+def positive_distance(q, qq, pos, g, gg, *, metric: str, out):
+    """The plain version for CPU tensors, the CUDA kernel for CUDA ones."""
+    if g.device.type == "cpu":
+        return positive_distance_reference(q, qq, pos, g, gg, metric=metric,
+                                           out=out)
+    if g.device.type == "cuda":
+        return positive_distance_cuda(q, qq, pos, g, gg, metric=metric,
+                                      out=out)
     raise ValueError(f"K1 has no route for device {g.device}")
 
 
@@ -297,9 +372,20 @@ def retrieve_fused(queries: torch.Tensor, gallery: torch.Tensor,
     ``device_get=True`` returns numpy arrays. ``gg`` as in
     :func:`retrieve_fused_core`.
     """
-    ranks, vals, idx, exact = retrieve_fused_core(
-        queries, gallery, pos_idx, k=k, precision=precision, metric=metric,
-        with_ranks=with_ranks, gg=gg)
+    return _certified(
+        retrieve_fused_core(queries, gallery, pos_idx, k=k,
+                            precision=precision, metric=metric,
+                            with_ranks=with_ranks, gg=gg),
+        queries, lambda: gallery, pos_idx, k=k, precision=precision,
+        metric=metric, with_ranks=with_ranks, device_get=device_get)
+
+
+def _certified(swept, queries, whole_gallery, pos_idx, *, k, precision,
+               metric, with_ranks, device_get):
+    """(ranks, vals, idx) from a sweep's (ranks, vals, idx, exact): rows
+    whose certificate failed are recomputed with :func:`retrieve_chunked`
+    over ``whole_gallery()`` and counted in the form's ``fallback_rows``."""
+    ranks, vals, idx, exact = swept
     if device_get:
         ranks, vals, idx, exact_h = (t.cpu().numpy()
                                      for t in (ranks, vals, idx, exact))
@@ -312,7 +398,7 @@ def retrieve_fused(queries: torch.Tensor, gallery: torch.Tensor,
     bad_t = torch.as_tensor(bad, device=queries.device)
     with torch.no_grad():
         rb, vb, ib = retrieve_chunked(
-            queries[bad_t], gallery, pos_idx[bad_t], k=k,
+            queries[bad_t], whole_gallery(), pos_idx[bad_t], k=k,
             precision=precision, metric=metric,
             chunk=min(256, max(1, len(bad))))
     if metric == "euclidean":  # the exact route reports sqrt'd distances
@@ -330,7 +416,158 @@ def retrieve_fused(queries: torch.Tensor, gallery: torch.Tensor,
     return ranks, vals, idx
 
 
-def retrieve_fused_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "the sharded form of K1 (gallery rows over several cards) is still "
-        "to port (ROADMAP.md)")
+# ------------------------------------------------ the row-sharded gallery
+
+def _shard_sizes(gallery, mesh) -> Tuple[int, int]:
+    """(N, rows a shard) of a gallery given whole or as one shard a mesh
+    device."""
+    if isinstance(gallery, torch.Tensor):
+        n = int(gallery.shape[0])
+    else:
+        n = sum(int(g.shape[0]) for g in gallery)
+    return n, n // max(mesh.size, 1)
+
+
+def shard_gallery(gallery, mesh, gg=None, metric: str = "euclidean"):
+    """(gallery shards, norm shards): shard ``i`` on ``mesh.devices[i]``.
+
+    ``gallery``: the (N, D) tensor, cut into contiguous ``N / S`` rows, or
+    a sequence of S (N / S, D) shards already placed. ``gg``: the (1, N)
+    :func:`gallery_norms`, a sequence of S (1, N / S) ones, or None. Absent
+    norms are computed from the whole tensor where the gallery is given
+    whole (so that they are the unsharded sweep's), else on each shard's
+    device."""
+    n, nl = _shard_sizes(gallery, mesh)
+    if isinstance(gallery, torch.Tensor):
+        if n % mesh.size:
+            raise ValueError(
+                f"gallery rows ({n}) must be divisible by the "
+                f"'{mesh.axis_name}' mesh axis ({mesh.size}); pad the "
+                "gallery (see parallel.mesh.pad_to_multiple)")
+        if gg is None:
+            gg = gallery_norms(gallery, metric)
+        shards = shard_rows(gallery, mesh)
+    else:
+        shards = list(gallery)
+        if (len(shards) != mesh.size
+                or any(g.shape[0] != nl for g in shards)):
+            raise ValueError(
+                f"want {mesh.size} gallery shards of {nl} rows, got "
+                f"{[int(g.shape[0]) for g in shards]}")
+    if gg is None:
+        gg = [gallery_norms(g, metric) for g in shards]
+    elif isinstance(gg, torch.Tensor):
+        gg = [gg[:, i * nl:(i + 1) * nl].to(d)
+              for i, d in enumerate(mesh.devices)]
+    return shards, list(gg)
+
+
+def retrieve_fused_sharded_core(queries: torch.Tensor, gallery, pos_idx,
+                                mesh, k: int = 10,
+                                precision: str = "highest",
+                                metric: str = "euclidean",
+                                with_ranks: bool = True, gg=None,
+                                reference: bool = False
+                                ) -> Tuple[torch.Tensor, ...]:
+    """K1 over a row-sharded gallery: (ranks, vals, idx, exact) on
+    ``mesh.devices[0]``, as :func:`retrieve_fused_core` gives them over
+    the whole gallery. ``gallery`` and ``gg`` as :func:`shard_gallery`
+    takes them. ``reference=True`` runs the plain versions of the shards'
+    kernels on whatever device (the card's yardstick for the kernels).
+
+    The queries' norms are computed once. The positive's distance is
+    computed by the shard that owns the positive, with that shard's norms
+    (:func:`positive_distance`), and given to every shard, so that a copy
+    of the positive in another shard ties with it exactly. Each shard
+    sweeps its rows on its own device with the positive's local column
+    clipped to ``[-1, N / S]``: -1 (the positive lies before the shard)
+    counts strictly closer columns only, N / S (after it) counts the ties
+    too, so the rank partials sum to the global rank. Indices become
+    global, an unfilled slot's sentinel N / S becomes N, and the (Q, k)
+    partials merge by (value, global index)
+    (:func:`~art_sbir_tpu_torch.ops.sharded.lexsort_topk_merge`); the
+    certificates are ANDed."""
+    _check_precision(precision)
+    _check_metric(metric)
+    n, nl = _shard_sizes(gallery, mesh)
+    # each shard's top-k holds only its own rows: k is bounded by them
+    if k > nl:
+        raise ValueError(
+            f"k={k} exceeds the per-shard gallery size {nl} "
+            f"({n} rows over {mesh.size} devices): unfilled per-shard "
+            "top-k slots would hold the sentinel and fail every row's "
+            "exactness certificate. Clamp k to the shard size "
+            "(evaluate_retrieval clamps to the global size; shrink the "
+            "mesh axis or pad the gallery for larger k).")
+    if k > K_MAX:
+        raise ValueError(f"k must be <= {K_MAX}, got {k}")
+    shards, gg_shards = shard_gallery(gallery, mesh, gg, metric)
+    dev0, op = mesh.devices[0], _OPERANDS[precision]
+    sweep, positive = ((fused_sweep_reference, positive_distance_reference)
+                       if reference else (fused_sweep, positive_distance))
+    with torch.no_grad():
+        q0 = queries.to(dev0)
+        qq = query_norms(q0, metric)
+        q_op = q0.to(op).contiguous()
+        pos = pos_idx.to(dev0, torch.int32).reshape(-1, 1)
+        # Each shard's inputs reach its device before any shard's kernel is
+        # queued: a copy between cards runs on the source card's stream,
+        # behind whatever that card was given before it, so a copy queued
+        # after the first shard's sweep would hold every other shard back.
+        offs = [i * nl for i in range(mesh.size)]
+        on = [(d, q_op.to(d), qq.to(d), g.to(op).contiguous(), gs)
+              for d, g, gs in zip(mesh.devices, shards, gg_shards)]
+        d2pos = [None] * mesh.size
+        if with_ranks:  # from the owner of each (clamped) positive
+            owner = torch.clamp(pos, 0, n - 1)
+            owned = [(owner - o).to(d) for o, d in zip(offs, mesh.devices)]
+            parts = [positive(
+                q, qq_d, own, g, gs, metric=metric,
+                out=torch.zeros(q.shape[0], dtype=torch.float32, device=d))
+                for (d, q, qq_d, g, gs), own in zip(on, owned)]
+            # one shard wrote each query's distance, the others left 0
+            d2pos = gather_to(parts, dev0).sum(0)
+            d2pos = [d2pos.to(d) for d in mesh.devices]
+        # the positive's local column (K1 reads it for ranks only)
+        pos_local = [(torch.clamp(pos - o, -1, nl) if with_ranks
+                      else pos).to(d) for o, d in zip(offs, mesh.devices)]
+        outs = [sweep(q, qq_d, p, g, gs, k=k, metric=metric,
+                      with_ranks=with_ranks, d2pos=dp)
+                for (d, q, qq_d, g, gs), p, dp in zip(on, pos_local, d2pos)]
+        if with_ranks:
+            ranks = gather_to([o[0] for o in outs], dev0).sum(
+                0, dtype=torch.int32)
+        else:
+            ranks = outs[0][0].to(dev0)  # zeros
+        # global indices; an unfilled slot's sentinel nl becomes n
+        idx = gather_to([o[2] for o in outs], dev0)
+        off = torch.arange(0, n, nl, dtype=idx.dtype, device=dev0)
+        idx = torch.where(idx >= nl, n, idx + off[:, None, None])
+        vals, idx = lexsort_topk_merge(gather_to([o[1] for o in outs], dev0),
+                                       idx, k)
+        exact = gather_to([o[3] for o in outs], dev0).amin(0)
+    return ranks, vals, idx, exact
+
+
+def retrieve_fused_sharded(queries: torch.Tensor, gallery, pos_idx, mesh,
+                           k: int = 10, precision: str = "highest",
+                           metric: str = "euclidean", with_ranks: bool = True,
+                           device_get: bool = False, gg=None):
+    """(ranks, topk_values, topk_indices) over a row-sharded gallery
+    (:func:`retrieve_fused_sharded_core`), with :func:`retrieve_fused`'s
+    value contract and certificate fallback (the flagged rows recomputed
+    over the whole gallery, brought to ``mesh.devices[0]``)."""
+    dev0 = mesh.devices[0]
+    queries, pos_idx = queries.to(dev0), pos_idx.to(dev0)
+
+    def whole():
+        if isinstance(gallery, torch.Tensor):
+            return gallery.to(dev0)
+        return torch.cat([g.to(dev0) for g in gallery])
+
+    return _certified(
+        retrieve_fused_sharded_core(queries, gallery, pos_idx, mesh, k=k,
+                                    precision=precision, metric=metric,
+                                    with_ranks=with_ranks, gg=gg),
+        queries, whole, pos_idx, k=k, precision=precision, metric=metric,
+        with_ranks=with_ranks, device_get=device_get)

@@ -1,0 +1,133 @@
+"""Device meshes for the row-sharded gallery and the sharded embedding.
+
+Counterpart of ``art_sbir_tpu/parallel/mesh.py`` for its data axis. The
+port's multi-device model is JAX's single controller: one process holds
+an ordered list of devices, shard ``i`` of a gallery lives on
+``mesh.devices[i]``, each shard's kernel runs on its own device's current
+stream, and the (Q, k) partials are brought to ``mesh.devices[0]`` and
+merged there (:mod:`art_sbir_tpu_torch.ops.sharded`). No process group
+is needed.
+
+A mesh may name one device several times: ``[cpu] * 8`` on the CPU, or
+``[cuda:0] * 4`` on one card, run that many shards on the one device,
+as the JAX package's tests run 8 virtual CPU devices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from art_sbir_tpu_torch.core.device import resolve_device
+
+DATA_AXIS = "data"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """An ordered tuple of devices along one named axis."""
+
+    devices: Tuple[torch.device, ...]
+    axis_name: str = DATA_AXIS
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def distinct_devices(self) -> List[torch.device]:
+        """Each device once, in mesh order."""
+        return list(dict.fromkeys(self.devices))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """``data`` shards along ``axis_name``."""
+
+    data: int = 1
+    axis_name: str = DATA_AXIS
+
+    def build(self, devices: Optional[Sequence] = None) -> Mesh:
+        """A mesh over the first ``data`` of ``devices`` (default: every
+        card). A list may repeat a device."""
+        devices = list(cuda_devices() if devices is None else devices)
+        if self.data > len(devices):
+            raise ValueError(f"MeshSpec wants {self.data} devices, only "
+                             f"{len(devices)} present")
+        return Mesh(tuple(_indexed(d) for d in devices[:self.data]),
+                    self.axis_name)
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index (``cuda`` -> ``cuda:<current>``), as a
+    tensor on it reports its device."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def cuda_devices() -> List[torch.device]:
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def data_mesh(n_devices: Optional[int] = None, axis_name: str = DATA_AXIS,
+              device: str | torch.device | None = None) -> Mesh:
+    """A 1-D mesh over the first ``n_devices`` cards (``None`` or -1: all
+    of them). With ``device='cpu'``, ``n_devices`` shards on the CPU (-1:
+    one, the CPU being one device)."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        n = 1 if n_devices is None or n_devices < 0 else n_devices
+        return MeshSpec(n, axis_name).build([dev] * n)
+    devices = cuda_devices()
+    n = len(devices) if n_devices is None or n_devices < 0 else n_devices
+    return MeshSpec(n, axis_name).build(devices)
+
+
+def mesh_from_args(n_devices: int, tp_devices: int = 1,
+                   multihost: bool = False,
+                   device: str | torch.device | None = None
+                   ) -> Optional[Mesh]:
+    """The CLIs' mesh: ``None`` for ``n_devices`` 1 (or 0), else
+    :func:`data_mesh` (-1: every card). The data axis only. Exits with
+    :func:`data_mesh`'s message where fewer cards are present."""
+    if tp_devices > 1 or multihost:
+        raise SystemExit(
+            "tensor parallelism and several hosts are still to port "
+            "(ROADMAP.md queue 1 item 8); use --n_devices alone")
+    if n_devices > 1 or n_devices < 0:
+        try:
+            mesh = data_mesh(n_devices, device=device)
+        except ValueError as e:
+            raise SystemExit(f"--n_devices {n_devices}: {e}") from None
+        print(f"data mesh: {mesh.size} devices", flush=True)
+        return mesh
+    return None
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    """Smallest multiple of ``m`` that is >= ``n``."""
+    return ((n + m - 1) // m) * m
+
+
+def shard_rows(t: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
+    """Shard ``i`` of ``t``'s rows, the contiguous ``N / S`` rows from
+    ``i * N / S``, on ``mesh.devices[i]`` (a view where ``t`` lies there
+    already)."""
+    n, s = t.shape[0], mesh.size
+    if n % s:
+        raise ValueError(
+            f"rows ({n}) must be divisible by the '{mesh.axis_name}' mesh "
+            f"axis ({s}); pad them (see parallel.mesh.pad_to_multiple)")
+    nl = n // s
+    return [t[i * nl:(i + 1) * nl].to(d) for i, d in enumerate(mesh.devices)]
+
+
+def split_batch(x: torch.Tensor, devices: Sequence[torch.device]
+                ) -> List[torch.Tensor]:
+    """The batch ``x`` cut into at most ``len(devices)`` contiguous parts
+    of nearly equal size (none empty), part ``i`` on ``devices[i]``."""
+    parts = torch.tensor_split(x, min(len(devices), max(x.shape[0], 1)))
+    return [p.to(d) for p, d in zip(parts, devices) if p.shape[0]]

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from art_sbir_tpu_torch.core.device import resolve_device
+from art_sbir_tpu_torch.parallel.mesh import split_batch
 
 
 def embed_batched(apply_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -26,7 +27,7 @@ def embed_batched(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                   n_images: Optional[int] = None, batch_size: int = 256,
                   device: str | torch.device | None = None,
                   feature_dim: Optional[int] = None,
-                  return_device: bool = False):
+                  return_device: bool = False, mesh=None):
     """Embed ``n_images`` in fixed-shape batches on ``device``.
 
     ``images`` is an (N, H, W, C) array or a loader ``(start, count) ->
@@ -35,8 +36,16 @@ def embed_batched(apply_fn: Callable[[torch.Tensor], torch.Tensor],
     Host decode of batch i+1 overlaps the device work of batch i; the
     outputs stay on the device until one transfer at the end. Returns
     (N, D) float32 numpy, or the device tensor with ``return_device``.
+
+    ``mesh`` (:class:`~art_sbir_tpu_torch.parallel.mesh.Mesh`): each
+    batch is split over the mesh's distinct devices (:func:`~art_sbir_tpu_
+    torch.parallel.mesh.split_batch`; a device that the mesh names several
+    times, as the shards of one card, takes one part, which splitting
+    would only cut into smaller launches), ``apply_fn`` gets each part on
+    its own device (it picks its replica by the part's device), and the
+    outputs come back to ``mesh.devices[0]``, which replaces ``device``.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     if not callable(images):
         arr = images
         n_images = arr.shape[0]
@@ -61,10 +70,16 @@ def embed_batched(apply_fn: Callable[[torch.Tensor], torch.Tensor],
             host = future.result()
             if i + 1 < len(starts):
                 future = pool.submit(fetch, starts[i + 1])
-            out = apply_fn(torch.from_numpy(host).to(dev))
-            if isinstance(out, (tuple, list)):  # classification models
-                out = out[0]
-            feats.append(out.float())
+            x = torch.from_numpy(host)
+            parts = ([x.to(dev)] if mesh is None
+                     else split_batch(x, mesh.distinct_devices()))
+            outs = []
+            for part in parts:
+                out = apply_fn(part)
+                if isinstance(out, (tuple, list)):  # classification models
+                    out = out[0]
+                outs.append(out.float().to(dev))
+            feats.append(outs[0] if len(outs) == 1 else torch.cat(outs))
     if not feats:
         out = torch.zeros((0, feature_dim or 0), device=dev)
     else:

@@ -70,12 +70,14 @@ def embed_test_gallery(forward_fn: Callable, dataset, image_size: int = 224,
                        resize_mode: Optional[str] = None,
                        batch_size: int = 256,
                        device: str | torch.device | None = None,
-                       loaders: Optional[List[GalleryLoader]] = None
-                       ) -> Tuple[List[str], torch.Tensor]:
+                       loaders: Optional[List[GalleryLoader]] = None,
+                       mesh=None) -> Tuple[List[str], torch.Tensor]:
     """(image paths, (N, D) features on ``device``): the catalog's photos
     deduplicated and sorted (:class:`InferenceCatalog`), embedded by
-    ``forward_fn``. ``resize_mode=None`` takes the catalog family's
-    geometry. ``loaders`` collects the loader (its decode time)."""
+    ``forward_fn`` (each batch split over ``mesh``, when given, by
+    :func:`embed_batched`). ``resize_mode=None`` takes the catalog
+    family's geometry. ``loaders`` collects the loader (its decode
+    time)."""
     resize_mode = resize_mode or getattr(dataset, "resize_mode", "square")
     image_paths = InferenceCatalog(dataset.photo_paths).image_paths
     loader = GalleryLoader(image_paths, image_size, resize_mode)
@@ -83,7 +85,7 @@ def embed_test_gallery(forward_fn: Callable, dataset, image_size: int = 224,
         loaders.append(loader)
     return image_paths, embed_batched(forward_fn, loader, len(loader),
                                       batch_size, device=device,
-                                      return_device=True)
+                                      return_device=True, mesh=mesh)
 
 
 def run_inference(forward_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -108,19 +110,18 @@ def run_inference(forward_fn: Callable[[torch.Tensor], torch.Tensor],
     the catalog family's geometry (the reference embeds gallery and
     queries, the sketchit pass too, with the calling dataset's transform,
     `inference.py:74,148,158`). ``device``: the card unless ``'cpu'`` is
-    passed. ``mesh`` (the gallery sharded over several cards) is still to
-    port.
+    passed. ``mesh`` (:class:`~art_sbir_tpu_torch.parallel.mesh.Mesh`):
+    the gallery and query batches are split over its devices
+    (``forward_fn`` picks its replica by the batch's device), and
+    :func:`evaluate_retrieval` shards the gallery over it; ``device`` is
+    then ``mesh.devices[0]``.
 
     ``trace``: a dict that receives what the run saw: ``gallery`` (the
     ranked features), ``gallery_embed_s`` (None from a cache),
     ``decode_s`` (the loaders' decoding, which overlaps the embedding)
     and, per query pass, ``passes``: the ``queries``, their ``embed_s``
     and :func:`evaluate_retrieval`'s trace. Times wait for the device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_inference over a mesh is still to port "
-            "(ROADMAP.md queue 1 item 8)")
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.devices[0])
     timer = Timer()
     clock = Timer(device_sync=dev.type == "cuda") if trace is not None else None
     resize_mode = resize_mode or getattr(dataset, "resize_mode", "square")
@@ -134,7 +135,7 @@ def run_inference(forward_fn: Callable[[torch.Tensor], torch.Tensor],
         # stays on the device for the ranking; only the cache goes to disk
         image_paths, gallery = embed_test_gallery(
             forward_fn, dataset, image_size, resize_mode, batch_size, dev,
-            loaders)
+            loaders, mesh=mesh)
         gallery_s = clock.restart() if clock else None
         # save_features=False for transient evaluations that would
         # otherwise leave a timestamped folder per call
@@ -151,7 +152,7 @@ def run_inference(forward_fn: Callable[[torch.Tensor], torch.Tensor],
         if clock:
             clock.restart()
         queries = embed_batched(query_fn, qloader, len(qloader), batch_size,
-                                device=dev, return_device=True)
+                                device=dev, return_device=True, mesh=mesh)
         sub = None
         if clock:
             sub = {"queries": queries, "embed_s": clock.restart()}
@@ -159,7 +160,7 @@ def run_inference(forward_fn: Callable[[torch.Tensor], torch.Tensor],
         return evaluate_retrieval(queries, gallery, catalog.sketch_paths,
                                   image_paths, loss_type=loss_type,
                                   start_time=timer.elapsed(), device=dev,
-                                  trace=sub)
+                                  mesh=mesh, trace=sub)
 
     stats = _eval(dataset)
     name = dataset.state_dict["dataset"]

@@ -107,18 +107,24 @@ def evaluate_retrieval(query_features, gallery_features,
     (:func:`~art_sbir_tpu_torch.ops.distance.retrieve`), one
     (chunk, N) distance matrix per ``query_chunk`` queries. Results stay on
     the device until one transfer after the last chunk; K1's per-row
-    certificate is the only read before that. ``mesh`` (the gallery
-    sharded over several cards) is still to port.
+    certificate is the only read before that.
 
-    ``trace``: a dict that receives the ``route`` taken (``"K1"`` or
-    ``"exact"``), the per-query ``ranks`` as scored (0-based, a miss at
-    N), the top-k ``values`` and ``indices`` as reported, and ``rank_s``,
-    the wall time up to the transfer."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "evaluate_retrieval over a mesh needs the sharded form of K1, "
-            "still to port (ROADMAP.md queue 1 item 8)")
+    ``mesh`` (:class:`~art_sbir_tpu_torch.parallel.mesh.Mesh`): where K1
+    runs, the mesh's S > 1 devices divide N and k is at most N / S, the
+    gallery is sharded by rows over them and each query chunk runs the
+    sharded sweep (:func:`~art_sbir_tpu_torch.ops.retrieval_fused.
+    retrieve_fused_sharded`: one K1 launch a shard, an O(Q k) merge on
+    ``mesh.devices[0]``); otherwise the unsharded route runs, as in the
+    JAX package (which raises where k > N / S instead). ``device``
+    defaults to ``mesh.devices[0]`` then.
+
+    ``trace``: a dict that receives the ``route`` taken (``"K1"``,
+    ``"K1_sharded"`` or ``"exact"``), the per-query ``ranks`` as scored
+    (0-based, a miss at N), the top-k ``values`` and ``indices`` as
+    reported, and ``rank_s``, the wall time up to the transfer."""
     timer = Timer()
+    if device is None and mesh is not None:
+        device = mesh.devices[0]
     if device is None and isinstance(gallery_features, torch.Tensor):
         device = gallery_features.device
     dev = resolve_device(device)
@@ -133,15 +139,26 @@ def evaluate_retrieval(query_features, gallery_features,
     use_fused = (loss_type in ("euclidean", "cosine")
                  and n_gallery >= FUSED_GALLERY_THRESHOLD
                  and k_eff <= rf.K_MAX)
+    # the sharded sweep splits the gallery over the mesh's one axis; each
+    # shard's top-k holds k of its own rows
+    n_shards = 0 if mesh is None else mesh.size
+    sharded = (use_fused and n_shards > 1 and n_gallery % n_shards == 0
+               and k_eff <= n_gallery // n_shards)
     gg = rf.gallery_norms(gal, loss_type) if use_fused else None
+    if sharded:  # the shards and their norms, placed once for every chunk
+        gal, gg = rf.shard_gallery(gal, mesh, gg, loss_type)
     rs, vs, idxs = [], [], []
     with torch.no_grad():
         for s in range(0, len(sketch_paths), query_chunk):
             q = queries[s:s + query_chunk].contiguous()
             p = pos_t[s:s + query_chunk]
             if use_fused:
-                r, v, i = rf.retrieve_fused(q, gal, p, k=k_eff,
-                                            metric=loss_type, gg=gg)
+                if sharded:
+                    r, v, i = rf.retrieve_fused_sharded(
+                        q, gal, p, mesh, k=k_eff, metric=loss_type, gg=gg)
+                else:
+                    r, v, i = rf.retrieve_fused(q, gal, p, k=k_eff,
+                                                metric=loss_type, gg=gg)
                 # K1 reports squared eps-folded distances (euclidean) or
                 # cosine distances
                 if loss_type == "euclidean":
@@ -164,7 +181,8 @@ def evaluate_retrieval(query_features, gallery_features,
 
     ranks[missing] = n_gallery  # the reference returns len(image_paths)
     if trace is not None:
-        trace.update(route="K1" if use_fused else "exact", ranks=ranks,
+        route = ("K1_sharded" if sharded else "K1") if use_fused else "exact"
+        trace.update(route=route, ranks=ranks,
                      values=topk_val, indices=topk_idx, rank_s=rank_s)
     ranks1 = ranks + 1
     mrr = float(np.mean(1.0 / ranks1))

@@ -1,8 +1,8 @@
 """Serving engine: a resident gallery and micro-batched queries.
 
 Counterpart of ``art_sbir_tpu/retrieval/server.py`` (the exact route, the
-K1 route, the int8 route and capacity mode; the IVF and IVF-PQ routes and
-the row-sharded gallery are still to port):
+K1 route, the int8 route, capacity mode and the row-sharded gallery; the
+IVF and IVF-PQ routes are still to port):
 
 * **Batch buckets.** Query batches are padded to powers of two up to
   ``max_batch`` and the pad rows' results are dropped.
@@ -23,6 +23,15 @@ the row-sharded gallery are still to port):
   buffer with a live-row mask. Adds and removals build a new
   (gallery, mask) pair and publish it under the engine lock, so a search
   running on another thread keeps the consistent pair it took.
+* **Row-sharded gallery** (``mesh=``): shard ``i`` of the rows (or of the
+  capacity) lives on ``mesh.devices[i]``. Each route ranks each shard on
+  its own device and merges the (B, k) partials by (value, global index)
+  on ``mesh.devices[0]``, where the queries are embedded: K1 through
+  :func:`~art_sbir_tpu_torch.ops.retrieval_fused.retrieve_fused_sharded`,
+  the int8 route through :func:`~art_sbir_tpu_torch.ops.quant.
+  retrieve_quantized_sharded`, the exact route per shard under its live
+  mask. Slot ``s`` of a capacity engine is row ``s % (rows / S)`` of shard
+  ``s // (rows / S)``.
 * **One device thread.** The HTTP server runs the device work of every
   endpoint on the micro-batcher's thread (:meth:`MicroBatcher.call`).
   PyTorch keeps cuDNN's execution plans and the CUDA library handles per
@@ -49,9 +58,15 @@ from art_sbir_tpu_torch.ops import quant_fused
 from art_sbir_tpu_torch.ops.distance import pairwise_distance, top_k
 from art_sbir_tpu_torch.ops.quant import (quantize_gallery,
                                           retrieve_quantized,
-                                          retrieve_quantized_fused)
+                                          retrieve_quantized_fused,
+                                          retrieve_quantized_sharded,
+                                          shard_quant_gallery)
 from art_sbir_tpu_torch.ops.retrieval_fused import (K_MAX, gallery_norms,
-                                                    retrieve_fused)
+                                                    retrieve_fused,
+                                                    retrieve_fused_sharded,
+                                                    shard_gallery)
+from art_sbir_tpu_torch.ops.sharded import gather_to, lexsort_topk_merge
+from art_sbir_tpu_torch.parallel.mesh import shard_rows
 from art_sbir_tpu_torch.retrieval import rank
 from art_sbir_tpu_torch.retrieval.embed import (load_image_features,
                                                 save_image_features)
@@ -105,7 +120,11 @@ class RetrievalEngine:
     rows kept resident in ``rerank_dtype`` (``'bfloat16'`` halves them, at
     bf16 rounding of the reported distances; candidate selection and the
     rerank arithmetic are unchanged).
-    ``device``: the card unless ``'cpu'`` is passed.
+    ``device``: the card unless ``'cpu'`` is passed. ``mesh``: serve the
+    gallery row-sharded over ``mesh.devices`` (see the module note; the
+    rows, or ``capacity``, divisible by the mesh's size, ``k_max`` at most
+    a shard's rows); ``device`` is then ``mesh.devices[0]``.
+    ``ivf_nlist``: the IVF and IVF-PQ indexes are still to port.
     """
 
     def __init__(self, forward_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -116,8 +135,15 @@ class RetrievalEngine:
                  quantize: bool = False, rerank_factor: int = 4,
                  rerank_dtype: str = "float32",
                  query_forward_fn: Optional[Callable] = None,
-                 device: str | torch.device | None = None):
-        self.device = resolve_device(device)
+                 device: str | torch.device | None = None, mesh=None,
+                 ivf_nlist: Optional[int] = None):
+        if ivf_nlist is not None:
+            raise NotImplementedError(
+                "the IVF and IVF-PQ indexes, alone or over a mesh, are still "
+                "to port (ROADMAP.md queue 1 item 5)")
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.devices[0])
+        self.mesh = mesh
         n0 = int(gallery_features.shape[0])
         if n0 == 0 and capacity is None:
             raise ValueError("cannot serve an empty gallery "
@@ -150,6 +176,18 @@ class RetrievalEngine:
             self.k_max = min(k_max, n0)
         rows = int(self.gallery.shape[0])
         self._mask = torch.arange(rows, device=self.device) < n0
+        self._devices = (self.device,) if mesh is None else mesh.devices
+        self.n_shards = len(self._devices)
+        if rows % self.n_shards:
+            raise ValueError(
+                f"gallery rows {rows} (pad with capacity=) must be divisible "
+                f"by the mesh's first axis ({self.n_shards}) for "
+                "row-sharded serving")
+        self._n_local = rows // self.n_shards  # rows a shard
+        if mesh is not None and self.k_max > self._n_local:
+            raise ValueError(
+                f"k_max={self.k_max} exceeds the per-shard gallery size "
+                f"{self._n_local} for row-sharded serving")
         self.n_valid = n0
         self._next = n0  # next never-used slot
         self._free: List[int] = []  # tombstoned slots, reused by adds
@@ -163,6 +201,13 @@ class RetrievalEngine:
         # the K1 route's gallery norms: the gallery never changes
         self._gg = (gallery_norms(self.gallery, metric)
                     if self.route == "K1" else None)
+        if mesh is not None and not quantize:
+            if self.route == "K1":
+                self.gallery, self._gg = shard_gallery(self.gallery, mesh,
+                                                       self._gg, metric)
+            else:
+                self.gallery = shard_rows(self.gallery, mesh)
+            self._mask = shard_rows(self._mask, mesh)
 
         self._qg = None
         if rerank_dtype != "float32" and not quantize:
@@ -182,10 +227,17 @@ class RetrievalEngine:
             # K2 wherever it runs, whatever the gallery's size: on an H100
             # its route beat the plain int8 scan's at every size measured
             # from 50,000 rows up, and trailed it by under 0.1 ms at 10,000
-            # rows (PERF.md)
-            self.route = ("K2" if quant_fused.kernel_takes(
-                self.device, self._rerank_factor * self.k_max,
-                int(self.gallery.shape[1])) else "int8")
+            # rows (PERF.md). Over a mesh each shard scans its own rows
+            r = self._rerank_factor * self.k_max
+            if mesh is not None:
+                r = min(max(r, self.k_max), self._n_local)
+            self.route = ("K2" if all(quant_fused.kernel_takes(
+                d, r, int(self.gallery.shape[1])) for d in self._devices)
+                else "int8")
+            if mesh is not None:
+                self._qg, self.gallery = shard_quant_gallery(
+                    self._qg, self.gallery, mesh)
+                self._mask = shard_rows(self._mask, mesh)
 
     # ------------------------------------------------------------ queries
 
@@ -225,6 +277,9 @@ class RetrievalEngine:
         with self._lock:  # a consistent (gallery, mask) pair
             gallery, mask = self.gallery, self._mask
         emb = self.embed_queries(self._pad(images_u8))
+        if self.mesh is not None:
+            vals, idx = self._search_sharded(emb, gallery, mask)
+            return vals[:b], idx[:b]
         if self.route == "K2":  # results + certificate pulled together
             vals, idx = retrieve_quantized_fused(
                 emb, self._qg, gallery, k=self.k_max,
@@ -249,6 +304,47 @@ class RetrievalEngine:
                 vals, idx = top_k(dist, self.k_max, valid=mask)
             vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         return vals[:b], idx[:b]
+
+    def _search_sharded(self, emb, gallery, mask):
+        """(top-k distances, indices) as numpy over the row-sharded
+        gallery: each shard on its own device, merged on the first."""
+        mesh, k = self.mesh, self.k_max
+        if self.route in ("K2", "int8"):
+            vals, idx = retrieve_quantized_sharded(
+                emb, self._qg, gallery, mesh, k=k,
+                rerank_factor=self._rerank_factor,
+                use_kernel=self.route == "K2")
+        elif self.route == "K1":
+            pos = torch.zeros(emb.shape[0], dtype=torch.int32,
+                              device=self.device)  # unused when serving
+            _, vals, idx = retrieve_fused_sharded(
+                emb, gallery, pos, mesh, k=k, metric=self.metric,
+                with_ranks=False, device_get=True, gg=self._gg)
+            return (np.sqrt(vals) if self.metric == "euclidean" else vals,
+                    idx)
+        else:  # exact: each shard's masked top-k, global indices, merged
+            part_v, part_i = [], []
+            # the queries reach every card before any shard's work is
+            # queued (a copy runs behind the source card's queued work)
+            embs = [emb.to(g.device) for g in gallery]
+            with torch.no_grad():
+                for i, (g, m, e) in enumerate(zip(gallery, mask, embs)):
+                    dist = pairwise_distance(e, g, metric=self.metric)
+                    v, il = top_k(dist, k, valid=m)
+                    part_v.append(v)
+                    part_i.append(il + i * self._n_local)
+                vals, idx = lexsort_topk_merge(gather_to(part_v, self.device),
+                                               gather_to(part_i, self.device),
+                                               k)
+        return vals.cpu().numpy(), idx.cpu().numpy()
+
+    def _shards(self, x) -> list:
+        """The per-device pieces of the gallery or the mask (one piece
+        without a mesh)."""
+        return list(x) if self.mesh is not None else [x]
+
+    def _unshard(self, xs: list):
+        return xs if self.mesh is not None else xs[0]
 
     def embed_items(self, items: Sequence[Tuple[bytes, str]]
                     ) -> torch.Tensor:
@@ -277,17 +373,28 @@ class RetrievalEngine:
                 if slot == self._next:
                     self._next += 1
                 slots.append(slot)
-            at = torch.tensor(slots, device=self.device)
-            gallery = self.gallery.clone()
-            gallery[at] = emb
-            mask = self._mask.clone()
-            mask[at] = True
+            # copy and write each piece that takes a slot (slot s is row
+            # s % n_local of piece s // n_local)
+            gallery = self._shards(self.gallery)
+            mask = self._shards(self._mask)
+            for sh in sorted({s // self._n_local for s in slots}):
+                mine = [i for i, s in enumerate(slots)
+                        if s // self._n_local == sh]
+                dev = gallery[sh].device
+                at = torch.tensor([slots[i] % self._n_local for i in mine],
+                                  device=dev)
+                gallery[sh] = gallery[sh].clone()
+                gallery[sh][at] = emb[torch.tensor(mine, device=emb.device)
+                                      ].to(dev)
+                mask[sh] = mask[sh].clone()
+                mask[sh][at] = True
             for i, slot in enumerate(slots):
                 if slot < len(self.image_paths):
                     self.image_paths[slot] = items[i][1]
                 else:
                     self.image_paths.append(items[i][1])
-            self.gallery, self._mask = gallery, mask
+            self.gallery = self._unshard(gallery)
+            self._mask = self._unshard(mask)
             self.n_valid += b
         return slots
 
@@ -299,7 +406,7 @@ class RetrievalEngine:
             raise ValueError("immutable index: construct with capacity= "
                              "to enable remove")
         with self._lock:
-            mask = self._mask.clone()
+            mask, copied = self._shards(self._mask), set()
             freed: List[int] = []
             try:
                 for p in paths:
@@ -308,11 +415,15 @@ class RetrievalEngine:
                     except ValueError:
                         raise KeyError(f"path not in index: {p}") from None
                     self.image_paths[slot] = None  # tombstone
-                    mask[slot] = False
+                    sh, row = divmod(slot, self._n_local)
+                    if sh not in copied:
+                        mask[sh] = mask[sh].clone()
+                        copied.add(sh)
+                    mask[sh][row] = False
                     self._free.append(slot)
                     freed.append(slot)
             finally:  # paths freed before a missing one stay freed
-                self._mask = mask
+                self._mask = self._unshard(mask)
                 self.n_valid -= len(freed)
         return freed
 
@@ -324,6 +435,9 @@ class RetrievalEngine:
         with self._lock:
             gallery, mask = self.gallery, self._mask
             paths = list(self.image_paths)
+        if self.mesh is not None:  # the pieces, in row order
+            gallery = torch.cat([g.to(self.device) for g in gallery])
+            mask = torch.cat([m.to(self.device) for m in mask])
         live = torch.nonzero(mask).flatten()
         feats = gallery[live].float().cpu().numpy()  # numpy has no bf16
         return save_image_features(
@@ -346,6 +460,7 @@ class RetrievalEngine:
                 "image_size": self.image_size,
                 "k_max": self.k_max,
                 "per_modality_bn": self.per_modality_bn,
+                "shards": self.n_shards,
             }
 
     def _result(self, vals: np.ndarray, idx: np.ndarray,

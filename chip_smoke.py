@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases a,b,...]
 
 Phases, each printing one JSON line:
 
@@ -55,12 +55,17 @@ Phases, each printing one JSON line:
                   concurrent /search and one /search_batch of 8 over HTTP
                   (then one dispatch under torch.profiler, outside the
                   counted run). Each top-1 must be its planted row; K1 must
-                  have been launched and never fallen back.
+                  have been launched once a dispatch and never fallen back.
+                  Then ``serve_sharded``: the same cache served by an
+                  engine over 4 shards of the one card
+                  (``build_engine(args, mesh=...)``), the same counted run,
+                  K1 launched 4 times a dispatch.
 8. serve_quant -- the same with ``--quantize`` over a 1,000,000 x 1024
                   cache (500,000 rows only where the temporary directory
                   cannot hold the larger one): the
                   engine must take the K2 route, K2 must have been launched
-                  and never fallen back.
+                  and never fallen back; then ``serve_quant_sharded`` over
+                  4 shards, K2 launched 4 times a dispatch.
 9. inference   -- the offline evaluation end to end: a synthetic Sketchy
                   corpus (25 classes x 110 photos x 4 sketches, about
                   1,100 test queries), a run folder and the full-width
@@ -92,14 +97,35 @@ Phases, each printing one JSON line:
                   whole on both routes at N from 10,000 to 10^6 with Q =
                   1,024, and K1 at Q = 1,024 with ranks beside its bound,
                   its plain version and the library composition.
+11. sharded    -- the row-sharded gallery on 4 shards of the one card.
+                  Sharded K1 at N = 100,000 (rows 0-15 copied into every
+                  other shard, positives in every shard and at its edges),
+                  Q in {1, 32, 1024}, both forms, both metrics, ranks on
+                  and off: bit for bit unsharded K1, and against its
+                  sharded plain version as ``kernels`` holds K1; the
+                  copies tie in index order. Then sharded K1 timed beside
+                  unsharded K1, its plain version and the library call at
+                  Q = 32 and Q = 1,024 with ranks. The sharded int8 route
+                  at N = 10^6, Q = 32, r = 40 a shard, both metrics: K2 once
+                  a shard, bit for bit its per-shard plain route, timed.
+                  ``run_inference`` over the mesh at 100,004 rows: K1 and
+                  its positive kernel 4 times a query chunk, the unsharded
+                  run's queries, ranks, top-k and dict exactly; at 100,003
+                  rows the unsharded route; ``cli/inference.py
+                  --n_devices`` past the cards present exits. One engine
+                  dispatch of 8 sketches, unsharded and over the 4 shards,
+                  timed in 10 alternating pairs without HTTP.
 
 Every kernel count is set to 0 just before each counted run (each serve
 phase's requests, the probe's runs, each ``inference`` and
 ``inference_k1`` evaluation) and read just after it; the launch counts in
 the kernels line are the sums over those runs: K1's float32 form's from
-``serve`` and ``inference_k1`` (``inference`` ranks its small gallery on
-the exact route), K2's from ``serve_quant``, K1's bf16 form's and P1's
-from the probe. Any failed check exits non-zero. The last line is
+``serve``, ``inference_k1`` and ``sharded``'s unsharded run at 100,003
+rows (``inference`` ranks its small gallery on the exact route), K2's
+from ``serve_quant``, K1's bf16 form's and P1's from the probe, the
+sharded K1's from ``serve_sharded`` and ``sharded``'s ``run_inference``
+over the mesh, the sharded K2's from ``serve_quant_sharded``. Any failed
+check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
 """
@@ -129,6 +155,7 @@ R = 40  # K2's candidates at the serving engine's k_max 10, rerank_factor 4
 R_WIDE = (256, 512, 1024)  # K2's budgets past the JAX engine's 128
 PROBE_SHAPES = ((32, 100_352), (512, 999_424))  # (Q, N) of the K1 probe
 EVAL_CHUNKS = (76, 1024)  # inference_k1's query chunks: partial, full
+SHARDS = 4  # logical shards of the one card in the sharded runs
 
 
 def bound(nbytes: float, ops: float, op_rate: float):
@@ -1187,23 +1214,22 @@ def phase_serve_quant(state) -> None:
 
 
 def _serve(state, phase: str, n_rows: int, route: str, flags: list) -> None:
-    import base64
-    import io
+    """``phase``: ``build_engine`` over an ``n_rows`` cache with ``flags``,
+    then the counted run (:func:`_serve_engine`); ``phase``_sharded: the
+    same cache served by an engine whose gallery is sharded over 4 shards
+    of the one card (``build_engine(args, mesh=...)``)."""
+    import gc
     import tempfile
-    import threading
-    import urllib.request
-    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
     from art_sbir_tpu_torch.cli import serve
     from art_sbir_tpu_torch.models.resnet import create_encoder
+    from art_sbir_tpu_torch.parallel.mesh import MeshSpec
     from art_sbir_tpu_torch.retrieval.embed import save_image_features
     from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
 
     sketches = _sketches(8)
-    rounds = 20  # closed loop: 8 clients, each sends again on its answer
-    counters = _counters()
     with tempfile.TemporaryDirectory() as tmp:
         # planted rows: the embeddings of the 8 sketches by the same seeded
         # fresh init that build_engine serves when no checkpoint exists
@@ -1223,121 +1249,152 @@ def _serve(state, phase: str, n_rows: int, route: str, flags: list) -> None:
             "-f", "ModifiedResNet_ChipSmoke", "--features", folder,
             "--feature_root", tmp, "--results_root", tmp, "--models_root",
             tmp, "--device", "cuda", "--window_ms", "5", *flags])
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        engine, batcher = serve.build_engine(args)
-        build_s = time.perf_counter() - t0
-        check(engine.route == route,
-              f"a {n_rows}-row gallery with {flags} takes the {route} route")
-        t0 = time.perf_counter()
-        serve.warmup(engine, batcher)
-        warmup_s = time.perf_counter() - t0
-        thread_ms = _fresh_thread_dispatch_ms(engine, sketches[:1])
-        dispatches = []  # (batch, seconds) of each engine dispatch
-        search_arrays = engine.search_arrays
+        for mesh in (None, MeshSpec(SHARDS).build(["cuda:0"] * SHARDS)):
+            _serve_engine(state, phase if mesh is None else phase + "_sharded",
+                          args, mesh, n_rows, route, sketches, paths, slots,
+                          save_s)
+            gc.collect()  # the engine's gallery before the next one's
+            torch.cuda.empty_cache()
 
-        def timed_search_arrays(images):
+
+def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
+                  slots, save_s) -> None:
+    """Build the engine, warm it up, then the counted run: /healthz, 20
+    rounds of 8 concurrent /search and one /search_batch of 8 over HTTP;
+    then one profiled dispatch outside it."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from art_sbir_tpu_torch.cli import serve
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
+
+    rounds = 20  # closed loop: 8 clients, each sends again on its answer
+    counters = _counters()
+    shards = 1 if mesh is None else mesh.size
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, batcher = serve.build_engine(args, mesh=mesh)
+    build_s = time.perf_counter() - t0
+    check(engine.route == route and engine.n_shards == shards,
+          f"a {n_rows}-row gallery over {shards} shards takes the {route} "
+          "route")
+    t0 = time.perf_counter()
+    serve.warmup(engine, batcher)
+    warmup_s = time.perf_counter() - t0
+    thread_ms = _fresh_thread_dispatch_ms(engine, sketches[:1])
+    dispatches = []  # (batch, seconds) of each engine dispatch
+    search_arrays = engine.search_arrays
+
+    def timed_search_arrays(images):
+        t = time.perf_counter()
+        out = search_arrays(images)
+        dispatches.append((len(images), time.perf_counter() - t))
+        return out
+
+    engine.search_arrays = timed_search_arrays
+    httpd = serve.Server(("127.0.0.1", 0),
+                         serve.make_handler(engine, batcher))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    port = httpd.server_address[1]
+    lat, tops, round_s = [], [], []
+    try:
+        for c in list(counters.values()) + [rf.positive_counters]:
+            c.reset()  # this path's run starts here
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        check(health["gallery_size"] == n_rows
+              and health["shards"] == shards, "/healthz gallery size, shards")
+        if state.get("pil", True):
+            from PIL import Image
+
+            def png(a):
+                buf = io.BytesIO()
+                Image.fromarray(a).save(buf, "PNG")
+                return base64.b64encode(buf.getvalue()).decode()
+
+            b64 = [png(s) for s in sketches]
+
+            def one(i):
+                t = time.perf_counter()
+                out = _post(port, "/search", {"image_b64": b64[i]})
+                return time.perf_counter() - t, out["paths"][0]
+
+            t_all = time.perf_counter()
+            with ThreadPoolExecutor(8) as pool:
+                for _ in range(rounds):
+                    t_round = time.perf_counter()
+                    res = list(pool.map(one, range(8)))
+                    round_s.append(time.perf_counter() - t_round)
+                    lat += [r[0] for r in res]
+                    tops += [r[1] for r in res]
+            wall = time.perf_counter() - t_all
+            n_timed = len(dispatches)
             t = time.perf_counter()
-            out = search_arrays(images)
-            dispatches.append((len(images), time.perf_counter() - t))
-            return out
-
-        engine.search_arrays = timed_search_arrays
-        httpd = serve.Server(("127.0.0.1", 0),
-                             serve.make_handler(engine, batcher))
-        server = threading.Thread(target=httpd.serve_forever, daemon=True)
-        server.start()
-        port = httpd.server_address[1]
-        lat, tops, round_s = [], [], []
-        try:
-            for c in counters.values():  # this path's run starts here
-                c.reset()
-            with urllib.request.urlopen(
-                    f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
-                health = json.loads(r.read())
-            check(health["gallery_size"] == n_rows, "/healthz gallery size")
-            if state.get("pil", True):
-                from PIL import Image
-
-                def png(a):
-                    buf = io.BytesIO()
-                    Image.fromarray(a).save(buf, "PNG")
-                    return base64.b64encode(buf.getvalue()).decode()
-
-                b64 = [png(s) for s in sketches]
-
-                def one(i):
-                    t = time.perf_counter()
-                    out = _post(port, "/search", {"image_b64": b64[i]})
-                    return time.perf_counter() - t, out["paths"][0]
-
-                t_all = time.perf_counter()
-                with ThreadPoolExecutor(8) as pool:
-                    for _ in range(rounds):
-                        t_round = time.perf_counter()
-                        res = list(pool.map(one, range(8)))
-                        round_s.append(time.perf_counter() - t_round)
-                        lat += [r[0] for r in res]
-                        tops += [r[1] for r in res]
-                wall = time.perf_counter() - t_all
-                n_timed = len(dispatches)
+            batch = _post(port, "/search_batch", {"images_b64": b64})
+            search_batch_ms = 1e3 * (time.perf_counter() - t)
+            tops += [r["paths"][0] for r in batch["results"]]
+            transport = "http"
+        else:  # no PIL on this machine: the engine, from 8 threads
+            def one(i):
                 t = time.perf_counter()
-                batch = _post(port, "/search_batch", {"images_b64": b64})
-                search_batch_ms = 1e3 * (time.perf_counter() - t)
-                tops += [r["paths"][0] for r in batch["results"]]
-                transport = "http"
-            else:  # no PIL on this machine: the engine, from 8 threads
-                def one(i):
-                    t = time.perf_counter()
-                    _, idx = engine.search_arrays(sketches[i:i + 1])
-                    return time.perf_counter() - t, paths[int(idx[0, 0])]
+                _, idx = engine.search_arrays(sketches[i:i + 1])
+                return time.perf_counter() - t, paths[int(idx[0, 0])]
 
-                t_all = time.perf_counter()
-                with ThreadPoolExecutor(8) as pool:
-                    for _ in range(rounds):
-                        t_round = time.perf_counter()
-                        res = list(pool.map(one, range(8)))
-                        round_s.append(time.perf_counter() - t_round)
-                        lat += [r[0] for r in res]
-                        tops += [r[1] for r in res]
-                wall = time.perf_counter() - t_all
-                n_timed = len(dispatches)
-                t = time.perf_counter()
-                _, idx = engine.search_arrays(sketches)
-                search_batch_ms = 1e3 * (time.perf_counter() - t)
-                tops += [paths[int(i)] for i in idx[:, 0]]
-                transport = "search_arrays from 8 threads (no PIL)"
-            torch.cuda.synchronize()
-            launches = {name: c.launches for name, c in counters.items()}
-            fallback = counters[route].fallback_rows
-            engine.search_arrays = search_arrays
-            profile = _profile_dispatch(engine, sketches,
-                                        prefix=route.lower())
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
-            batcher.close()
-            server.join(timeout=10)
+            t_all = time.perf_counter()
+            with ThreadPoolExecutor(8) as pool:
+                for _ in range(rounds):
+                    t_round = time.perf_counter()
+                    res = list(pool.map(one, range(8)))
+                    round_s.append(time.perf_counter() - t_round)
+                    lat += [r[0] for r in res]
+                    tops += [r[1] for r in res]
+            wall = time.perf_counter() - t_all
+            n_timed = len(dispatches)
+            t = time.perf_counter()
+            _, idx = engine.search_arrays(sketches)
+            search_batch_ms = 1e3 * (time.perf_counter() - t)
+            tops += [paths[int(i)] for i in idx[:, 0]]
+            transport = "search_arrays from 8 threads (no PIL)"
+        torch.cuda.synchronize()
+        launches = {name: c.launches for name, c in counters.items()}
+        fallback = counters[route].fallback_rows
+        n_dispatch = len(dispatches)
+        engine.search_arrays = search_arrays
+        profile = _profile_dispatch(engine, sketches, prefix=route.lower())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+        server.join(timeout=10)
     want = [paths[s] for s in slots] * (rounds + 1)
     check(tops == want, "each top-1 is its planted row")
-    check(launches[route] > 0, f"{route} launched on the main path")
+    check(launches[route] == shards * n_dispatch,
+          f"{route} launched {shards} times a dispatch on the main path")
     check(all(v == 0 for name, v in launches.items() if name != route),
           f"no other kernel than {route} launched on this path")
     check(fallback == 0, f"{route} never fell back")
-    state["launches"][route] = (state["launches"].get(route, 0)
-                                + launches[route])
+    key = route if mesh is None else route + "_sharded"
+    state["launches"][key] = state["launches"].get(key, 0) + launches[route]
     n_req = 8 * rounds
     timed = dispatches[:n_timed]
     dispatch_ms = [1e3 * t for _, t in timed]
+    del engine
     emit({"phase": phase, "ok": True, "transport": transport,
-          "gallery": n_rows, "dim": D, "route": route, "clients": 8,
-          "requests": n_req, "failed": 0, "qps": n_req / wall,
+          "gallery": n_rows, "dim": D, "route": route, "shards": shards,
+          "clients": 8, "requests": n_req, "failed": 0, "qps": n_req / wall,
           "p50_ms": 1e3 * float(np.median(lat)),
           "p90_ms": 1e3 * float(np.percentile(lat, 90)),
           "max_ms": 1e3 * max(lat),
           "mean_batch": float(np.mean([b for b, _ in timed])),
-          "batches": len(timed), "launches": launches,
-          "fallback_rows": fallback,
+          "batches": len(timed), "dispatches": n_dispatch,
+          "launches": launches, "fallback_rows": fallback,
           "round_ms_first5": [1e3 * r for r in round_s[:5]],
           "round_ms_max": 1e3 * max(round_s),
           "dispatch_ms_p50": float(np.median(dispatch_ms)),
@@ -1855,6 +1912,7 @@ def phase_inference_k1(state) -> None:
     cache = save_image_features("ChipSmoke", "SketchyK1", paths, feats,
                                 root=tmp / "features", timestamp="k1")
     save_s = time.perf_counter() - t0
+    state["k1_cache"] = cache
     gallery = torch.from_numpy(feats).cuda()
     gg = np.sum(feats.astype(np.float64) ** 2, axis=1)
     del feats
@@ -2003,11 +2061,394 @@ def phase_inference_k1(state) -> None:
           "launches": {"K1": main_launches}})
 
 
+# ---------------------------------------------------------------- sharded
+
+SHARD_ROWS = 100_004  # run_inference's sharded gallery: divisible by SHARDS
+
+
+def _shard_inputs(gen, q: int):
+    """(queries, positives, gallery) at N = SERVE_N: rows [0, 16) copied
+    into every other shard (at row 100 of the shard), positives over every
+    shard, the first ones on row 3 and on its copy in shard 1 and at the
+    shards' edges, queries at noise 1.0 from their positives."""
+    import torch
+
+    n, nl = SERVE_N, SERVE_N // SHARDS
+    g = torch.randn((n, D), generator=gen, device="cuda")
+    for s in range(1, SHARDS):
+        g[s * nl + 100:s * nl + 116] = g[:16]
+    pos = torch.randint(0, n, (q,), generator=gen, device="cuda")
+    edges = [3, nl + 103, 0, nl - 1, nl, n - 1, 2 * nl + 100, 3 * nl - 1]
+    pos[:min(q, 8)] = torch.tensor(edges[:q], device="cuda")
+    x = g[pos] + torch.randn((q, D), generator=gen, device="cuda")
+    return x.contiguous(), pos, g
+
+
+def _sharded_k1(state, mesh, gen) -> dict:
+    """Sharded K1 against unsharded K1 (bit for bit) and against its
+    sharded plain version, then both timed beside the library call."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
+
+    n, nl = SERVE_N, SERVE_N // SHARDS
+    cases, max_err, max_over = [], 0.0, 0.0
+    # whether norms taken on each shard have the bits of the whole's slice
+    # (the sharded calls slice the whole's where the caller holds it whole)
+    g = torch.randn((n, D), generator=gen, device="cuda")
+    norms_equal = {m: bool(torch.equal(rf.gallery_norms(g, m), torch.cat(
+        [rf.gallery_norms(s, m) for s in g.split(nl)], 1)))
+        for m in ("euclidean", "cosine")}
+    del g
+    for q in (1, 32, 1024):
+        x, pos, g = _shard_inputs(gen, q)
+        for metric in ("euclidean", "cosine"):
+            for precision in ("highest", "default"):
+                for with_ranks in (True, False):
+                    kw = dict(k=K, precision=precision, metric=metric,
+                              with_ranks=with_ranks)
+                    what = f"sharded K1 ({q} {metric} {precision} " \
+                           f"ranks={with_ranks})"
+                    one = rf.retrieve_fused_core(x, g, pos, **kw)
+                    out = rf.retrieve_fused_sharded_core(x, g, pos, mesh,
+                                                         **kw)
+                    ref = rf.retrieve_fused_sharded_core(
+                        x, g, pos, mesh, reference=True, **kw)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(out, one)),
+                          f"{what}: bit for bit unsharded K1")
+                    bnd = None
+                    if precision == "default":
+                        bnd = rf.sum_order_bound(
+                            x.to(torch.bfloat16), g.to(torch.bfloat16),
+                            ref[2], rf.query_norms(x, metric),
+                            rf.gallery_norms(g, metric), metric)
+                    err, rank_err, moved, over = _compare(
+                        out, ref, q, n, with_ranks, bound=bnd)
+                    if precision == "highest":
+                        max_err = max(max_err, err)
+                    max_over = max(max_over, over)
+                    if q > 1 and with_ranks:  # row 3 and its 3 copies
+                        copies = [3 + s * nl + 100 * (s > 0)
+                                  for s in range(SHARDS)]
+                        for row, rank in ((0, 0), (1, 1)):
+                            check(out[2][row, :SHARDS].tolist() == copies
+                                  and bool((out[1][row, :SHARDS]
+                                            == out[1][row, 0]).all())
+                                  and int(out[0][row]) == rank,
+                                  f"{what}: the copies across shards tie, "
+                                  "in index order, earlier ones ranked")
+                    cases.append([q, metric, precision, with_ranks, err,
+                                  rank_err, moved])
+        del x, pos, g
+    # times, float32 form, euclidean, shards placed once (as the engine and
+    # evaluate_retrieval place them)
+    times = []
+    for q, with_ranks in ((32, False), (1024, True)):
+        x, pos, g = _shard_inputs(gen, q)
+        gg = rf.gallery_norms(g, "euclidean")
+        shards, ggs = rf.shard_gallery(g, mesh, gg)
+        qq = rf.query_norms(x, "euclidean")
+        pos2d = pos.to(torch.int32).reshape(-1, 1)
+        kw = dict(k=K, with_ranks=with_ranks)
+        reps = 20 if q <= 32 else 10
+        row = {"q": q, "with_ranks": with_ranks}
+        ms = [time_ms(lambda: rf.retrieve_fused_sharded_core(
+            x, shards, pos, mesh, gg=ggs, **kw), reps=reps)]
+        row["unsharded_ms"] = time_ms(lambda: rf.retrieve_fused_core(
+            x, g, pos, gg=gg, **kw), reps=reps)
+        row["plain_ms"] = time_ms(lambda: rf.retrieve_fused_sharded_core(
+            x, shards, pos, mesh, gg=ggs, reference=True, **kw), reps=5)
+        row["library_ms"] = time_ms(lambda: k1_library(x, g, qq, gg, pos2d,
+                                                       with_ranks),
+                                    reps=reps)
+        ms.append(time_ms(lambda: rf.retrieve_fused_sharded_core(
+            x, shards, pos, mesh, gg=ggs, **kw), reps=reps))
+        row["ms"], row["ms_runs"] = min(ms), ms
+        row["device_ms"] = device_ms(lambda: rf.retrieve_fused_sharded_core(
+            x, shards, pos, mesh, gg=ggs, **kw))
+        row["unsharded_device_ms"] = device_ms(
+            lambda: rf.retrieve_fused_core(x, g, pos, gg=gg, **kw))
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * (n * D + q * D + n + 2 * q) + q * K * 8 + q * 8,
+            2 * q * n * D, H100_F32_FLOP_PER_S)
+        times.append(row)
+        del x, pos, g, shards, gg, ggs
+    serving = times[0]
+    state["k1_sharded"] = {
+        "name": "K1_sharded", "route": "cuda",
+        "source": "art_sbir_tpu_torch/ops/retrieval_fused.py "
+                  "(retrieve_fused_sharded) + "
+                  "art_sbir_tpu_torch/csrc/fused_retrieval.cu",
+        "replaces": "art_sbir_tpu/ops/retrieval_pallas.py:746",
+        "max_abs_err": max_err, "ms": serving["ms"],
+        "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
+        "bound_by": serving["bound_by"],
+        "library_ms": serving["library_ms"], "shards": SHARDS,
+        "shape": "Q 32, N 100,000, no ranks, 4 shards of one card"}
+    return {"shard_norms_bit_equal": norms_equal,
+            "k1_cases": len(cases), "k1_case_rows": cases,
+            "k1_bf16_max_err_over_bound": max_over, "k1_times": times}
+
+
+def _sharded_k2(state, mesh, gen) -> dict:
+    """The sharded int8 route (K2 per shard, a local exact rerank, the
+    merge) against its per-shard plain route, bit for bit, then timed."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import quant
+    from art_sbir_tpu_torch.ops import quant_fused as qf
+
+    n, q = QUANT_N, 32
+    g = torch.randn((n, D), generator=gen, device="cuda")
+    rows = torch.randint(0, n, (q,), generator=gen, device="cuda")
+    x = g[rows] + 0.01 * torch.randn((q, D), generator=gen, device="cuda")
+    out = {}
+    for metric in ("euclidean", "cosine"):
+        qgs, gs = quant.shard_quant_gallery(quant.quantize_gallery(g, metric),
+                                            g, mesh)
+        qf.counters.reset()
+        v1, i1 = quant.retrieve_quantized_sharded(x, qgs, gs, mesh, k=K,
+                                                  rerank_factor=4)
+        torch.cuda.synchronize()
+        launches, fallback = qf.counters.launches, qf.counters.fallback_rows
+        v0, i0 = quant.retrieve_quantized_sharded(x, qgs, gs, mesh, k=K,
+                                                  rerank_factor=4,
+                                                  use_kernel=False)
+        check(launches == SHARDS and fallback == 0,
+              f"sharded K2 route ({metric}): K2 once a shard, no fallback")
+        check(torch.equal(i1, i0) and torch.equal(v1, v0),
+              f"sharded K2 route ({metric}): bit for bit the per-shard "
+              "plain route")
+        check(torch.equal(i1[:, 0], rows.to(i1.dtype)),
+              f"sharded K2 route ({metric}): top-1 is the query's row")
+        out[metric] = {"launches": launches, "fallback_rows": fallback}
+        del qgs, gs
+    qg = quant.quantize_gallery(g, "euclidean")
+    qgs, gs = quant.shard_quant_gallery(qg, g, mesh)
+    kw = dict(k=K, rerank_factor=4)
+    q8, s_q = quant._quantize_queries(x, "euclidean")
+    ms = [time_ms(lambda: quant.retrieve_quantized_sharded(
+        x, qgs, gs, mesh, **kw))]
+    unsharded_ms = time_ms(lambda: quant.retrieve_quantized_fused(
+        x, qg, g, **kw))
+    plain_ms = time_ms(lambda: quant.retrieve_quantized_sharded(
+        x, qgs, gs, mesh, use_kernel=False, **kw), reps=5)
+
+    def library():  # the scan's library composition over the whole gallery
+        cross = torch._int_mm(q8, qg.q8.t())
+        dot = cross.float() * (s_q[:, None] * qg.scale[None, :])
+        return torch.topk(qg.sq_norm[None, :] - 2.0 * dot, R, largest=False)
+
+    library_ms = time_ms(library)
+    ms.append(time_ms(lambda: quant.retrieve_quantized_sharded(
+        x, qgs, gs, mesh, **kw)))
+    # the scan reads the int8 rows, their scales and norms once; the rerank
+    # the S * r candidate rows of each query in float32
+    cand = q * SHARDS * R
+    t_bytes = (4 * q * D + n * D + 8 * n + 4 * cand * D + 8 * q * K) \
+        / H100_BYTES_PER_S
+    t_ops = (2 * q * n * D / H100_INT8_OP_PER_S
+             + 3 * cand * D / H100_F32_FLOP_PER_S)
+    state["k2_sharded"] = {
+        "name": "K2_sharded", "route": "cuda",
+        "source": "art_sbir_tpu_torch/ops/quant.py "
+                  "(retrieve_quantized_sharded) + "
+                  "art_sbir_tpu_torch/csrc/quant_candidates.cu",
+        "replaces": "art_sbir_tpu/ops/quant.py:348",
+        "max_abs_err": 0.0, "ms": min(ms), "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "shards": SHARDS,
+        "shape": "Q 32, N 10^6, r 40 a shard, k 10, 4 shards of one card"}
+    return {"k2_route": out, "k2_ms_runs": ms,
+            "k2_unsharded_route_ms": unsharded_ms,
+            "k2_library": "torch._int_mm over the whole gallery, the score, "
+                          "torch.topk (the scan alone)"}
+
+
+def _dispatch_ab(mesh) -> dict:
+    """One engine dispatch of 8 sketches (``search_arrays``: the encoder,
+    K1 without ranks, the results' transfer) on two engines over the same
+    SERVE_N rows, unsharded and over ``mesh``, in 10 pairs of alternating
+    order, host clock; no HTTP and no other thread."""
+    import torch
+
+    from art_sbir_tpu_torch.models.resnet import create_encoder
+    from art_sbir_tpu_torch.retrieval.server import RetrievalEngine
+    from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
+
+    enc = create_encoder(device="cuda", seed=0)
+
+    def forward(x):
+        return enc(finish_gallery_batch(x))
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    feats = torch.randn((SERVE_N, D), generator=gen, device="cuda")
+    paths = [str(i) for i in range(SERVE_N)]
+    engines = {"one": RetrievalEngine(forward, feats, paths, device="cuda"),
+               "sharded": RetrievalEngine(forward, feats, paths, mesh=mesh)}
+    sketches = _sketches(8)
+    out = {name: e.search_arrays(sketches) for name, e in engines.items()}
+    check(all(np.array_equal(a, b) for a, b in zip(out["one"],
+                                                   out["sharded"])),
+          "a dispatch over the mesh: the unsharded engine's results")
+    ms = {name: [] for name in engines}
+    for i in range(10):
+        for name in (("one", "sharded") if i % 2 else ("sharded", "one")):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            engines[name].search_arrays(sketches)
+            ms[name].append(1e3 * (time.perf_counter() - t))
+    return {name: {"median_ms": float(np.median(v)),
+                   "quartiles_ms": [float(np.percentile(v, 25)),
+                                    float(np.percentile(v, 75))],
+                   "runs_ms": v} for name, v in ms.items()}
+
+
+def phase_sharded(state) -> None:
+    """The row-sharded gallery on 4 shards of the one card: sharded K1 and
+    the sharded int8 route against unsharded K1 and their plain versions,
+    timed; ``run_inference`` over the mesh against the unsharded run at
+    SHARD_ROWS rows, and at K1_ROWS rows (not divisible by 4: the
+    unsharded route); ``--n_devices`` past the cards present. (The serving
+    engine over the mesh runs in ``serve_sharded`` and
+    ``serve_quant_sharded``.)"""
+    import torch
+
+    from art_sbir_tpu_torch.cli import inference as inference_cli
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
+    from art_sbir_tpu_torch.parallel.mesh import MeshSpec
+    from art_sbir_tpu_torch.retrieval import engine as engine_mod
+    from art_sbir_tpu_torch.retrieval.embed import (load_image_features,
+                                                    save_image_features)
+    from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
+
+    mesh = MeshSpec(SHARDS).build(["cuda:0"] * SHARDS)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    line = {"phase": "sharded", "ok": True, "shards": SHARDS}
+    line.update(_sharded_k1(state, mesh, gen))
+    torch.cuda.empty_cache()
+    line.update(_sharded_k2(state, mesh, gen))
+    torch.cuda.empty_cache()
+    line["dispatch_8_alternating"] = _dispatch_ab(mesh)
+    torch.cuda.empty_cache()
+
+    # run_inference over the mesh, held against the unsharded run
+    tmp = Path(state["tmp"])
+    test_cat = state["corpus"]["test_cat"]
+    real_paths, real = load_image_features(state["corpus"]["cache"],
+                                           tmp / "features")
+    feats, paths = _k1_gallery(real, real_paths, SHARD_ROWS, seed=7)
+    cache = save_image_features("ChipSmoke", "SketchyShards", paths, feats,
+                                root=tmp / "features", timestamp="shards")
+    del feats
+    model, _ = engine_mod.restore_encoder(RUN, {}, tmp / "models",
+                                          torch.device("cuda"))
+
+    def forward(x):
+        return model(finish_gallery_batch(x))
+
+    # why the embedding splits a batch over distinct devices only: a batch
+    # cut into SHARDS parts on one card (cuDNN picks its algorithm by
+    # batch) against the whole batch
+    batch = torch.from_numpy(_sketches(8)).cuda().repeat(32, 1, 1, 1)
+    with torch.no_grad():
+        whole = forward(batch).float()
+        parts = torch.cat([forward(p).float() for p in batch.chunk(SHARDS)])
+    split_diff = float((whole - parts).abs().max())
+    del batch, whole, parts
+    counters = list(_counters().values()) + [rf.positive_counters]
+    chunks = -(-len(test_cat) // 1024)
+    runs = {}
+    for name, folder, with_mesh in (("one", cache, False),
+                                    ("sharded", cache, True),
+                                    ("k1_rows", state["k1_cache"], True)):
+        trace = {}
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        got = engine_mod.run_inference(
+            forward, test_cat, feature_folder=folder, loss_type="euclidean",
+            image_size=224, feature_root=tmp / "features", device="cuda",
+            mesh=mesh if with_mesh else None, trace=trace)
+        wall = time.perf_counter() - t0
+        (sub,) = trace["passes"]
+        runs[name] = {"dict": got, "trace": sub, "wall_s": wall,
+                      "launches": [c.launches for c in counters],
+                      "fallback": rf.counters.fallback_rows}
+    k1, k1_bf16, k2, p1, positive = runs["sharded"]["launches"]
+    check(runs["sharded"]["trace"]["route"] == "K1_sharded"
+          and k1 == SHARDS * chunks and positive == SHARDS * chunks
+          and k1_bf16 == k2 == p1 == 0 and runs["sharded"]["fallback"] == 0,
+          f"run_inference over the mesh: K1 and its positive launched "
+          f"{SHARDS} times a query chunk ({chunks}), alone, no fallback")
+    state["launches"]["K1_sharded"] = (state["launches"].get("K1_sharded", 0)
+                                       + k1)
+    one, sh = runs["one"], runs["sharded"]
+    check(torch.equal(one["trace"]["queries"], sh["trace"]["queries"]),
+          "the mesh's one card embeds the queries as without the mesh")
+    for key in ("ranks", "values", "indices"):
+        check(np.array_equal(one["trace"][key], sh["trace"][key]),
+              f"run_inference over the mesh: the unsharded run's {key}")
+    check(all(sh["dict"][key] == one["dict"][key] for key in one["dict"]
+              if key != "inference_time"),
+          "run_inference over the mesh: the unsharded run's dict")
+    k1_rows = runs["k1_rows"]
+    k1, k1_bf16, k2, p1, positive = k1_rows["launches"]
+    check(k1_rows["trace"]["route"] == "K1" and k1 == chunks
+          and positive == 0 and k1_rows["fallback"] == 0,
+          f"run_inference over the mesh at {K1_ROWS} rows (not divisible "
+          f"by {SHARDS}): unsharded K1, once a query chunk")
+    state["launches"]["K1"] = state["launches"].get("K1", 0) + k1
+    del model
+    torch.cuda.empty_cache()
+
+    # --n_devices past the cards present exits with the mesh's message
+    n_cards = torch.cuda.device_count()
+    try:
+        inference_cli.main(["--folder", RUN, "--results_root",
+                            str(tmp / "results"), "--n_devices",
+                            str(n_cards + 1)])
+        said = ""
+    except SystemExit as e:
+        said = str(e)
+    check(f"only {n_cards} present" in said,
+          f"--n_devices {n_cards + 1} on {n_cards} card(s) exits")
+    line.update({
+        "inference": {
+            "rows": SHARD_ROWS, "queries": len(test_cat), "chunks": chunks,
+            "launches": {"K1": runs["sharded"]["launches"][0],
+                         "positive": runs["sharded"]["launches"][4]},
+            "wall_s": {k: v["wall_s"] for k, v in runs.items()},
+            "rank_s": {k: v["trace"]["rank_s"] for k, v in runs.items()},
+            "mrr": sh["dict"]["mean_reciprocal_rank"],
+            "k1_rows_route": k1_rows["trace"]["route"],
+            "embed_batch_256_split_in_4_max_abs_diff": split_diff},
+        "n_devices_exit": said})
+    emit(line)
+
+
 # ------------------------------------------------------------------- main
 
+PHASES = ("build", "kernels", "kernels_k2", "kernels_int8_wide", "probe_k1",
+          "encoder", "serve", "serve_quant", "inference", "inference_k1",
+          "sharded")
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
-        argv)
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--phases", default=None,
+        help="comma-separated phases to run (build is always first; "
+             "sharded needs inference and inference_k1); a partial run "
+             "prints no kernels line and no result line")
+    args = parser.parse_args(argv)
+    names = PHASES if args.phases is None else ["build"] + [
+        p for p in args.phases.split(",") if p != "build"]
+    unknown = set(names) - set(PHASES)
+    if unknown:
+        parser.error(f"unknown phases {sorted(unknown)}")
 
     import torch
 
@@ -2019,14 +2460,16 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         state = {"launches": {}, "tmp": tmp}
-        for phase in (phase_build, phase_kernels, phase_kernels_k2,
-                      phase_kernels_int8_wide, phase_probe_k1, phase_encoder,
-                      phase_serve, phase_serve_quant, phase_inference,
-                      phase_inference_k1):
-            phase(state)
+        for name in names:
+            globals()["phase_" + name](state)
+    if args.phases is not None:
+        print("chip_smoke: partial run, phases " + ",".join(names),
+              flush=True)
+        return 0
     emit({"kernels": [{**state[name.lower()],
                        "launches": state["launches"][name]}
-                      for name in ("K1", "K1_bf16", "K2", "P1")]})
+                      for name in ("K1", "K1_bf16", "K2", "P1", "K1_sharded",
+                                   "K2_sharded")]})
     print(state["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,7 @@ import torch
 from art_sbir_tpu.ops import quant as jq
 from art_sbir_tpu_torch.ops import quant as pq
 from art_sbir_tpu_torch.ops import quant_fused
+from art_sbir_tpu_torch.parallel.mesh import MeshSpec
 
 
 def _t(x):
@@ -176,9 +177,12 @@ def test_guards(rng):
     gal = rng.standard_normal((16, 32)).astype(np.float32)
     with pytest.raises(ValueError, match="unknown metric"):
         pq.quantize_gallery(torch.from_numpy(gal), metric="l2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pq.retrieve_quantized_sharded(torch.from_numpy(gal[:2]), None, None,
-                                      None)
+    # the sharded route refuses a ragged gallery (16 rows on 3 shards)
+    g16 = torch.from_numpy(gal)
+    mesh = MeshSpec(3).build([torch.device("cpu")] * 3)
+    with pytest.raises(ValueError, match="divisible by"):
+        pq.retrieve_quantized_sharded(g16[:2], pq.quantize_gallery(g16), g16,
+                                      mesh)
     # off the CPU the cross term is summed in float32 slices of at most
     # F32_EXACT_DIM columns and added in int32, so a wider D is served
     wide = torch.empty((2, quant_fused.F32_EXACT_DIM + 1), dtype=torch.int8,

@@ -26,6 +26,7 @@ import art_sbir_tpu.ops.retrieval_pallas as jax_pallas
 import art_sbir_tpu.retrieval.rank as jax_rank
 import art_sbir_tpu_torch.retrieval.rank as port_rank
 from art_sbir_tpu_torch.ops import retrieval_fused as rf
+from art_sbir_tpu_torch.parallel.mesh import MeshSpec
 
 STEM_CASES = [
     "s/n01_2-1.png", "s/n01_2-13.png", "s/123.png", "s/3-1003-37.png",
@@ -178,10 +179,20 @@ def test_tensor_inputs_and_tiny_gallery(rng):
 
 
 def test_mesh_is_still_to_port(rng):
+    """A mesh on the exact route (below the K1 threshold, where the JAX
+    package ranks the whole gallery too): the dict without the mesh, on
+    the mesh's first device. K1 over a mesh: tests/test_torch_sharded.py."""
     queries, gal, sketch_paths, image_paths = _features(rng, n=8, q=8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        port_rank.evaluate_retrieval(queries, gal, sketch_paths, image_paths,
-                                     mesh=object(), device="cpu")
+    mesh = MeshSpec(2).build([torch.device("cpu")] * 2)
+    trace = {}
+    got = port_rank.evaluate_retrieval(queries, gal, sketch_paths,
+                                       image_paths, mesh=mesh, trace=trace)
+    want = port_rank.evaluate_retrieval(queries, gal, sketch_paths,
+                                        image_paths, device="cpu")
+    assert trace["route"] == "exact"
+    for d in (got, want):
+        d.pop("inference_time")
+    assert got == want
 
 
 @pytest.mark.parametrize("route", ["exact", "fused"])

@@ -18,6 +18,7 @@ import torch
 from art_sbir_tpu.ops.retrieval_pallas import retrieve_fused as jax_fused
 from art_sbir_tpu_torch.ops import retrieval_fused as rf
 from art_sbir_tpu_torch.ops.distance import retrieve_chunked
+from art_sbir_tpu_torch.parallel.mesh import MeshSpec
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -167,8 +168,10 @@ def test_guards(rng):
         rf.retrieve_fused(queries, g, pos, k=16)
     with pytest.raises(ValueError, match="unknown precision"):
         rf.retrieve_fused(queries, g, pos, k=4, precision="fast")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rf.retrieve_fused_sharded(queries, g, pos, None)
+    # the sharded form bounds k by a shard's rows (4 on 2 CPU shards)
+    mesh = MeshSpec(2).build([torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="per-shard gallery size 4"):
+        rf.retrieve_fused_sharded(queries, g, pos, mesh, k=5)
     with pytest.raises(ValueError, match="metric"):
         rf.retrieve_fused(queries, g, pos, k=4, metric="manhattan")
 
