@@ -12,8 +12,10 @@ embedded by the bf16 encoder, ranked on the card: K1 with ranks from
 into the run folder. ``--n_devices N`` (-1: every card) makes an
 encoder replica on each of the first N cards, splits each embedding
 batch over them and shards the ranked gallery's rows over them (with
-``--device cpu``, N shards on the CPU). BatchNorm recalibration comes
-with the training slice; asking for it exits with a message.
+``--device cpu``, N shards on the CPU). ``--bn_recalibrate
+mixed|per_modality`` first recalibrates the BatchNorm running statistics
+over the run's train split (``train/bn.py``); ``per_modality`` embeds the
+queries with the sketches' statistics and the gallery with the photos'.
 """
 
 from __future__ import annotations
@@ -29,9 +31,10 @@ import torch
 from art_sbir_tpu_torch.core.device import resolve_device
 from art_sbir_tpu_torch.core.results import load_results
 from art_sbir_tpu_torch.parallel.mesh import mesh_from_args
-from art_sbir_tpu_torch.retrieval.engine import (rebuild_test_catalog,
+from art_sbir_tpu_torch.retrieval.engine import (rebuild_catalogs,
                                                  restore_encoder,
                                                  run_inference)
+from art_sbir_tpu_torch.train.bn import recalibrate_from_catalog, with_stats
 from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
 
 
@@ -39,12 +42,14 @@ def evaluate_folder(folder: str, results_root: Path | str = "results",
                     models_root: Path | str = "models", data_root=None,
                     device: str | torch.device | None = None,
                     feature_root: Path | str = "data/image_features",
-                    trace: Dict | None = None, mesh=None) -> Dict | None:
+                    trace: Dict | None = None, mesh=None,
+                    bn_recalibrate: str = "off") -> Dict | None:
     """The run's inference dict (``run_inference`` over its test catalog,
     ``trace`` and ``mesh`` passed on), or None, with a note, when the
     folder has no ``data_params.json``. With a ``mesh``, ``device`` is
     ``mesh.devices[0]`` and each other card of the mesh gets a replica of
-    the encoder."""
+    the encoder. ``bn_recalibrate`` (``mixed`` or ``per_modality``)
+    recalibrates the BatchNorm statistics over the train split first."""
     dev = resolve_device(device if mesh is None else mesh.devices[0])
     results = load_results(Path(results_root) / folder)
     if "data_params" not in results:
@@ -56,35 +61,60 @@ def evaluate_folder(folder: str, results_root: Path | str = "results",
     if not restored:
         print(f"Model {folder} is not available — evaluating fresh init",
               flush=True)
+    train_cat, test_cat = rebuild_catalogs(data_dict, data_root)
+    image_size = int(param_dict.get("image_size", 224))
 
-    # one encoder a card of the mesh; the forward takes the batch's card's
-    replicas = {d: model if d == dev else copy.deepcopy(model).to(d)
-                for d in ([] if mesh is None else mesh.distinct_devices())}
+    query_model = model
+    if bn_recalibrate != "off":
+        out = recalibrate_from_catalog(
+            model, train_cat, mode=bn_recalibrate, image_size=image_size,
+            resize_mode=(param_dict.get("resize_mode")
+                         or getattr(train_cat, "resize_mode", "square")),
+            batch_size=int(param_dict.get("batch_size", 32)), device=dev)
+        if bn_recalibrate == "mixed":
+            model.load_state_dict(out, strict=False)
+        else:
+            sketch_stats, photo_stats = out
+            model.load_state_dict(photo_stats, strict=False)
+            query_model = with_stats(model, sketch_stats)
+        print(f"BN running stats recalibrated ({bn_recalibrate})",
+              flush=True)
 
-    def forward(images_uint8):
-        return replicas.get(images_uint8.device, model)(
-            finish_gallery_batch(images_uint8))
+    def forward_of(encoder):
+        # one encoder a card of the mesh; the forward takes the batch's
+        # card's
+        replicas = {d: encoder if d == dev else copy.deepcopy(encoder).to(d)
+                    for d in ([] if mesh is None
+                              else mesh.distinct_devices())}
+
+        def forward(images_uint8):
+            return replicas.get(images_uint8.device, encoder)(
+                finish_gallery_batch(images_uint8))
+        return forward
 
     # the geometry the run recorded; None -> the catalog family's
     resize_mode = param_dict.get("resize_mode") or data_dict.get("resize_mode")
     return run_inference(
-        forward, rebuild_test_catalog(data_dict, data_root), None,
-        param_dict.get("loss_type", "euclidean"),
-        image_size=int(param_dict.get("image_size", 224)),
+        forward_of(model), test_cat, None,
+        param_dict.get("loss_type", "euclidean"), image_size=image_size,
         resize_mode=resize_mode, model_name=type(model).__name__,
-        feature_root=feature_root, device=dev, trace=trace, mesh=mesh)
+        feature_root=feature_root,
+        query_forward_fn=(None if query_model is model
+                          else forward_of(query_model)),
+        device=dev, trace=trace, mesh=mesh)
 
 
 def rerun_folder(folder: str, results_root: Path | str = "results",
                  models_root: Path | str = "models", data_root=None,
                  device: str | torch.device | None = None,
                  feature_root: Path | str = "data/image_features",
-                 trace: Dict | None = None, mesh=None) -> None:
+                 trace: Dict | None = None, mesh=None,
+                 bn_recalibrate: str = "off") -> None:
     """:func:`evaluate_folder`, then ``inference_updated.json`` and the
     plots into the run folder."""
     inference_dict = evaluate_folder(folder, results_root, models_root,
                                      data_root, device, feature_root, trace,
-                                     mesh)
+                                     mesh, bn_recalibrate)
     if inference_dict is None:
         return
     from art_sbir_tpu_torch.viz.plots import visualize
@@ -115,18 +145,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "CPU with --device cpu)")
     p.add_argument("--bn_recalibrate", default="off",
                    choices=["off", "mixed", "per_modality"],
-                   help="recalibrate BatchNorm running stats over the run's "
-                        "train split first; only 'off' so far")
+                   help="recalibrate BatchNorm running stats over the "
+                        "run's train split before evaluating (train/bn.py)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.bn_recalibrate != "off":
-        raise SystemExit(
-            f"--bn_recalibrate {args.bn_recalibrate}: BatchNorm "
-            "recalibration comes with the training slice (ROADMAP.md queue 1 "
-            "item 4); use --bn_recalibrate off")
     device = resolve_device(args.device)
     mesh = mesh_from_args(args.n_devices, device=device)
     results_root = Path(args.results_root)
@@ -137,7 +162,8 @@ def main(argv=None) -> None:
     print(folders, flush=True)
     for folder in folders:
         rerun_folder(folder, results_root, args.models_root, args.data_root,
-                     device, args.feature_root, mesh=mesh)
+                     device, args.feature_root, mesh=mesh,
+                     bn_recalibrate=args.bn_recalibrate)
 
 
 if __name__ == "__main__":

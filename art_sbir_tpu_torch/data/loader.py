@@ -7,15 +7,18 @@ pixels: the native C++ pipeline (:mod:`art_sbir_tpu_torch.data.native_loader`,
 whole batches on a thread pool) and PIL, the reference implementation
 (:func:`decode_image`), which also takes whatever the native decoder
 rejects. PIL is imported inside the functions, only when an image is
-decoded. The triplet loader comes with the training slice.
+decoded. :class:`TripletLoader` batches a catalog's triplets for
+training, :class:`GalleryLoader` a gallery's images for embedding.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import io
+import random
 import time
 from pathlib import Path
-from typing import BinaryIO, Sequence
+from typing import BinaryIO, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -86,6 +89,89 @@ def decode_paths(paths: Sequence[Path | str], size: int,
     for i, p in enumerate(paths):
         out[i] = decode_image(p, size, resize_mode, grayscale)
     return out
+
+
+class TripletLoader:
+    """Batches a RetrievalCatalog's triplets.
+
+    Yields dicts of host numpy arrays: ``sketch``/``positive``/``negative``
+    uint8 (B, S, S, 3), plus ``label``/``label2``/``augment`` int32 where
+    the catalog gives them. Train mode shuffles each epoch with
+    ``random.Random(seed)``, so the batch order is the JAX package's; one
+    background thread builds batch k + 1 while the device works on batch
+    k. A corrupt image falls back to item 0 with a note (reference
+    `data_preparation.py:517-525`).
+    """
+
+    def __init__(self, catalog, batch_size: int = 32, image_size: int = 224,
+                 resize_mode: Optional[str] = None,
+                 shuffle: Optional[bool] = None, seed: int = 0,
+                 prefetch: bool = True,
+                 keys=("sketch", "positive", "negative"),
+                 decode_backend: str = "auto"):
+        self.catalog = catalog
+        self.batch_size = batch_size
+        self.image_size = image_size
+        # None -> the catalog family's geometry (RetrievalCatalog.resize_mode)
+        self.resize_mode = resize_mode or getattr(catalog, "resize_mode",
+                                                  "square")
+        self.shuffle = (shuffle if shuffle is not None
+                        else catalog.mode == "train")
+        self.rng = random.Random(seed)
+        self.prefetch = prefetch
+        self.keys = keys
+        self.decode_backend = decode_backend
+
+    def __len__(self) -> int:
+        return (len(self.catalog) + self.batch_size - 1) // self.batch_size
+
+    def _decode(self, path) -> np.ndarray:
+        try:
+            return decode_image(path, self.image_size, self.resize_mode)
+        except Exception as e:  # corrupt-image fallback (reference behavior)
+            print(f"error decoding {path}: {e}", flush=True)
+            fallback = self.catalog.item(0)
+            key = self.keys[1] if self.keys[1] in fallback else self.keys[0]
+            return decode_image(fallback[key], self.image_size,
+                                self.resize_mode)
+
+    def _decode_many(self, paths) -> np.ndarray:
+        try:
+            return decode_paths(paths, self.image_size, self.resize_mode,
+                                backend=self.decode_backend)
+        except Exception:
+            # a corrupt file: decode this key image by image, so the
+            # item-0 substitution applies to exactly the broken images
+            return np.stack([self._decode(p) for p in paths])
+
+    def _build(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
+        items = [self.catalog.item(i) for i in indices]
+        batch: Dict[str, np.ndarray] = {}
+        for key in self.keys:
+            if key in items[0]:
+                batch[key] = self._decode_many([it[key] for it in items])
+        for lk in ("label", "label2", "augment"):
+            if lk in items[0]:
+                batch[lk] = np.asarray([it[lk] for it in items], np.int32)
+        return batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order: List[int] = list(range(len(self.catalog)))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        chunks = [order[i:i + self.batch_size]
+                  for i in range(0, len(order), self.batch_size)]
+        if not self.prefetch:
+            for c in chunks:
+                yield self._build(c)
+            return
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            future = pool.submit(self._build, chunks[0]) if chunks else None
+            for i in range(len(chunks)):
+                batch = future.result()
+                future = (pool.submit(self._build, chunks[i + 1])
+                          if i + 1 < len(chunks) else None)
+                yield batch
 
 
 class GalleryLoader:

@@ -4,9 +4,10 @@ Counterpart of ``art_sbir_tpu/data/synthetic.py``: the same seeds write
 the same files, byte for byte. The real corpora are multi-GB downloads
 (reference `data_setup.py`), so tests and smoke runs use deterministic
 miniatures with the directory and CSV contracts the catalogs expect:
-uniform-noise photos and random polyline sketches. The learnable corpus
-and the SVG strokes come with the training and stroke slices. PIL is
-imported inside the functions.
+uniform-noise photos and random polyline sketches, or (``learnable=True``)
+photos of outlined shapes with sketches that outline the same shapes, on
+which triplet training visibly learns. The SVG strokes come with the
+stroke slice. PIL is imported inside the functions.
 """
 
 from __future__ import annotations
@@ -37,12 +38,107 @@ def _img(seed: int, size: int = 96, sketch: bool = False):
     return Image.fromarray(arr)
 
 
+def _shape_params(class_id: int, photo_id: int) -> list:
+    """The shapes of one photo instance: shape 0's type encodes the CLASS
+    (a signal for the classification head), the others' types, places,
+    sizes and colors the INSTANCE (a signal for the triplet loss). Tuples
+    (shape_type, cx, cy, rx, ry, angle, rgb), in fractions of the image
+    size."""
+    rng = np.random.default_rng(1_000_003 * class_id + photo_id)
+    shapes = []
+    n_shapes = 2 + int(rng.integers(0, 2))  # 2 or 3 shapes
+    # each shape in its own quadrant (seeded order): no photo shape hides
+    # another that the sketch still outlines
+    quads = rng.permutation(4)[:n_shapes]
+    for s in range(n_shapes):
+        stype = class_id % 3 if s == 0 else int(rng.integers(0, 3))
+        qx, qy = quads[s] % 2, quads[s] // 2
+        cx = 0.25 + 0.5 * qx + rng.uniform(-0.08, 0.08)
+        cy = 0.25 + 0.5 * qy + rng.uniform(-0.08, 0.08)
+        rx = rng.uniform(0.10, 0.20)
+        ry = rx * rng.uniform(0.6, 1.0)
+        angle = float(rng.uniform(0, 2 * np.pi))
+        color = tuple(int(c) for c in rng.integers(40, 216, 3))
+        shapes.append((stype, float(cx), float(cy), float(rx), float(ry),
+                       angle, color))
+    return shapes
+
+
+def _shape_points(stype, cx, cy, rx, ry, angle, size) -> list:
+    """Polygon vertices (pixels) of a rectangle or triangle; None for an
+    ellipse."""
+    if stype == 0:
+        return None  # axis-aligned ellipse
+    n = 4 if stype == 1 else 3
+    pts = []
+    for k in range(n):
+        t = angle + 2 * np.pi * k / n
+        pts.append((cx * size + rx * size * np.cos(t),
+                    cy * size + ry * size * np.sin(t)))
+    return pts
+
+
+def _draw_shape(draw, stype, cx, cy, rx, ry, angle, size, width,
+                fill=None) -> None:
+    pts = _shape_points(stype, cx, cy, rx, ry, angle, size)
+    if pts is None:
+        bbox = [(cx - rx) * size, (cy - ry) * size,
+                (cx + rx) * size, (cy + ry) * size]
+        draw.ellipse(bbox, fill=fill, outline=(0, 0, 0), width=width)
+    else:
+        draw.polygon(pts, fill=fill, outline=(0, 0, 0), width=width)
+
+
+def _learnable_photo(class_id: int, photo_id: int, size: int):
+    """A photo: outlined, lightly filled shapes on a bright background, so
+    photo and sketch share edges and pixel moments (one set of running
+    BatchNorm statistics serves both at inference)."""
+    from PIL import Image, ImageDraw
+
+    rng = np.random.default_rng(7_000_003 * class_id + photo_id + 13)
+    base = rng.integers(215, 245)
+    grad = np.linspace(-12, 12, size)[:, None]
+    arr = np.clip(base + grad + rng.normal(0, 5, (size, size)), 0, 255)
+    arr = np.repeat(arr[..., None], 3, -1).astype(np.uint8)
+    img = Image.fromarray(arr)
+    draw = ImageDraw.Draw(img)
+    width = max(1, size // 48)
+    for stype, cx, cy, rx, ry, angle, color in _shape_params(class_id,
+                                                             photo_id):
+        fill = tuple(int(160 + 0.35 * c) for c in color)  # muted fill
+        _draw_shape(draw, stype, cx, cy, rx, ry, angle, size, width, fill)
+    return img
+
+
+def _learnable_sketch(class_id: int, photo_id: int, sketch_id: int,
+                      size: int):
+    """A sketch: black outlines of the SAME shapes on white, each with a
+    small hand-drawn jitter of center, size and rotation."""
+    from PIL import Image, ImageDraw
+
+    rng = np.random.default_rng(
+        900_000_007 * class_id + 1_009 * photo_id + sketch_id)
+    img = Image.new("RGB", (size, size), (255, 255, 255))
+    draw = ImageDraw.Draw(img)
+    for stype, cx, cy, rx, ry, angle, _ in _shape_params(class_id, photo_id):
+        cx += rng.normal(0, 0.012)
+        cy += rng.normal(0, 0.012)
+        rx *= rng.uniform(0.92, 1.08)
+        ry *= rng.uniform(0.92, 1.08)
+        angle += rng.normal(0, 0.05)
+        _draw_shape(draw, stype, cx, cy, rx, ry, angle, size,
+                    max(1, size // 48))
+    return img
+
+
 def make_synthetic_sketchy(root: Path | str, n_classes: int = 3,
                            photos_per_class: int = 3,
                            sketches_per_photo: int = 2,
-                           size: int = 96) -> Path:
+                           size: int = 96, learnable: bool = False) -> Path:
     """data/sketchy layout: ``photos/<class>/nX_Y.jpg`` and
-    ``sketches_png/<class>/nX_Y-k.png``."""
+    ``sketches_png/<class>/nX_Y-k.png``. ``learnable=True`` draws each
+    sketch as a line drawing of its photo's shapes, so training moves
+    recall above chance."""
     root = Path(root)
     for ci in range(n_classes):
         cls = f"class{ci:02d}"
@@ -50,10 +146,14 @@ def make_synthetic_sketchy(root: Path | str, n_classes: int = 3,
         (root / "sketches_png" / cls).mkdir(parents=True, exist_ok=True)
         for pi in range(photos_per_class):
             img_id = f"n{ci:08d}_{pi}"
-            _img(ci * 100 + pi, size).save(root / "photos" / cls / f"{img_id}.jpg")
+            photo = (_learnable_photo(ci, pi, size) if learnable
+                     else _img(ci * 100 + pi, size))
+            photo.save(root / "photos" / cls / f"{img_id}.jpg")
             for si in range(1, sketches_per_photo + 1):
-                _img(ci * 1000 + pi * 10 + si, size, sketch=True).save(
-                    root / "sketches_png" / cls / f"{img_id}-{si}.png")
+                sketch = (_learnable_sketch(ci, pi, si, size) if learnable
+                          else _img(ci * 1000 + pi * 10 + si, size,
+                                    sketch=True))
+                sketch.save(root / "sketches_png" / cls / f"{img_id}-{si}.png")
     return root
 
 

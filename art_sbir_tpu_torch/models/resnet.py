@@ -13,7 +13,8 @@ producing the ``output_dim`` (1024) embedding.
   the attention run in it (bf16 when serving); parameters and BN running
   statistics stay float32. BN in eval mode applies its float32
   scale/shift folded into the compute dtype; in train mode it normalizes
-  in float32.
+  in float32 and updates its running statistics as flax does (biased
+  batch variance).
 * State-dict keys keep the reference torch layout (``conv1.weight``,
   ``layer1.0.downsample.0.weight``, ``attnpool.q_proj.weight``, ...), so a
   reference ``.pth`` loads natively.
@@ -49,14 +50,34 @@ class Linear(nn.Linear):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d (momentum ``BN_MOMENTUM``, eps 1e-5) with float32 state."""
+    """BatchNorm2d (momentum ``BN_MOMENTUM``, eps 1e-5) with float32 state.
+
+    Train mode normalizes by the batch's biased statistics in float32 (or
+    the input's dtype where it is wider) and
+    updates the running statistics as flax's ``nn.BatchNorm`` does:
+    ``running = (1 - m) * running + m * batch`` with the BIASED batch
+    variance. torch's own update takes the unbiased variance (n / (n - 1)
+    times larger), so it is written out here. ``record`` (a list, or None)
+    collects each train-mode call's (mean, biased var) for
+    :mod:`art_sbir_tpu_torch.train.bn`."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=1e-5, momentum=BN_MOMENTUM)
+        self.record = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            return super().forward(x.float()).to(x.dtype)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            with torch.no_grad():
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+                if self.record is not None:
+                    self.record.append((mean, var))
+            return F.batch_norm(xf, None, None, self.weight, self.bias,
+                                True, 0.0, self.eps).to(x.dtype)
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
         return torch.addcmul(shift.to(x.dtype)[None, :, None, None], x,
@@ -130,7 +151,8 @@ class AttentionPool2d(nn.Module):
 
 class ModifiedResNet(nn.Module):
     """The CLIP RN50 visual tower (reference ``models.py:275-360``).
-    ``forward``: NHWC (B, S, S, 3) -> float32 (B, output_dim)."""
+    ``forward``: NHWC (B, S, S, 3) -> float32 (B, output_dim) (float64 in
+    a float64 model)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  output_dim: int = 1024, heads: int = 32,
@@ -166,7 +188,8 @@ class ModifiedResNet(nn.Module):
         x = self.avgpool(x)
         for stage in range(1, len(self.layers) + 1):
             x = getattr(self, f"layer{stage}")(x)
-        return self.attnpool(x).float()
+        out = self.attnpool(x)
+        return out.to(torch.promote_types(out.dtype, torch.float32))
 
 
 class ModifiedResNetWithClassification(ModifiedResNet):

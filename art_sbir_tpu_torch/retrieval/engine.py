@@ -31,9 +31,9 @@ from art_sbir_tpu_torch.retrieval.embed import (embed_batched,
 from art_sbir_tpu_torch.retrieval.rank import evaluate_retrieval
 
 
-def rebuild_test_catalog(data_dict: Dict, data_root=None):
-    """The run's test catalog, rebuilt from ``data_params.json`` (a Mixed
-    run's version appended to its dataset name)."""
+def rebuild_catalogs(data_dict: Dict, data_root=None):
+    """The run's (train, test) catalogs, rebuilt from ``data_params.json``
+    (a Mixed run's version appended to its dataset name)."""
     name = data_dict["dataset"]
     if "Mixed" in name and "version" in data_dict:
         name += data_dict["version"]
@@ -41,7 +41,12 @@ def rebuild_test_catalog(data_dict: Dict, data_root=None):
         dataset=name, size=data_dict.get("size", 1.0),
         sketch_type=data_dict.get("sketch_type", "contour_drawings"),
         img_type=data_dict.get("img_type", "photos"),
-        img_format=data_dict.get("img_format", "jpg"), root=data_root)[1]
+        img_format=data_dict.get("img_format", "jpg"), root=data_root)
+
+
+def rebuild_test_catalog(data_dict: Dict, data_root=None):
+    """The run's test catalog (:func:`rebuild_catalogs`)."""
+    return rebuild_catalogs(data_dict, data_root)[1]
 
 
 def restore_encoder(folder: str, param_dict: Dict, models_root,

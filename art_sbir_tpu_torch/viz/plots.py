@@ -137,7 +137,13 @@ def visualize(folder: Path | str, training_dict: Dict,
               inference_dict: Dict) -> None:
     """Write every applicable plot into the run folder, dispatching on the
     dicts' shapes like the reference ``visualize``
-    (`visualization.py:262-273`)."""
+    (`visualization.py:262-273`). Where matplotlib is not installed it
+    says so and draws nothing."""
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        print("matplotlib is not installed: no plots", flush=True)
+        return
     folder = Path(folder)
     folder.mkdir(parents=True, exist_ok=True)
     if training_dict.get("train_losses"):

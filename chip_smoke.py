@@ -42,7 +42,7 @@ Phases, each printing one JSON line:
                   levels and K1 in both forms on the probe's own inputs at
                   its two shapes, the serving shape (Q = 32, N = 100,352)
                   and an offline shape (Q = 512, N = 999,424), against
-                  their plain versions; then K1's ablation probe
+                  their plain versions (P1's plain level 2 timed there); then K1's ablation probe
                   (``scripts/probe_fused_overhead.py``: P1's levels, K1 in
                   both forms, the chunked plain route) at those shapes, 3
                   rounds each, each time beside its bound.
@@ -115,6 +115,30 @@ Phases, each printing one JSON line:
                   --n_devices`` past the cards present exits. One engine
                   dispatch of 8 sketches, unsharded and over the 4 shards,
                   timed in 10 alternating pairs without HTTP.
+12. train      -- the training path at full width (ModifiedResNet50 with
+                  a 125-class head, SketchyV2 labels, so the head's loss is
+                  on). One float32 step (TF32 off) of a uint8 triplet batch
+                  of 4 on the card and on the CPU, each held against a
+                  float64 step on the CPU: the card no farther from it
+                  than twice the CPU plus rtol 1e-5 (the loss, each
+                  running statistic) or 1e-4 (each gradient's norm; a
+                  symmetry's zero as noise on both sides); then Adam from
+                  the CPU's gradients on both at rtol 1e-6. ``cli/train.py`` for one
+                  bf16 epoch of batches of 32 on a learnable synthetic
+                  Sketchy corpus (25 classes x 18 photos x 4 sketches at
+                  128 px) with ``--inference``: the four JSONs, finite
+                  losses, ``models/<run>.pt``; then ``cli/inference.py
+                  --bn_recalibrate per_modality`` and ``serve --folder`` on
+                  the trained run, 8 /search requests over HTTP. Five bf16
+                  steps on one batch at lr 1e-4 lower the loss. The bf16
+                  step at B = 32: median time (CUDA events), images/s,
+                  peak memory, the device's busy share over 5 profiled
+                  steps, the FLOPs of its convolutions and linear layers
+                  (forward x 3 for the backward, x 3 modalities) and their
+                  time at the bf16 peak; then 20 steps fed by
+                  ``TripletLoader`` as the CLI feeds them: the host's wait
+                  on the loader. The training path launches no kernel of
+                  the port.
 
 Every kernel count is set to 0 just before each counted run (each serve
 phase's requests, the probe's runs, each ``inference`` and
@@ -943,7 +967,7 @@ def _probe_shape_checks(q, n):
     of the call (a column's and the positive's), at least 4 ulp of the
     positive's distance; the bf16 values are held to the sum-order bound of
     ``rf.sum_order_bound``. Returns P1's rows and K1's, each K1 row with its
-    reach."""
+    reach, and the plain P1's time at level 2."""
     import torch
 
     from art_sbir_tpu_torch.ops import fused_ablation as fa
@@ -962,6 +986,8 @@ def _probe_shape_checks(q, n):
         check(err <= tol, f"P1 level {level} at Q={q}, N={n} within {tol}")
         p1_rows.append([n, q, level, err])
         del out, ref
+    p1_plain_ms = time_ms(lambda: fa.ablate_reference(
+        x, g, qq, gg, d2pos, pos2d, level=2), reps=2, warmup=1)
     norms = rf.gallery_norms(g, "euclidean")
     qn = rf.query_norms(x, "euclidean")
     for precision, op in (("default", torch.bfloat16),
@@ -991,7 +1017,7 @@ def _probe_shape_checks(q, n):
         k1_rows.append([n, q, precision, err, rank_err, moved,
                         int(rank_tol.max()), 2.0 * moved_by])
         del xo, go, out, ref
-    return p1_rows, k1_rows
+    return p1_rows, k1_rows, p1_plain_ms
 
 
 def phase_probe_k1(state) -> None:
@@ -1035,9 +1061,10 @@ def phase_probe_k1(state) -> None:
         del x, args
     del g, gg
     # the same, and K1 in both forms, at the probe's own shapes and inputs
-    k1_cases = []
+    k1_cases, p1_plain_by_shape = [], {}
     for q_, n_ in PROBE_SHAPES:
-        p1_rows, k1_rows = _probe_shape_checks(q_, n_)
+        p1_rows, k1_rows, p1_plain_by_shape[f"{q_}x{n_}"] = \
+            _probe_shape_checks(q_, n_)
         cases += p1_rows
         k1_cases += k1_rows
         max_err = max([max_err] + [row[3] for row in p1_rows])
@@ -1099,6 +1126,7 @@ def phase_probe_k1(state) -> None:
     emit({"phase": "probe_k1", "ok": True, "cases": len(cases),
           "case_rows": cases, "k1_case_rows": k1_cases,
           "p1_plain_ms_level2": p1_plain_ms,
+          "p1_plain_ms_level2_probe_shapes": p1_plain_by_shape,
           "launches": launches, "shapes": shapes, "library": library,
           "library_calls": "k1_library: torch.cdist (full_f32) or bf16 "
                            "torch.matmul with the norms (full), torch.topk, "
@@ -2429,11 +2457,422 @@ def phase_sharded(state) -> None:
     emit(line)
 
 
+# ------------------------------------------------------------------ train
+
+# the train phase's learnable Sketchy corpus: 1,800 sketches of 450 photos
+# at 128 px (Sketchy's are 256 px; PIL decodes and resizes those at about
+# 11 ms an image on the card's host, which would take the phase past its
+# time); the seeded 90/10 split leaves about 1,620 training triplets,
+# about 50 steps of 32
+TRAIN_CORPUS = dict(n_classes=25, photos_per_class=18, sketches_per_photo=4,
+                    size=128, learnable=True)
+TRAIN_B = 32
+CHECK_B = 4  # the card-against-CPU float32 step
+
+
+def _forward_flops(model, x) -> int:
+    """2 x the multiply-adds of ``model``'s convolutions and linear layers
+    in one forward of ``x``, from their shapes (forward hooks)."""
+    import torch
+    from torch import nn
+
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, nn.Conv2d):
+            k = mod.in_channels // mod.groups * mod.kernel_size[0] \
+                * mod.kernel_size[1]
+        else:
+            k = mod.in_features
+        total[0] += 2 * out.numel() * k
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (nn.Conv2d, nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def _run_cli(module: str, args: list, cwd: Path, timeout: int = 600) -> str:
+    """``python -m <module> <args>`` from ``cwd`` with this checkout on the
+    path; its standard output, or a failed check with its error's tail."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    out = subprocess.run([sys.executable, "-m", module, *map(str, args)],
+                         cwd=cwd, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    check(out.returncode == 0,
+          f"{module} exited {out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout
+
+
+def _one_step(model, u8, cfg, dev, backward: bool = True):
+    """One train-mode step's loss parts, embeddings and, with ``backward``,
+    gradients and running statistics (all on the CPU), from the uint8
+    triplet ``u8``, in the model's dtype."""
+    import torch
+
+    from art_sbir_tpu_torch.train.losses import triplet_loss_with_heads
+    from art_sbir_tpu_torch.train.prepare import finish_triplet_batch
+    from art_sbir_tpu_torch.train.triplet import forward3
+
+    batch = finish_triplet_batch({k: torch.from_numpy(v).to(dev)
+                                  for k, v in u8.items()}, train=True)
+    dtype = next(model.parameters()).dtype
+    batch = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with torch.set_grad_enabled(backward):
+        s, p, n = forward3(model, batch)
+        losses = triplet_loss_with_heads(cfg, s, p, n, batch["label"])
+    out = {"losses": {k: float(v.detach()) for k, v in losses.items()},
+           "embeddings": [t[0].detach().cpu().double() for t in (s, p, n)]}
+    if backward:
+        losses["loss"].backward()
+        out["grads"] = {k: v.grad.detach().cpu()
+                        for k, v in model.named_parameters()}
+        out["stats"] = {k: v.detach().cpu()
+                        for k, v in model.state_dict().items()
+                        if "running_" in k}
+    return out
+
+
+def _card_against_cpu(rng) -> dict:
+    """The full-width flagship's float32 step on the card against the same
+    step on the CPU, both held against a float64 step on the CPU: loss,
+    embeddings, gradients, running statistics; then Adam from the CPU's
+    gradients on both devices.
+
+    float32 at this depth is not exact to 1e-5 on either device (about
+    5e-5 of an embedding, 2e-5 of the loss on the CPU in the first runs),
+    so each quantity of the card must lie no farther from the float64
+    step than twice the CPU's float32 distance from it, plus the stated
+    tolerance: rtol 1e-5 for the loss and the running statistics
+    (norm-wise a tensor), 1e-4 of each gradient's norm. A gradient below
+    1e-6 of the largest is a symmetry's exact zero in rounding noise (the
+    attention pool's key bias: the softmax ignores a shift of a head's
+    logits), and both float32 sides' must be noise there. Adam from the
+    same gradients: rtol 1e-6 of each parameter, of its update (lr) where
+    it started at 0."""
+    import copy
+
+    import torch
+
+    from art_sbir_tpu_torch.core.device import ieee_f32
+    from art_sbir_tpu_torch.models.resnet import create_encoder
+    from art_sbir_tpu_torch.train.losses import TripletLossConfig
+    from art_sbir_tpu_torch.train.triplet import torch_adam
+
+    ieee_f32()
+    cfg = TripletLossConfig.for_dataset("SketchyDatasetV2", "euclidean", True)
+    check(cfg.num_heads == 1 and cfg.classification_weight == 0.5,
+          "SketchyV2 with classification: one head, weight 0.5")
+    cpu = create_encoder(with_classification=True, num_classes=125,
+                         compute_dtype=torch.float32, device="cpu", seed=0)
+    card = copy.deepcopy(cpu).cuda()
+    exact = copy.deepcopy(cpu).double()
+    exact.compute_dtype = torch.float64
+    u8 = {k: rng.integers(0, 256, (CHECK_B, 224, 224, 3), dtype=np.uint8)
+          for k in ("sketch", "positive", "negative")}
+    u8["label"] = rng.integers(0, 125, CHECK_B).astype(np.int32)
+    t0 = time.perf_counter()
+    on_cpu = _one_step(cpu, u8, cfg, "cpu")
+    cpu_s = time.perf_counter() - t0
+    on_card = _one_step(card, u8, cfg, "cuda")
+    t0 = time.perf_counter()
+    f64 = _one_step(exact, u8, cfg, "cpu")
+    f64_s = time.perf_counter() - t0
+
+    def dist(a, b) -> float:
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    fails = []
+
+    def held(what, card_err, cpu_err, tol):
+        if card_err > 2.0 * cpu_err + tol:
+            fails.append(f"{what}: card {card_err:.3g} from float64, CPU "
+                         f"{cpu_err:.3g}, tolerance {tol}")
+
+    loss = {k: (abs(on_card["losses"][k] - v) / abs(v),
+                abs(on_cpu["losses"][k] - v) / abs(v))
+            for k, v in f64["losses"].items()}
+    held("loss", *loss["loss"], 1e-5)
+    embed = [max(float(((a - b).norm(dim=1) / b.norm(dim=1)).max())
+                 for a, b in zip(side["embeddings"], f64["embeddings"]))
+             for side in (on_card, on_cpu)]
+    scale = max(float(g.norm()) for g in f64["grads"].values())
+    grads, zero = {}, []
+    for name, g in f64["grads"].items():
+        if float(g.norm()) < 1e-6 * scale:
+            zero.append(name)
+            if max(float(on_card["grads"][name].norm()),
+                   float(on_cpu["grads"][name].norm())) >= 1e-6 * scale:
+                fails.append(f"gradient of {name}: not rounding noise")
+            continue
+        grads[name] = (dist(on_card["grads"][name], g),
+                       dist(on_cpu["grads"][name], g))
+        held(f"gradient of {name}", *grads[name], 1e-4)
+    stats = {}
+    for name, st in f64["stats"].items():
+        stats[name] = (dist(on_card["stats"][name], st),
+                       dist(on_cpu["stats"][name], st))
+        held(f"running statistic {name}", *stats[name], 1e-5)
+    # Adam alone: the CPU's gradients applied on both devices
+    lr = 1e-5
+    for model in (cpu, card):
+        opt = torch_adam(model.parameters(), lr, weight_decay=2e-3)
+        dev = next(model.parameters()).device
+        for name, p in model.named_parameters():
+            p.grad = on_cpu["grads"][name].to(dev)
+        opt.step()
+    cpu_p = dict(cpu.named_parameters())
+    adam_err = 0.0
+    for name, p in card.named_parameters():
+        ref = cpu_p[name].detach()
+        err = (p.detach().cpu() - ref).abs() / (ref.abs() + lr)
+        adam_err = max(adam_err, float(err.max()))
+    if adam_err > 1e-6:
+        fails.append(f"Adam from the same gradients: {adam_err:.3g}")
+
+    def worst(d):
+        name = max(d, key=lambda k: d[k][0])
+        return {"name": name, "card": d[name][0], "cpu": d[name][1],
+                "cpu_max": max(v[1] for v in d.values())}
+
+    out = {"batch": CHECK_B, "cpu_step_s": cpu_s, "f64_step_s": f64_s,
+           "losses_cpu": on_cpu["losses"], "losses_card": on_card["losses"],
+           "losses_f64": f64["losses"],
+           "loss_rel_err_card_cpu": abs(on_card["losses"]["loss"]
+                                        - on_cpu["losses"]["loss"])
+           / abs(on_cpu["losses"]["loss"]),
+           "loss_rel_err_vs_f64": {k: {"card": a, "cpu": b}
+                                   for k, (a, b) in loss.items()},
+           "embed_rel_err_vs_f64": {"card": embed[0], "cpu": embed[1]},
+           "grad_err_vs_f64_worst": worst(grads),
+           "grads_zero_by_symmetry": zero,
+           "stats_err_vs_f64_worst": worst(stats),
+           "adam_rel_err_max": adam_err}
+    print(json.dumps({"train_card_vs_cpu": out}), file=sys.stderr,
+          flush=True)
+    check(not fails, "the card's float32 step against the CPU's: "
+          + "; ".join(fails[:5]))
+    return out
+
+
+def _timed_steps(rng) -> dict:
+    """The bf16 step at B = 32: the loss falls over five steps on one
+    fixed batch at lr 1e-4; median step time, the device's busy share over
+    five profiled steps, peak memory and the step's FLOPs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from art_sbir_tpu_torch.models.resnet import create_encoder
+    from art_sbir_tpu_torch.train.losses import TripletLossConfig
+    from art_sbir_tpu_torch.train.prepare import finish_triplet_batch
+    from art_sbir_tpu_torch.train.triplet import (create_train_state,
+                                                  make_train_step)
+
+    model = create_encoder(with_classification=True, num_classes=125,
+                           device="cuda", seed=1)
+    state = create_train_state(model, lr=1e-4)
+    step = make_train_step(TripletLossConfig.for_dataset(
+        "SketchyDatasetV2", "euclidean", True))
+    u8 = {k: torch.from_numpy(rng.integers(0, 256, (TRAIN_B, 224, 224, 3),
+                                           dtype=np.uint8)).cuda()
+          for k in ("sketch", "positive", "negative")}
+    u8["label"] = torch.from_numpy(
+        rng.integers(0, 125, TRAIN_B).astype(np.int32)).cuda()
+    batch = finish_triplet_batch(u8, train=True)
+    losses = [float(step(state, batch)["loss"]) for _ in range(5)]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"five bf16 steps on one batch lower the loss: {losses}")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(13):  # 3 warm-up steps, then 10 timed
+        start.record()
+        step(state, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step(state, batch)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA) / 1e3
+    flops = 3 * 3 * _forward_flops(model, batch["sketch"])
+    ms = float(np.median(times[3:]))
+    # the profiler's own host work lengthens the profiled steps; the idle
+    # share of an unprofiled step sets the profiled busy time against the
+    # median step
+    return {"losses_fixed_batch": losses, "step_ms_median": ms,
+            "step_ms_all": times[3:], "images_per_s": 3 * TRAIN_B * 1e3 / ms,
+            "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share_profiled": busy_ms / wall_ms,
+            "device_busy_ms_per_step": busy_ms / 5,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / 5 / ms),
+            "peak_memory_bytes": peak, "step_flops": flops,
+            "bound_ms": 1e3 * flops / H100_BF16_FLOP_PER_S,
+            "bound_by": "operations",
+            "share_of_bf16_peak": 1e3 * flops / H100_BF16_FLOP_PER_S / ms}
+
+
+def _loader_wait(root, steps: int = 20) -> dict:
+    """``steps`` bf16 steps fed by ``TripletLoader`` from the corpus as
+    ``cli/train.py`` feeds them: the host's time blocked on the loader,
+    and the wall time a step."""
+    import torch
+
+    from art_sbir_tpu_torch.data import get_datasets
+    from art_sbir_tpu_torch.data.loader import TripletLoader
+    from art_sbir_tpu_torch.models.resnet import create_encoder
+    from art_sbir_tpu_torch.train.losses import TripletLossConfig
+    from art_sbir_tpu_torch.train.prepare import finish_triplet_batch
+    from art_sbir_tpu_torch.train.triplet import (create_train_state,
+                                                  make_train_step)
+
+    train_cat = get_datasets("SketchyV2", size=1.0, root=root)[0]
+    state = create_train_state(create_encoder(
+        with_classification=True, num_classes=125, device="cuda", seed=2))
+    step = make_train_step(TripletLossConfig.for_dataset(
+        "SketchyDatasetV2", "euclidean", True))
+    it = iter(TripletLoader(train_cat, TRAIN_B, 224))
+    wait = 0.0
+    step(state, finish_triplet_batch({k: torch.from_numpy(v).cuda()
+                                      for k, v in next(it).items()}))
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for _ in range(steps):
+        t = time.perf_counter()
+        host = next(it)
+        wait += time.perf_counter() - t
+        step(state, finish_triplet_batch({k: torch.from_numpy(v).cuda()
+                                          for k, v in host.items()}))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    return {"steps": steps, "loader_wait_ms_per_step": 1e3 * wait / steps,
+            "wall_ms_per_step": 1e3 * wall / steps,
+            "loader_wait_share": wait / wall}
+
+
+def phase_train(state) -> None:
+    """The training path at full width on the card: the float32 step
+    against the CPU's, ``cli/train.py`` for one epoch (bf16) on a learnable
+    corpus, ``cli/inference.py --bn_recalibrate per_modality`` and
+    ``serve --folder`` on the trained run, the loss falling on a fixed
+    batch, and the step's numbers."""
+    import base64
+    import threading
+
+    import torch
+
+    from art_sbir_tpu_torch.cli import serve
+    from art_sbir_tpu_torch.data.synthetic import make_synthetic_sketchy
+    from art_sbir_tpu_torch.retrieval.engine import rebuild_test_catalog
+
+    check(state["pil"], "PIL is installed: the train phase writes its "
+          "corpus with it")
+    rng = np.random.default_rng(9)
+    t_phase = time.perf_counter()
+    parity = _card_against_cpu(rng)
+    torch.cuda.empty_cache()
+
+    tmp = Path(state["tmp"]) / "train"
+    t0 = time.perf_counter()
+    root = make_synthetic_sketchy(tmp / "sketchy", **TRAIN_CORPUS)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _run_cli("art_sbir_tpu_torch.cli.train", [
+        "-e", 1, "-b", TRAIN_B, "-d", "SketchyV2", "--model_type",
+        "ModifiedResNet_with_classification", "--inference", "--data_root",
+        root, "--results_root", tmp / "results"], tmp)
+    train_cli_s = time.perf_counter() - t0
+    (run_dir,) = (tmp / "results").iterdir()
+    run = run_dir.name
+    for name in ("data_params", "training", "training_params", "inference"):
+        check((run_dir / f"{name}.json").is_file(), f"{name}.json written")
+    training = json.loads((run_dir / "training.json").read_text())
+    inference = json.loads((run_dir / "inference.json").read_text())
+    check(len(training["train_losses"]) == 1
+          and np.isfinite(training["train_losses"] + training["test_losses"]
+                          ).all(), "one epoch, finite losses")
+    check((tmp / "models" / f"{run}.pt").is_file(), "models/<run>.pt saved")
+    check(np.isfinite(inference["mean_reciprocal_rank"]), "MRR finite")
+
+    t0 = time.perf_counter()
+    said = _run_cli("art_sbir_tpu_torch.cli.inference", [
+        "--folder", run, "--results_root", tmp / "results", "--models_root",
+        tmp / "models", "--data_root", root, "--feature_root",
+        tmp / "features", "--bn_recalibrate", "per_modality"], tmp)
+    inference_cli_s = time.perf_counter() - t0
+    check("BN running stats recalibrated (per_modality)" in said,
+          "cli/inference.py recalibrated per modality")
+    recal = json.loads((run_dir / "inference_updated.json").read_text())
+    check(np.isfinite(recal["mean_reciprocal_rank"]), "recalibrated MRR "
+          "finite")
+
+    # serve --folder on the trained run, a few /search requests over HTTP
+    engine, batcher = serve.build_engine(serve.parse_args([
+        "-f", run, "--results_root", str(tmp / "results"), "--models_root",
+        str(tmp / "models"), "--data_root", str(root), "--device", "cuda"]))
+    httpd = serve.Server(("127.0.0.1", 0), serve.make_handler(engine,
+                                                              batcher))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    test_cat = rebuild_test_catalog(
+        json.loads((run_dir / "data_params.json").read_text()), root)
+    hits = 0
+    try:
+        for i in range(8):
+            body = {"image_b64": base64.b64encode(
+                Path(test_cat.sketch_paths[i]).read_bytes()).decode()}
+            out = _post(httpd.server_address[1], "/search", body)
+            check(len(out["paths"]) == 10, "/search answers 10 paths")
+            hits += out["paths"][0] == str(test_cat.photo_paths[i])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+    del engine
+    torch.cuda.empty_cache()
+
+    steps = _timed_steps(rng)
+    torch.cuda.empty_cache()
+    loader = _loader_wait(root)
+    emit({"phase": "train", "ok": True, "card_vs_cpu_f32": parity,
+          "corpus": TRAIN_CORPUS, "corpus_write_s": write_s,
+          "train_cli_s": train_cli_s, "train_cli_steps": training["steps"],
+          "train_cli_mean_step_s": training["mean_step_time"],
+          "train_losses": training["train_losses"],
+          "test_losses": training["test_losses"],
+          "mrr": inference["mean_reciprocal_rank"],
+          "top1": inference["topk_acc"][0],
+          "gallery": inference["size"], "queries": inference["count"],
+          "inference_cli_s": inference_cli_s,
+          "mrr_per_modality_bn": recal["mean_reciprocal_rank"],
+          "serve_top1_hits_of_8": hits, "bf16_step_b32": steps,
+          "loader": loader, "phase_s": time.perf_counter() - t_phase})
+
+
 # ------------------------------------------------------------------- main
 
 PHASES = ("build", "kernels", "kernels_k2", "kernels_int8_wide", "probe_k1",
           "encoder", "serve", "serve_quant", "inference", "inference_k1",
-          "sharded")
+          "sharded", "train")
 
 
 def main(argv=None) -> int:
@@ -2441,8 +2880,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--phases", default=None,
         help="comma-separated phases to run (build is always first; "
-             "sharded needs inference and inference_k1); a partial run "
-             "prints no kernels line and no result line")
+             "sharded needs inference and inference_k1; train needs no "
+             "other phase); a partial run prints no kernels line and no "
+             "result line")
     args = parser.parse_args(argv)
     names = PHASES if args.phases is None else ["build"] + [
         p for p in args.phases.split(",") if p != "build"]

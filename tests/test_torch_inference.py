@@ -11,7 +11,7 @@
 * ``cli/inference.py`` on a results folder with a ``.pt`` checkpoint (the
   bf16 encoder): ``inference_updated.json`` equals JAX's
   ``evaluate_retrieval`` over the port's own features, and the plots are
-  written; the option still to port exits with its ROADMAP item.
+  written; ``--bn_recalibrate`` runs in both modes.
 * ``cli/serve.py`` with ``--folder`` and no ``--features``: the engine's
   gallery is the evaluation's, path for path and row for row.
 """
@@ -262,13 +262,21 @@ def test_inference_cli_matches_jax_evaluation(tmp_path, sketchy_root,
         assert (run_dir / plot).stat().st_size > 0, plot
 
 
-def test_inference_cli_options_still_to_port(tmp_path, monkeypatch):
-    """BatchNorm recalibration exits with its ROADMAP item; ``--n_devices``
-    past the cards present exits with the mesh's message (a one-card host
-    stood in for here)."""
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 4"):
-        port_cli.main(["--folder", RUN, "--bn_recalibrate", "mixed",
-                       "--device", "cpu"])
+def test_inference_cli_options_still_to_port(tmp_path, sketchy_root,
+                                            monkeypatch, capsys):
+    """BatchNorm recalibration (ported with the training slice) runs in
+    both modes and writes the evaluation; ``--n_devices`` past the cards
+    present exits with the mesh's message (a one-card host stood in for
+    here)."""
+    args = _results_folder(tmp_path, sketchy_root)
+    run_dir = tmp_path / "results" / RUN
+    for mode in ("mixed", "per_modality"):
+        port_cli.main(args + ["--bn_recalibrate", mode, "--device", "cpu"])
+        assert f"BN running stats recalibrated ({mode})" in \
+            capsys.readouterr().out
+        got = json.loads((run_dir / "inference_updated.json").read_text())
+        assert 0 < got["mean_reciprocal_rank"] <= 1
+        (run_dir / "inference_updated.json").unlink()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit, match="wants 2 devices, only 1 present"):
