@@ -3,7 +3,9 @@
     python -m art_sbir_tpu_torch.cli.serve -f <run> [--features <cache>]
         [--data_root <root>] [--warmup]
         [--quantize [--rerank_factor 4] [--rerank_dtype float32|bfloat16]]
-        [--n_devices N]
+        [--ivf_nlist 0 [--ivf_nprobe 0] [--pq_m 64 [--pq_rerank bfloat16]
+         [--pq_rerank_factor 64] [--pq_opq_iters 0]] [--index_cache DIR]]
+        [--capacity N] [--n_devices N]
 
 Counterpart of ``art_sbir_tpu/cli/serve.py``. The query encoder is
 restored from ``<models_root>/<run>.pt`` (a seeded fresh init when it is
@@ -13,10 +15,17 @@ run's test gallery (its ``data_params.json`` catalog under
 ``--data_root``) embedded at startup, deduplicated and sorted as the
 offline evaluation embeds it. The HTTP layer is stdlib
 ``ThreadingHTTPServer``. ``--quantize`` serves through the int8 candidate
-scan and an exact rerank (K2 on the card). ``--n_devices N`` (-1: every
-card) serves the gallery row-sharded over the first N cards (with
-``--device cpu``, N shards on the CPU); the queries are embedded on the
-first.
+scan and an exact rerank (K2 on the card). ``--ivf_nlist`` serves
+through an IVF index built at startup (``ops/ivf.py``; 0: about 2*sqrt(N)
+clusters), probing ``--ivf_nprobe`` clusters a query (0: auto-tuned at
+startup); ``--pq_m`` adds residual IVF-PQ codes (``ops/pq.py``) with an
+exact rerank on rows kept in ``--pq_rerank`` (``none`` drops them);
+``--index_cache`` keeps the immutable index as ``.npz`` files, which a
+restart loads (files of the JAX package's ``serve`` load too). Both
+compose with ``--capacity`` (IVF only) and ``--n_devices``.
+``--n_devices N`` (-1: every card) serves the gallery row-sharded over
+the first N cards (with ``--device cpu``, N shards on the CPU); the
+queries are embedded on the first.
 
 Endpoints
 ---------
@@ -118,6 +127,13 @@ def build_engine(args, mesh=None):
               quantize=getattr(args, "quantize", False),
               rerank_factor=getattr(args, "rerank_factor", 4),
               rerank_dtype=getattr(args, "rerank_dtype", "float32"),
+              ivf_nlist=getattr(args, "ivf_nlist", None),
+              ivf_nprobe=getattr(args, "ivf_nprobe", 0),
+              pq_m=getattr(args, "pq_m", None),
+              pq_rerank=getattr(args, "pq_rerank", "bfloat16"),
+              pq_rerank_factor=getattr(args, "pq_rerank_factor", 64),
+              pq_opq_iters=getattr(args, "pq_opq_iters", 0),
+              index_cache=getattr(args, "index_cache", None),
               query_forward_fn=query_forward, device=device, mesh=mesh)
     resize_mode = param_dict.get("resize_mode")  # else the catalog's
     if args.features:
@@ -277,6 +293,38 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="bfloat16 keeps the rerank gallery resident in "
                         "bf16 (0.75 B/elem total vs 1.25 f32) at ~1e-2 "
                         "relative value rounding; quantized mode only")
+    p.add_argument("--ivf_nlist", type=int, default=None,
+                   help="build an IVF clustered index (ops/ivf.py) and "
+                        "probe --ivf_nprobe clusters a query instead of a "
+                        "full scan (0 = auto ~2*sqrt(N) clusters); "
+                        "approximate, scored distances exact; composes "
+                        "with --capacity (online IVF) and --n_devices "
+                        "(one local index a shard; with both, shared "
+                        "centroids and per-shard mutable tables)")
+    p.add_argument("--ivf_nprobe", type=int, default=0,
+                   help="clusters probed a query; 0 = auto-tune at startup "
+                        "(smallest power of two reaching 95%% recall@k_max "
+                        "on perturbed gallery rows, then doubled: the proxy "
+                        "measured one power of two optimistic against real "
+                        "cross-modal queries)")
+    p.add_argument("--pq_m", type=int, default=None,
+                   help="IVF-PQ (ops/pq.py; requires --ivf_nlist): residual "
+                        "codes of this many bytes a row, ADC-scored; "
+                        "composes with --n_devices")
+    p.add_argument("--pq_rerank", default="bfloat16",
+                   choices=["none", "float32", "bfloat16"],
+                   help="residency of the exact rows reranking the best "
+                        "pq_rerank_factor*k_max ADC candidates; 'none' "
+                        "drops the rows (approximate values)")
+    p.add_argument("--pq_rerank_factor", type=int, default=64,
+                   help="PQ exact-rerank candidates = factor * k_max")
+    p.add_argument("--pq_opq_iters", type=int, default=0,
+                   help="learn an OPQ rotation with this many alternating "
+                        "iterations (0 = plain residual PQ)")
+    p.add_argument("--index_cache", default=None,
+                   help="directory keeping the built IVF (+PQ) index as "
+                        ".npz; a restart loads it where it matches; "
+                        "immutable --ivf_nlist indexes only")
     p.add_argument("--n_devices", type=int, default=1,
                    help="shard the gallery's rows over the first N cards "
                         "(-1: all; N shards on the CPU with --device cpu); "

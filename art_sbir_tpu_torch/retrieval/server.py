@@ -1,8 +1,8 @@
 """Serving engine: a resident gallery and micro-batched queries.
 
-Counterpart of ``art_sbir_tpu/retrieval/server.py`` (the exact route, the
-K1 route, the int8 route, capacity mode and the row-sharded gallery; the
-IVF and IVF-PQ routes are still to port):
+Counterpart of ``art_sbir_tpu/retrieval/server.py``: the exact route, the
+K1 route, the int8 route, the IVF and IVF-PQ routes, capacity mode and the
+row-sharded gallery.
 
 * **Batch buckets.** Query batches are padded to powers of two up to
   ``max_batch`` and the pad rows' results are dropped.
@@ -17,21 +17,28 @@ IVF and IVF-PQ routes are still to port):
   (:mod:`art_sbir_tpu_torch.ops.quant`): through K2 wherever it runs (on
   the card, D a multiple of 16, and at most ``quant_fused.ENGINE_R_MAX`` =
   1,024 candidates, where K2's route beat the plain scan's on an H100),
-  else the plain scan. The engine's ``route`` attribute names the route it
+  else the plain scan. ``ivf_nlist`` replaces every scan with the IVF
+  probe (:mod:`art_sbir_tpu_torch.ops.ivf`, route ``'ivf'``), and
+  ``pq_m`` with the IVF-PQ probe (:mod:`art_sbir_tpu_torch.ops.pq`, route
+  ``'ivf_pq'``); both are plain PyTorch (the JAX package has no Pallas
+  kernel on them). The engine's ``route`` attribute names the route it
   took.
 * **Online updates** (``capacity=``): the gallery is a fixed-capacity
   buffer with a live-row mask. Adds and removals build a new
-  (gallery, mask) pair and publish it under the engine lock, so a search
-  running on another thread keeps the consistent pair it took.
+  (gallery, mask) pair, and an online IVF new table and spill tensors,
+  and publish them under the engine lock, so a search running on another
+  thread keeps the consistent state it took.
 * **Row-sharded gallery** (``mesh=``): shard ``i`` of the rows (or of the
   capacity) lives on ``mesh.devices[i]``. Each route ranks each shard on
   its own device and merges the (B, k) partials by (value, global index)
   on ``mesh.devices[0]``, where the queries are embedded: K1 through
   :func:`~art_sbir_tpu_torch.ops.retrieval_fused.retrieve_fused_sharded`,
   the int8 route through :func:`~art_sbir_tpu_torch.ops.quant.
-  retrieve_quantized_sharded`, the exact route per shard under its live
-  mask. Slot ``s`` of a capacity engine is row ``s % (rows / S)`` of shard
-  ``s // (rows / S)``.
+  retrieve_quantized_sharded`, the IVF routes through
+  :func:`~art_sbir_tpu_torch.ops.ivf.ivf_search_sharded` and
+  :func:`~art_sbir_tpu_torch.ops.pq.ivf_pq_search_sharded`, the exact
+  route per shard under its live mask. Slot ``s`` of a capacity engine is
+  row ``s % (rows / S)`` of shard ``s // (rows / S)``.
 * **One device thread.** The HTTP server runs the device work of every
   endpoint on the micro-batcher's thread (:meth:`MicroBatcher.call`).
   PyTorch keeps cuDNN's execution plans and the CUDA library handles per
@@ -54,6 +61,8 @@ import torch
 
 from art_sbir_tpu_torch.core.device import resolve_device
 from art_sbir_tpu_torch.data.loader import decode_bytes
+from art_sbir_tpu_torch.ops import ivf as ivf_ops
+from art_sbir_tpu_torch.ops import pq as pq_ops
 from art_sbir_tpu_torch.ops import quant_fused
 from art_sbir_tpu_torch.ops.distance import pairwise_distance, top_k
 from art_sbir_tpu_torch.ops.quant import (quantize_gallery,
@@ -124,7 +133,27 @@ class RetrievalEngine:
     gallery row-sharded over ``mesh.devices`` (see the module note; the
     rows, or ``capacity``, divisible by the mesh's size, ``k_max`` at most
     a shard's rows); ``device`` is then ``mesh.devices[0]``.
-    ``ivf_nlist``: the IVF and IVF-PQ indexes are still to port.
+
+    ``ivf_nlist``: build an IVF index at startup (0: about 2*sqrt(N)
+    clusters) and answer by probing the ``ivf_nprobe`` nearest clusters
+    (0: auto-tuned at startup, the smallest power of two reaching 95%
+    recall@k_max on a perturbed-gallery proxy, doubled). Composes with
+    ``capacity`` (:class:`~art_sbir_tpu_torch.ops.ivf.OnlineIVF`; the
+    initial gallery must be non-empty) and with ``mesh``
+    (:class:`~art_sbir_tpu_torch.ops.ivf.ShardedIVF`, or with ``capacity``
+    too :class:`~art_sbir_tpu_torch.ops.ivf.ShardedOnlineIVF`); not with
+    ``quantize``. ``pq_m``: residual IVF-PQ with ``pq_m`` uint8 codes a
+    row (requires ``ivf_nlist``, an immutable gallery); the best
+    ``pq_rerank_factor * k_max`` ADC candidates are reranked exactly on
+    rows kept in ``pq_rerank`` (``'float32'``, ``'bfloat16'``, or
+    ``'none'``: the rows are dropped, values are ADC distances, and
+    :meth:`save` refuses). ``pq_opq_iters``: learn an OPQ rotation.
+    ``index_cache``: a directory that keeps the immutable IVF (and PQ)
+    index as ``.npz`` (the JAX package's files); a cached index is taken
+    only where it matches (metric, D, N, nlist, the shard layout), and a
+    cached PQ only beside its cached IVF. ``startup_s`` holds the seconds
+    of the IVF build (or load), the nprobe tuning and the PQ build (its
+    assignment, training and encoding) or load.
     """
 
     def __init__(self, forward_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -136,11 +165,10 @@ class RetrievalEngine:
                  rerank_dtype: str = "float32",
                  query_forward_fn: Optional[Callable] = None,
                  device: str | torch.device | None = None, mesh=None,
-                 ivf_nlist: Optional[int] = None):
-        if ivf_nlist is not None:
-            raise NotImplementedError(
-                "the IVF and IVF-PQ indexes, alone or over a mesh, are still "
-                "to port (ROADMAP.md queue 1 item 5)")
+                 ivf_nlist: Optional[int] = None, ivf_nprobe: int = 0,
+                 pq_m: Optional[int] = None, pq_rerank: str = "bfloat16",
+                 pq_rerank_factor: int = 64, pq_opq_iters: int = 0,
+                 index_cache: Optional[Path | str] = None):
         self.device = resolve_device(device if mesh is None
                                      else mesh.devices[0])
         self.mesh = mesh
@@ -192,9 +220,34 @@ class RetrievalEngine:
         self._next = n0  # next never-used slot
         self._free: List[int] = []  # tombstoned slots, reused by adds
 
-        # the search route: 'K1', 'exact', 'K2' or 'int8'. K1 follows the
-        # JAX package's rule (see retrieval/rank.py)
+        if index_cache is not None and (ivf_nlist is None
+                                        or capacity is not None):
+            raise ValueError("index_cache persists immutable IVF/IVF-PQ "
+                             "indexes only (requires ivf_nlist, no "
+                             "capacity= — online mutations would "
+                             "invalidate the cache)")
+        if ivf_nlist is not None and quantize:
+            raise ValueError("ivf_nlist does not compose with quantize= — "
+                             "pick one scan strategy")
+        if ivf_nlist is not None and capacity is not None and n0 < 1:
+            raise ValueError("online IVF needs a non-empty initial gallery "
+                             "to cluster")
+        if pq_m is not None:
+            if ivf_nlist is None:
+                raise ValueError("pq_m requires ivf_nlist= (IVF-PQ: the "
+                                 "probe selects which codes to score)")
+            if capacity is not None:
+                raise ValueError("pq_m serves immutable indexes only "
+                                 "(no capacity=/quantize=)")
+            if pq_rerank not in ("none", "float32", "bfloat16"):
+                raise ValueError(f"pq_rerank must be none|float32|bfloat16,"
+                                 f" got {pq_rerank!r}")
+
+        # the search route: 'K1', 'exact', 'K2', 'int8', 'ivf' or
+        # 'ivf_pq'. K1 follows the JAX package's rule (see
+        # retrieval/rank.py)
         self.route = ("K1" if (capacity is None and not quantize
+                               and ivf_nlist is None
                                and metric in ("euclidean", "cosine")
                                and rows >= rank.FUSED_GALLERY_THRESHOLD
                                and self.k_max <= K_MAX) else "exact")
@@ -239,6 +292,163 @@ class RetrievalEngine:
                     self._qg, self.gallery, mesh)
                 self._mask = shard_rows(self._mask, mesh)
 
+        self._ivf = None
+        self._ivf_nprobe = int(ivf_nprobe)
+        self._pq = None
+        self.startup_s: Dict = {}
+        if ivf_nlist is not None:
+            self.route = "ivf"
+            cached = self._build_ivf(int(ivf_nlist), n0, index_cache)
+            if self._ivf_nprobe == 0:
+                t0 = time.perf_counter()
+                self._tune_nprobe(n0)
+                self.startup_s["ivf_tune"] = time.perf_counter() - t0
+            if pq_m is not None:
+                self.route = "ivf_pq"
+                self._build_pq(int(pq_m), n0, index_cache, cached,
+                               int(pq_opq_iters))
+                self._rerank_factor = int(pq_rerank_factor)
+                if pq_rerank == "none":
+                    self.gallery = None  # codes + table are the index
+                elif pq_rerank == "bfloat16":
+                    self.gallery = self._unshard([
+                        g.to(torch.bfloat16)
+                        for g in self._shards(self.gallery)])
+
+    # ------------------------------------------------------------ indexes
+
+    def _whole(self, x) -> torch.Tensor:
+        """The gallery (or mask) in row order on ``self.device``."""
+        if self.mesh is None:
+            return x
+        return torch.cat([p.to(self.device) for p in x])
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _build_ivf(self, nlist: int, n0: int, index_cache) -> bool:
+        """Build (or take from ``index_cache``) the IVF index; True where
+        it came from the cache."""
+        mesh, metric = self.mesh, self.metric
+        n_clusters = nlist or None
+        dim = int(self._shards(self.gallery)[0].shape[1])
+        cache_dir = Path(index_cache) if index_cache else None
+        if cache_dir is not None:
+            cache_dir.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        cached = False
+        if mesh is not None and self.capacity is not None:
+            self._ivf = ivf_ops.build_ivf_sharded_online(
+                self.gallery, n0, self.n_shards, n_clusters, metric=metric,
+                devices=mesh.devices)
+        elif mesh is not None:
+            f = cache_dir / "ivf_sharded.npz" if cache_dir else None
+            if f is not None and f.exists():
+                cand = ivf_ops.load_ivf_sharded(f, devices=self.device)
+                if (cand.metric == metric
+                        and int(cand.centroids[0].shape[1]) == dim
+                        and cand.n_shards == self.n_shards
+                        and cand.n_local == self._n_local
+                        and int(cand.counts.sum()) == n0
+                        and (nlist == 0 or cand.nlist == nlist)):
+                    self._ivf = cand._replace(  # each shard on its device
+                        centroids=ivf_ops._per_shard(cand.centroids, mesh),
+                        row_ids=ivf_ops._per_shard(cand.row_ids, mesh))
+                    cached = True
+            if self._ivf is None:
+                self._ivf = ivf_ops.build_ivf_sharded(
+                    self.gallery, self.n_shards, n_clusters, metric=metric,
+                    devices=mesh.devices)
+                if f is not None:
+                    ivf_ops.save_ivf_sharded(self._ivf, f)
+        elif self.capacity is not None:
+            self._ivf = ivf_ops.build_ivf_online(self.gallery, n0,
+                                                 n_clusters, metric=metric)
+        else:
+            f = cache_dir / "ivf.npz" if cache_dir else None
+            if f is not None and f.exists():
+                cand = ivf_ops.load_ivf(f, device=self.device)
+                if (cand.metric == metric
+                        and int(cand.centroids.shape[1]) == dim
+                        and int(cand.counts.sum()) == n0
+                        and (nlist == 0 or cand.nlist == nlist)):
+                    self._ivf, cached = cand, True
+            if self._ivf is None:
+                self._ivf = ivf_ops.build_ivf(self.gallery, n_clusters,
+                                              metric=metric)
+                if f is not None:
+                    ivf_ops.save_ivf(self._ivf, f)
+        self._sync()
+        self.startup_s.update(ivf_build=time.perf_counter() - t0,
+                              ivf_cached=cached)
+        return cached
+
+    def _tune_nprobe(self, n0: int) -> None:
+        """The auto nprobe: :func:`~art_sbir_tpu_torch.ops.ivf.tune_nprobe`
+        with margin 2 on a proxy of perturbed live rows, drawn with numpy's
+        ``default_rng(0)`` as the JAX engine draws it (the same proxy for
+        the same rows)."""
+        idx, mesh = self._ivf, self.mesh
+        if isinstance(idx, ivf_ops.OnlineIVF):
+            idx = idx.as_index()
+        elif isinstance(idx, ivf_ops.ShardedOnlineIVF):
+            idx = idx.snapshot()[0]
+        g_live = self._whole(self.gallery)[:n0]
+        search_fn = None
+        if mesh is not None:
+            online = self.capacity is not None
+            mask0 = self._mask if online else None
+            spill0 = self._ivf.snapshot()[1] if online else None
+
+            def search_fn(q, nprobe, k):
+                return ivf_ops.ivf_search_sharded(
+                    q, idx, self.gallery, mesh, nprobe=nprobe, k=k,
+                    mask=mask0, spill=spill0)
+        prng = np.random.default_rng(0)
+        sel = prng.integers(0, n0, min(256, n0))
+        rows = g_live[torch.as_tensor(sel, device=self.device)
+                      ].cpu().numpy().astype(np.float32)
+        proxy = rows + 0.05 * rows.std() * prng.standard_normal(
+            rows.shape).astype(np.float32)
+        self._ivf_nprobe = ivf_ops.tune_nprobe(
+            idx, g_live, torch.from_numpy(proxy).to(self.device),
+            k=self.k_max, search_fn=search_fn,
+            margin=ivf_ops.SERVING_NPROBE_MARGIN)
+
+    def _build_pq(self, m: int, n0: int, index_cache, ivf_cached: bool,
+                  opq_iters: int) -> None:
+        """Residual IVF-PQ codes (one shared codebook over a mesh), or
+        the cached ones where they pair with the cached IVF."""
+        sharded = self.mesh is not None
+        pq_file = "pq_sharded.npz" if sharded else "pq.npz"
+        f = Path(index_cache) / pq_file if index_cache else None
+        t0 = time.perf_counter()
+        k_codes = min(256, n0)
+        if f is not None and ivf_cached and f.exists():
+            # a rebuilt IVF has fresh centroids: only its own codes pair
+            cb, codes = pq_ops.load_pq(f, device=self.device)
+            if (cb.residual and cb.metric == self.metric and cb.m == m
+                    and cb.k_codes == k_codes
+                    and tuple(codes.shape) == (n0, m)
+                    and (cb.rotation is not None) == bool(opq_iters)):
+                self._pq = (cb, codes)
+        cached = self._pq is not None
+        if not cached:
+            build = (pq_ops.build_ivf_pq_sharded if sharded
+                     else pq_ops.build_ivf_pq)
+            steps: Dict = {}
+            self._pq = build(self.gallery, self._ivf, m, k_codes=k_codes,
+                             opq_iters=opq_iters, timings=steps)
+            self.startup_s.update({"pq_" + k: v for k, v in steps.items()})
+            if f is not None:
+                pq_ops.save_pq(*self._pq, f)
+        if sharded:  # each shard's codes on its device
+            self._pq = (self._pq[0], shard_rows(self._pq[1], self.mesh))
+        self._sync()
+        self.startup_s.update(pq_build=time.perf_counter() - t0,
+                              pq_cached=cached)
+
     # ------------------------------------------------------------ queries
 
     def _embed(self, fwd: Callable, images_u8: np.ndarray) -> torch.Tensor:
@@ -274,9 +484,17 @@ class RetrievalEngine:
         """uint8 (B, S, S, 3) -> (top-k distances, top-k indices), padded
         to the enclosing bucket on the device, sliced back on the host."""
         b = images_u8.shape[0]
-        with self._lock:  # a consistent (gallery, mask) pair
+        with self._lock:  # a consistent (gallery, mask, index) state
             gallery, mask = self.gallery, self._mask
+            ivf, spill = self._ivf, None
+            if isinstance(ivf, ivf_ops.ShardedOnlineIVF):
+                ivf, spill = ivf.snapshot()
+            elif isinstance(ivf, ivf_ops.OnlineIVF):
+                ivf, spill = ivf.as_index(), ivf.spill
         emb = self.embed_queries(self._pad(images_u8))
+        if ivf is not None:
+            vals, idx = self._search_ivf(emb, ivf, spill, gallery, mask)
+            return vals[:b], idx[:b]
         if self.mesh is not None:
             vals, idx = self._search_sharded(emb, gallery, mask)
             return vals[:b], idx[:b]
@@ -304,6 +522,34 @@ class RetrievalEngine:
                 vals, idx = top_k(dist, self.k_max, valid=mask)
             vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         return vals[:b], idx[:b]
+
+    def _search_ivf(self, emb, ivf, spill, gallery, mask):
+        """(top-k distances, indices) as numpy on the IVF or IVF-PQ route,
+        pulled to the host in one copy."""
+        mesh, k, nprobe = self.mesh, self.k_max, self._ivf_nprobe
+        online = self.capacity is not None
+        if self._pq is not None:
+            cb, codes = self._pq
+            if mesh is not None:
+                vals, idx = pq_ops.ivf_pq_search_sharded(
+                    emb, ivf, codes, cb, mesh, nprobe=nprobe, k=k,
+                    rows=gallery, rerank_factor=self._rerank_factor)
+            else:
+                vals, idx = pq_ops.ivf_pq_search(
+                    emb, ivf, codes, cb, nprobe=nprobe, k=k, rows=gallery,
+                    rerank_factor=self._rerank_factor)
+        elif mesh is not None:
+            vals, idx = ivf_ops.ivf_search_sharded(
+                emb, ivf, gallery, mesh, nprobe=nprobe, k=k,
+                mask=mask if online else None, spill=spill)
+        else:  # the live mask gates tombstones and unpublished adds
+            vals, idx = ivf_ops.ivf_search(
+                emb, ivf, gallery, nprobe=nprobe, k=k,
+                mask=mask if online else None, spill=spill)
+        # one copy: the float32 values' bits beside the int32 indices
+        both = torch.stack([vals.contiguous().view(torch.int32),
+                            idx.to(torch.int32)]).cpu().numpy()
+        return both[0].view(np.float32), both[1]
 
     def _search_sharded(self, emb, gallery, mask):
         """(top-k distances, indices) as numpy over the row-sharded
@@ -393,6 +639,8 @@ class RetrievalEngine:
                     self.image_paths[slot] = items[i][1]
                 else:
                     self.image_paths.append(items[i][1])
+            if self._ivf is not None:  # cluster routing of the new rows
+                self._ivf.add(slots, emb)
             self.gallery = self._unshard(gallery)
             self._mask = self._unshard(mask)
             self.n_valid += b
@@ -420,6 +668,8 @@ class RetrievalEngine:
                         mask[sh] = mask[sh].clone()
                         copied.add(sh)
                     mask[sh][row] = False
+                    if self._ivf is not None:
+                        self._ivf.remove(slot)  # recycle the cluster slot
                     self._free.append(slot)
                     freed.append(slot)
             finally:  # paths freed before a missing one stay freed
@@ -432,6 +682,9 @@ class RetrievalEngine:
              root: Path | str = Path("data/image_features")) -> str:
         """Persist the live rows as a standard gallery feature cache.
         Returns the cache folder name."""
+        if self.gallery is None:
+            raise ValueError("pq_rerank='none' dropped the exact rows; "
+                             "there is nothing full-precision to save")
         with self._lock:
             gallery, mask = self.gallery, self._mask
             paths = list(self.image_paths)
@@ -451,8 +704,11 @@ class RetrievalEngine:
         return self._result(vals[0], idx[0], k)
 
     def health_stats(self) -> Dict:
+        """A consistent snapshot for ``/healthz``, taken under the engine
+        lock (a sharded online index's stats build its cached snapshot,
+        which a racing add would otherwise leave stale)."""
         with self._lock:
-            return {
+            out: Dict = {
                 "status": "ok",
                 "gallery_size": int(self.n_valid),
                 "capacity": self.capacity,
@@ -462,6 +718,21 @@ class RetrievalEngine:
                 "per_modality_bn": self.per_modality_bn,
                 "shards": self.n_shards,
             }
+            if self._ivf is not None:
+                out["ivf"] = {**self._ivf.stats(),
+                              "nprobe": self._ivf_nprobe}
+            if self._pq is not None:
+                rows = self._shards(self.gallery)[0] if (
+                    self.gallery is not None) else None
+                out["pq"] = {
+                    "m": self._pq[0].m,
+                    "k_codes": self._pq[0].k_codes,
+                    "bytes_per_row": self._pq[0].m,
+                    "rows_resident": (str(rows.dtype).replace("torch.", "")
+                                      if rows is not None else "dropped"),
+                    "rerank_factor": self._rerank_factor,
+                }
+            return out
 
     def _result(self, vals: np.ndarray, idx: np.ndarray,
                 k: Optional[int]) -> Dict:

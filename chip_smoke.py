@@ -66,7 +66,38 @@ Phases, each printing one JSON line:
                   engine must take the K2 route, K2 must have been launched
                   and never fallen back; then ``serve_quant_sharded`` over
                   4 shards, K2 launched 4 times a dispatch.
-9. inference   -- the offline evaluation end to end: a synthetic Sketchy
+9. ivf         -- the IVF and IVF-PQ library (ops/ivf.py, ops/pq.py; plain
+                  PyTorch, no kernel of the port) at D = 1024 on the
+                  JAX probe's clustered geometry (sqrt(N) blob centres
+                  4 N(0, 1), rows a centre plus 0.5 N(0, 1), numpy-seeded):
+                  at 100,000 rows ivf_search at nprobe == nlist against
+                  ops/distance.retrieve, both metrics; at 1,000,000 rows
+                  build_ivf's time and stats, recall@10 of 1,024 perturbed
+                  held-out rows at nprobe 1..64, the engine's auto nprobe
+                  (tune_nprobe, margin 2, on its proxy: recall >= 0.95),
+                  search times at B in {1, 8, 32} beside K1's float32 form
+                  over the same rows; IVF-PQ (m = 64): build, train and
+                  encode times, recall@10 at rerank factors 4, 16, 64 on
+                  bf16 rows and pure, pure self-retrieval of 256 rows,
+                  OPQ's rotation orthogonal to 1e-4, search times; the
+                  saved files loaded back answering bit for bit; at
+                  20,000 rows IVF-PQ at full probe with a covering rerank
+                  against retrieve. Full probes are held to the exact
+                  route's indices but for near-ties within the expanded
+                  form's float32 reach (their count is printed).
+10. serve_ivf  -- serve_ivf and serve_ivf_pq: the serving path as in
+                  ``serve`` over 1,000,000 clustered rows with the 8
+                  planted rows, ``--ivf_nlist 0 --ivf_nprobe 0``, then
+                  ``--pq_m 64`` started twice with ``--index_cache`` (the
+                  second start loads the first's files); no kernel may
+                  launch; the startup split into build, tune and the PQ
+                  steps.
+11. online_ivf -- OnlineIVF at a capacity of 100,000 rows: adds that fill
+                  a cluster into the spill and force a repack, then
+                  removals, while a second thread searches (live rows of
+                  the state it took, no error); after each step a full
+                  probe against the masked exact route.
+12. inference   -- the offline evaluation end to end: a synthetic Sketchy
                   corpus (25 classes x 110 photos x 4 sketches, about
                   1,100 test queries), a run folder and the full-width
                   encoder's seed-0 weights as ``models/<run>.pt``, then
@@ -83,7 +114,7 @@ Phases, each printing one JSON line:
                   8 sketches searched. Prints the decode backend, the
                   gallery embedding's images/s and the wall time split
                   into decode, embed and rank (``run_inference``'s trace).
-10. inference_k1 -- ``run_inference`` over a 100,003-row feature cache (the
+13. inference_k1 -- ``run_inference`` over a 100,003-row feature cache (the
                   corpus's test photos and random rows), both metrics: K1
                   launched once per 1,024-query chunk with ranks, never
                   falling back; against the same call with the threshold
@@ -97,8 +128,14 @@ Phases, each printing one JSON line:
                   whole on both routes at N from 10,000 to 10^6 with Q =
                   1,024, and K1 at Q = 1,024 with ranks beside its bound,
                   its plain version and the library composition.
-11. sharded    -- the row-sharded gallery on 4 shards of the one card.
-                  Sharded K1 at N = 100,000 (rows 0-15 copied into every
+14. sharded    -- the row-sharded gallery on 4 shards of the one card.
+                  First (its own ``sharded_ivf`` line) ShardedIVF,
+                  ShardedOnlineIVF (adds into shards that start empty,
+                  removals) and sharded IVF-PQ at full probe against
+                  their single-device forms at 100,000 rows (the PQ at
+                  20,000), then ``serve_ivf_sharded``: ``serve`` over the
+                  4 shards with ``--ivf_nlist 0`` at 100,000 clustered
+                  rows. Sharded K1 at N = 100,000 (rows 0-15 copied into every
                   other shard, positives in every shard and at its edges),
                   Q in {1, 32, 1024}, both forms, both metrics, ranks on
                   and off: bit for bit unsharded K1, and against its
@@ -115,7 +152,7 @@ Phases, each printing one JSON line:
                   --n_devices`` past the cards present exits. One engine
                   dispatch of 8 sketches, unsharded and over the 4 shards,
                   timed in 10 alternating pairs without HTTP.
-12. train      -- the training path at full width (ModifiedResNet50 with
+15. train      -- the training path at full width (ModifiedResNet50 with
                   a 125-class head, SketchyV2 labels, so the head's loss is
                   on). One float32 step (TF32 off) of a uint8 triplet batch
                   of 4 on the card and on the CPU, each held against a
@@ -148,8 +185,8 @@ the kernels line are the sums over those runs: K1's float32 form's from
 rows (``inference`` ranks its small gallery on the exact route), K2's
 from ``serve_quant``, K1's bf16 form's and P1's from the probe, the
 sharded K1's from ``serve_sharded`` and ``sharded``'s ``run_inference``
-over the mesh, the sharded K2's from ``serve_quant_sharded``. Any failed
-check exits non-zero. The last line is
+over the mesh, the sharded K2's from ``serve_quant_sharded``; the IVF
+serve runs launch none. Any failed check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
 """
@@ -1225,6 +1262,20 @@ def _gallery_features(n: int, planted: np.ndarray, seed: int):
     return feats, slots
 
 
+def _planted_rows(sketches: np.ndarray) -> np.ndarray:
+    """The embeddings of the sketches by the same seeded fresh init that
+    ``build_engine`` serves when no checkpoint exists."""
+    import torch
+
+    from art_sbir_tpu_torch.models.resnet import create_encoder
+    from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
+
+    enc = create_encoder(device="cuda", seed=0)
+    with torch.no_grad():
+        return enc(finish_gallery_batch(
+            torch.from_numpy(sketches).cuda())).cpu().numpy()
+
+
 def phase_serve(state) -> None:
     _serve(state, "serve", SERVE_N, route="K1", flags=[])
 
@@ -1252,20 +1303,12 @@ def _serve(state, phase: str, n_rows: int, route: str, flags: list) -> None:
     import torch
 
     from art_sbir_tpu_torch.cli import serve
-    from art_sbir_tpu_torch.models.resnet import create_encoder
     from art_sbir_tpu_torch.parallel.mesh import MeshSpec
     from art_sbir_tpu_torch.retrieval.embed import save_image_features
-    from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
 
     sketches = _sketches(8)
     with tempfile.TemporaryDirectory() as tmp:
-        # planted rows: the embeddings of the 8 sketches by the same seeded
-        # fresh init that build_engine serves when no checkpoint exists
-        enc = create_encoder(device="cuda", seed=0)
-        with torch.no_grad():
-            planted = enc(finish_gallery_batch(
-                torch.from_numpy(sketches).cuda())).cpu().numpy()
-        del enc
+        planted = _planted_rows(sketches)
         feats, slots = _gallery_features(n_rows, planted, seed=0)
         paths = [f"gallery/{i:07d}.jpg" for i in range(n_rows)]
         t0 = time.perf_counter()
@@ -1286,10 +1329,13 @@ def _serve(state, phase: str, n_rows: int, route: str, flags: list) -> None:
 
 
 def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
-                  slots, save_s) -> None:
+                  slots, save_s, extra=None, cached=False) -> None:
     """Build the engine, warm it up, then the counted run: /healthz, 20
     rounds of 8 concurrent /search and one /search_batch of 8 over HTTP;
-    then one profiled dispatch outside it."""
+    then one profiled dispatch outside it. The IVF routes (``ivf``,
+    ``ivf_pq``) launch no kernel of the port: every count must stay 0.
+    ``extra`` joins the phase's line; ``cached``: the engine must have
+    loaded its index from ``--index_cache``."""
     import base64
     import io
     import threading
@@ -1308,6 +1354,10 @@ def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
     t0 = time.perf_counter()
     engine, batcher = serve.build_engine(args, mesh=mesh)
     build_s = time.perf_counter() - t0
+    startup = dict(getattr(engine, "startup_s", {}))
+    if cached:
+        check(startup.get("ivf_cached") and startup.get("pq_cached"),
+              "the second start loads the index from --index_cache")
     check(engine.route == route and engine.n_shards == shards,
           f"a {n_rows}-row gallery over {shards} shards takes the {route} "
           "route")
@@ -1339,6 +1389,9 @@ def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
             health = json.loads(r.read())
         check(health["gallery_size"] == n_rows
               and health["shards"] == shards, "/healthz gallery size, shards")
+        if route.startswith("ivf"):
+            check("ivf" in health and ("pq" in health) == (route == "ivf_pq"),
+                  "/healthz carries the index's stats")
         if state.get("pil", True):
             from PIL import Image
 
@@ -1392,7 +1445,8 @@ def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
             transport = "search_arrays from 8 threads (no PIL)"
         torch.cuda.synchronize()
         launches = {name: c.launches for name, c in counters.items()}
-        fallback = counters[route].fallback_rows
+        fallback = (counters[route].fallback_rows if route in counters
+                    else 0)
         n_dispatch = len(dispatches)
         engine.search_arrays = search_arrays
         profile = _profile_dispatch(engine, sketches, prefix=route.lower())
@@ -1403,13 +1457,15 @@ def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
         server.join(timeout=10)
     want = [paths[s] for s in slots] * (rounds + 1)
     check(tops == want, "each top-1 is its planted row")
-    check(launches[route] == shards * n_dispatch,
-          f"{route} launched {shards} times a dispatch on the main path")
+    if route in counters:
+        check(launches[route] == shards * n_dispatch,
+              f"{route} launched {shards} times a dispatch on the main path")
+        key = route if mesh is None else route + "_sharded"
+        state["launches"][key] = (state["launches"].get(key, 0)
+                                  + launches[route])
     check(all(v == 0 for name, v in launches.items() if name != route),
           f"no other kernel than {route} launched on this path")
     check(fallback == 0, f"{route} never fell back")
-    key = route if mesh is None else route + "_sharded"
-    state["launches"][key] = state["launches"].get(key, 0) + launches[route]
     n_req = 8 * rounds
     timed = dispatches[:n_timed]
     dispatch_ms = [1e3 * t for _, t in timed]
@@ -1432,7 +1488,10 @@ def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
           "fresh_thread_dispatch_ms": thread_ms,
           "save_cache_s": save_s, "build_engine_s": build_s,
           "warmup_s": warmup_s,
-          "peak_gpu_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "peak_gpu_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          **({"index": {k: health[k] for k in ("ivf", "pq") if k in health},
+              "startup_s": startup} if route.startswith("ivf") else {}),
+          **(extra or {})})
     emit({"phase": phase + "_profile", **profile})
 
 
@@ -1494,6 +1553,534 @@ def _profile_dispatch(engine, sketches, prefix: str, reps: int = 3) -> dict:
             "device_idle_share": max(0.0, 1 - device_ms / (1e3 * wall)),
             "kernels_seen": len(kernels),
             "top_device_ms": [[k[:60], v] for k, v in top]}
+
+
+# -------------------------------------------------------------------- ivf
+
+IVF_N = 1_000_000  # the IVF phases' gallery
+IVF_EXACT_N = 100_000  # ivf_search at full probe against retrieve
+PQ_EXACT_N = 20_000  # IVF-PQ at full probe, covering rerank, against retrieve
+PQ_M = 64  # bytes a row of the IVF-PQ codes
+NPROBES = (1, 2, 4, 8, 16, 32, 64)  # the recall sweep
+ONLINE_CAP = 100_000  # the online IVF's buffer
+
+
+def _blob_geometry(n: int, seed: int, n_extra: int = 0):
+    """(n rows, n_extra held-out rows) on the card, float32: the JAX
+    probe's clustered geometry (``scripts/probe_ivf.py``): max(4, sqrt(n))
+    blob centres drawn as 4 N(0, 1), each row a uniformly drawn centre
+    plus 0.5 N(0, 1). numpy draws every number from ``seed`` (the noise in
+    8 threads, one spawned stream each)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    s_c, s_a, *s_n = np.random.SeedSequence(seed).spawn(10)
+    n_blobs = max(4, int(np.sqrt(n)))
+    centres = 4.0 * np.random.default_rng(s_c).standard_normal(
+        (n_blobs, D), dtype=np.float32)
+    centres = torch.from_numpy(centres).cuda()
+    total = n + n_extra
+    assign = np.random.default_rng(s_a).integers(0, n_blobs, total)
+    cuts = np.linspace(0, total, len(s_n) + 1).astype(int)
+
+    def noise(i):
+        return np.random.default_rng(s_n[i]).standard_normal(
+            (cuts[i + 1] - cuts[i], D), dtype=np.float32)
+
+    out = torch.empty((total, D), device="cuda")
+    with ThreadPoolExecutor(len(s_n)) as pool:
+        for i, part in enumerate(pool.map(noise, range(len(s_n)))):
+            lo, hi = cuts[i], cuts[i + 1]
+            at = torch.from_numpy(assign[lo:hi]).cuda()
+            out[lo:hi] = centres[at] + 0.5 * torch.from_numpy(part).cuda()
+    return out[:n], out[n:]
+
+
+def _near_exact(got, want, q, g, metric: str, what: str) -> dict:
+    """``got`` = (values, indices) against the exact route's ``want``,
+    which scores the pairwise (expanded) form, where the probes score
+    each row directly: the two forms differ by the expanded form's float32
+    cancellation: 1e-5 x (|q|^2 + |g|^2) on a squared euclidean distance
+    (the reach ``tests/test_torch_serve.py`` allows) and 1e-5 on a cosine
+    distance (the same share of the cross term's scale, |q| |g|; a
+    float32 sum of 1,024 products errs by about sqrt(1024) x 2^-24 of it
+    typically and 1024 x 2^-24 at worst). Values are held within that
+    reach plus rtol 1e-5; indices equal but for near-ties, an index whose
+    distance lies within the reach of the value at its place in ``want``
+    (or, past the k-th, of the k-th value); their count is returned."""
+    import torch
+
+    vals, idx = (t.double() for t in got)
+    ev, ei = want[0].double(), want[1].long()
+    idx = idx.long()
+    if metric == "euclidean":
+        v, e = vals ** 2, ev ** 2
+        norms = (g.double() ** 2).sum(1)
+        qq = (q.double() ** 2).sum(1, keepdim=True)
+        tol = 1e-5 * e + 1e-5 * (2 * qq + norms[idx.clamp(max=len(g) - 1)]
+                                 + norms[ei.clamp(max=len(g) - 1)])
+    else:
+        v, e = vals, ev
+        tol = 1e-5 * e.abs() + 1e-5
+    over = float(((v - e).abs() / tol).max())
+    check(over <= 1.0,
+          f"{what}: the exact route's values within the expanded form's "
+          f"reach (worst {over:.3g} of it)")
+    differ = (idx != ei).nonzero().tolist()
+    for r, j in differ:
+        at = (ei[r] == idx[r, j]).nonzero()
+        ref = e[r, int(at[0, 0])] if len(at) else e[r, -1]
+        check(bool((v[r, j] - ref).abs() <= tol[r, j]),
+              f"{what}: query {r}'s index {j} differs from the exact "
+              "route's beyond a near-tie")
+    return {"max_rel_err": float(((vals - ev).abs()
+                                  / ev.abs().clamp_min(1e-12)).max()),
+            "near_tie_swaps": len(differ)}
+
+
+def _held_exact(got, q, g, metric: str, what: str) -> dict:
+    """:func:`_near_exact` against ``ops/distance.retrieve``."""
+    import torch
+
+    from art_sbir_tpu_torch.ops.distance import retrieve
+
+    _, ev, ei = retrieve(q, g, torch.zeros(len(q), dtype=torch.int32,
+                                           device=q.device),
+                         k=int(got[0].shape[1]), metric=metric)
+    return _near_exact(got, (ev, ei), q, g, metric, what)
+
+
+def _engine_proxy(g, n: int):
+    """The serving engine's auto-nprobe proxy: 256 perturbed gallery rows
+    drawn with numpy's ``default_rng(0)``."""
+    import torch
+
+    prng = np.random.default_rng(0)
+    sel = prng.integers(0, n, min(256, n))
+    rows = g[torch.as_tensor(sel, device=g.device)].cpu().numpy()
+    proxy = rows + 0.05 * rows.std() * prng.standard_normal(
+        rows.shape).astype(np.float32)
+    return torch.from_numpy(proxy).to(g.device), sel
+
+
+def phase_ivf(state) -> None:
+    """The IVF and IVF-PQ library at D = 1024 on the JAX probe's clustered
+    geometry: full probe against the exact route (10^5 rows, both
+    metrics), the 10^6-row build and its recall sweep, the engine's auto
+    nprobe, search times beside K1's float32 form, IVF-PQ (build steps,
+    recall by rerank factor, pure self-retrieval, OPQ's rotation, times),
+    a covering rerank at full probe against the exact route (20,000
+    rows), and the saved index loaded back answering bit for bit."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import ivf, pq
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
+    from art_sbir_tpu_torch.ops.distance import retrieve_chunked
+    from art_sbir_tpu_torch.ops.quant import topk_overlap
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+
+    def zeros(q):
+        return torch.zeros(q, dtype=torch.int32, device=dev)
+
+    line = {"phase": "ivf", "ok": True, "rows": IVF_N, "dim": D, "k": K}
+    g, q = _blob_geometry(IVF_EXACT_N, seed=11, n_extra=64)
+    line["full_probe_vs_exact"] = {}
+    for metric in ("euclidean", "cosine"):
+        idx = ivf.build_ivf(g, metric=metric)
+        line["full_probe_vs_exact"][metric] = _held_exact(
+            ivf.ivf_search(q, idx, g, nprobe=idx.nlist, k=K), q, g, metric,
+            f"ivf_search {metric} at nprobe == nlist over {IVF_EXACT_N} rows")
+    del g, q, idx
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    g, held = _blob_geometry(IVF_N, seed=12, n_extra=1024)
+    line["gallery_s"] = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    queries = held + 0.05 * held.std() * torch.randn(
+        held.shape, generator=gen, device=dev)
+    del held
+    t0 = time.perf_counter()
+    index = ivf.build_ivf(g)  # ends in a host copy of the labels
+    line["build_s"] = time.perf_counter() - t0
+    line["stats"] = index.stats()
+    _, _, exact = retrieve_chunked(queries, g, zeros(len(queries)), k=K,
+                                   chunk=256)
+    line["recall_at_nprobe"] = {
+        str(p): topk_overlap(ivf.ivf_search(queries, index, g, nprobe=p,
+                                            k=K)[1], exact)
+        for p in NPROBES}
+    proxy, sel = _engine_proxy(g, IVF_N)
+    t0 = time.perf_counter()
+    tuned = ivf.tune_nprobe(index, g, proxy, k=K,
+                            margin=ivf.SERVING_NPROBE_MARGIN)
+    line["tune_s"] = time.perf_counter() - t0
+    _, _, proxy_exact = retrieve_chunked(proxy, g, zeros(len(proxy)), k=K,
+                                         chunk=256)
+    proxy_recall = topk_overlap(ivf.ivf_search(proxy, index, g,
+                                               nprobe=tuned, k=K)[1],
+                                proxy_exact)
+    check(proxy_recall >= 0.95,
+          f"recall@10 at the tuned nprobe {tuned} on the proxy set "
+          f"({proxy_recall}) >= 0.95")
+    line.update(tuned_nprobe=tuned, proxy_recall_at_tuned=proxy_recall,
+                recall_at_tuned=topk_overlap(ivf.ivf_search(
+                    queries, index, g, nprobe=tuned, k=K)[1], exact))
+    gg = rf.gallery_norms(g, "euclidean")
+    r = tuned * index.pad_width
+    times = []
+    for b in (1, 8, 32):
+        qb = queries[:b].contiguous()
+
+        def search():
+            return ivf.ivf_search(qb, index, g, nprobe=tuned, k=K)
+
+        def k1():
+            return rf.retrieve_fused(qb, g, zeros(b), k=K, with_ranks=False,
+                                     gg=gg)
+
+        gathered = b * r * D * 4
+        times.append({
+            "b": b, "ms": time_ms(search, reps=10),
+            "device_ms": device_ms(search, reps=5),
+            "candidates_a_query": r, "gathered_mb": gathered / 1e6,
+            "gathered_read_once_ms": 1e3 * gathered / H100_BYTES_PER_S,
+            "k1_f32_ms": time_ms(k1, reps=10),
+            "k1_bound_ms": bound(4 * IVF_N * D, 2 * b * IVF_N * D,
+                                 H100_F32_FLOP_PER_S)[0]})
+    line["search_times"] = times
+    del gg
+
+    # IVF-PQ over the same rows
+    steps = {}
+    t0 = time.perf_counter()
+    cb, codes = pq.build_ivf_pq(g, index, PQ_M, timings=steps)
+    line["pq"] = {"m": PQ_M, "build_s": time.perf_counter() - t0, **steps}
+    rows16 = g.to(torch.bfloat16)
+    line["pq"]["recall_at_rerank_factor"] = {
+        str(f): topk_overlap(pq.ivf_pq_search(
+            queries, index, codes, cb, nprobe=tuned, k=K, rows=rows16,
+            rerank_factor=f)[1], exact) for f in (4, 16, 64)}
+    line["pq"]["recall_pure"] = topk_overlap(pq.ivf_pq_search(
+        queries, index, codes, cb, nprobe=tuned, k=K)[1], exact)
+    selt = torch.as_tensor(sel, device=dev)
+    _, self_ids = pq.ivf_pq_search(g[selt], index, codes, cb, nprobe=tuned,
+                                   k=1)
+    hits = int((self_ids[:, 0].long() == selt).sum())
+    check(hits == len(sel), f"pure IVF-PQ self-retrieval: {hits} of "
+          f"{len(sel)} gallery rows find themselves first")
+    samp = torch.randperm(IVF_N, generator=torch.Generator().manual_seed(3))[
+        :16384].to(dev)
+    lab = ivf._assign(g[samp], index.centroids, chunk=16384).long()
+    t0 = time.perf_counter()
+    opq = pq.train_pq(g[samp] - index.centroids[lab], PQ_M, opq_iters=2)
+    rot = opq.rotation
+    orth = float((rot @ rot.T - torch.eye(D, device=dev)).abs().max())
+    check(orth <= 1e-4, f"OPQ's rotation orthogonal to 1e-4 ({orth})")
+    line["pq"].update(self_hits=hits, opq_train_s=time.perf_counter() - t0,
+                      opq_orthogonality_err=orth)
+    pq_times = []
+    for b in (8, 32):
+        qb = queries[:b].contiguous()
+
+        def pq_search():
+            return pq.ivf_pq_search(qb, index, codes, cb, nprobe=tuned, k=K,
+                                    rows=rows16, rerank_factor=64)
+
+        pq_times.append({"b": b, "ms": time_ms(pq_search, reps=10),
+                         "device_ms": device_ms(pq_search, reps=5)})
+    line["pq"]["search_times"] = pq_times
+
+    # the saved index loads back and answers bit for bit
+    files = Path(state["tmp"]) / "ivf_files"
+    files.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    ivf.save_ivf(index, files / "ivf.npz")
+    pq.save_pq(cb, codes, files / "pq.npz")
+    line["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ivf.load_ivf(files / "ivf.npz", device=dev)
+    lcb, lcodes = pq.load_pq(files / "pq.npz", device=dev)
+    line["load_s"] = time.perf_counter() - t0
+    q64 = queries[:64]
+    for a, b in ((ivf.ivf_search(q64, index, g, nprobe=tuned, k=K),
+                  ivf.ivf_search(q64, loaded, g, nprobe=tuned, k=K)),
+                 (pq.ivf_pq_search(q64, index, codes, cb, nprobe=tuned, k=K,
+                                   rows=rows16, rerank_factor=64),
+                  pq.ivf_pq_search(q64, loaded, lcodes, lcb, nprobe=tuned,
+                                   k=K, rows=rows16, rerank_factor=64))):
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              "the loaded index answers bit for bit as the built one")
+    del g, rows16, codes, lcodes, index, loaded, queries, exact
+    torch.cuda.empty_cache()
+
+    g, q = _blob_geometry(PQ_EXACT_N, seed=13, n_extra=64)
+    idx = ivf.build_ivf(g)
+    cb, codes = pq.build_ivf_pq(g, idx, PQ_M)
+    line["pq"]["full_probe_covering_rerank_vs_exact"] = _held_exact(
+        pq.ivf_pq_search(q, idx, codes, cb, nprobe=idx.nlist, k=K, rows=g,
+                         rerank_factor=PQ_EXACT_N),
+        q, g, "euclidean", f"IVF-PQ at full probe, a covering rerank, "
+        f"over {PQ_EXACT_N} rows")
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    torch.cuda.empty_cache()
+
+
+def _clustered_cache(tmp, n: int, planted: np.ndarray, seed: int):
+    """(cache folder, paths, planted slots, seconds to save): ``n`` rows
+    of :func:`_blob_geometry` scaled to the planted rows' mean and spread,
+    the planted rows at seeded slots, written as a feature cache."""
+    from art_sbir_tpu_torch.retrieval.embed import save_image_features
+
+    rows, _ = _blob_geometry(n, seed)
+    feats = rows.cpu().numpy()
+    del rows
+    feats *= planted.std() / np.sqrt(16.25)  # the blob rows' spread: 4.03
+    feats += planted.mean()
+    slots = np.random.default_rng(seed).choice(n, 8, replace=False)
+    feats[slots] = planted
+    paths = [f"gallery/{i:07d}.jpg" for i in range(n)]
+    t0 = time.perf_counter()
+    folder = save_image_features("ChipSmoke", "Clustered", paths, feats,
+                                 root=tmp, timestamp=f"seed{seed}")
+    return folder, paths, slots, time.perf_counter() - t0
+
+
+def _ivf_args(folder, tmp, *flags):
+    from art_sbir_tpu_torch.cli import serve
+
+    return serve.parse_args([
+        "-f", "ModifiedResNet_ChipSmoke", "--features", folder,
+        "--feature_root", str(tmp), "--results_root", str(tmp),
+        "--models_root", str(tmp), "--device", "cuda", "--window_ms", "5",
+        "--ivf_nlist", "0", "--ivf_nprobe", "0", *flags])
+
+
+def phase_serve_ivf(state) -> None:
+    """``serve_ivf`` and ``serve_ivf_pq``: the serving path at full width
+    over 10^6 clustered rows with the 8 planted sketches' rows, through
+    :func:`_serve_engine` as ``serve`` is; ``--ivf_nlist 0 --ivf_nprobe
+    0``, then ``--pq_m 64`` (bf16 rerank rows, factor 64) started twice
+    with ``--index_cache``: the second start loads the first's files."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from art_sbir_tpu_torch.cli import serve
+
+    sketches = _sketches(8)
+    need = 2 * 4 * IVF_N * D
+    n = (IVF_N if shutil.disk_usage(tempfile.gettempdir()).free >= need
+         else IVF_N // 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        folder, paths, slots, save_s = _clustered_cache(
+            tmp, n, _planted_rows(sketches), seed=0)
+        _serve_engine(state, "serve_ivf", _ivf_args(folder, tmp), None, n,
+                      "ivf", sketches, paths, slots, save_s)
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = _ivf_args(folder, tmp, "--pq_m", str(PQ_M), "--index_cache",
+                         str(Path(tmp) / "index"))
+        t0 = time.perf_counter()
+        engine, batcher = serve.build_engine(args)
+        first = {"build_engine_s": time.perf_counter() - t0,
+                 "startup_s": dict(engine.startup_s)}
+        batcher.close()
+        check(not (first["startup_s"]["ivf_cached"]
+                   or first["startup_s"]["pq_cached"]),
+              "the first IVF-PQ start builds its index")
+        del engine, batcher
+        gc.collect()
+        torch.cuda.empty_cache()
+        _serve_engine(state, "serve_ivf_pq", args, None, n, "ivf_pq",
+                      sketches, paths, slots, save_s,
+                      extra={"first_start": first}, cached=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_online_ivf(state) -> None:
+    """The online IVF at a capacity of 10^5 rows, half of them live at the
+    build: adds that fill the largest cluster into the spill and force a
+    repack, then removals, while a second thread searches. Every search of
+    that thread returns live rows of the state it took and raises
+    nothing; after each add or removal a search at ``nprobe == nlist``
+    equals the masked exact route (:func:`_near_exact`)."""
+    import threading
+
+    import torch
+
+    from art_sbir_tpu_torch.ops import ivf
+    from art_sbir_tpu_torch.ops.distance import pairwise_distance, top_k
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    n0 = ONLINE_CAP // 2
+    buf, held = _blob_geometry(ONLINE_CAP, seed=14, n_extra=8)
+    t0 = time.perf_counter()
+    oiv = ivf.build_ivf_online(buf, n0)
+    build_s = time.perf_counter() - t0
+    big = int(np.argmax(oiv._fill))
+    free = len(oiv._free_t[big])
+    spill = len(oiv._spill_np)
+    n_add = free + spill + 64  # past the spill: a repack
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    near = oiv.centroids[big] + 0.2 * torch.randn((n_add + 8, D),
+                                                  generator=gen, device=dev)
+    buf[n0:n0 + n_add] = near[:n_add]  # written before any add publishes
+    queries = torch.cat([held, near[n_add:]])
+    state_lock = threading.Lock()
+    shared = {"mask": torch.arange(ONLINE_CAP, device=dev) < n0}
+    stop, errors, searched = threading.Event(), [], []
+
+    def searcher():
+        while not stop.is_set():
+            with state_lock:
+                index, sp, mask = oiv.as_index(), oiv.spill, shared["mask"]
+            try:
+                vals, ids = ivf.ivf_search(queries[:4], index, buf,
+                                           nprobe=16, k=K, mask=mask,
+                                           spill=sp)
+                live = ids[torch.isfinite(vals)].long()
+                if not bool(mask[live].all()):
+                    raise AssertionError("a search returned a dead row")
+                searched.append(int(live.numel()))
+            except Exception as e:  # reported by the main thread
+                errors.append(repr(e))
+                return
+
+    def full_probe(what):
+        with state_lock:
+            index, sp, mask = oiv.as_index(), oiv.spill, shared["mask"]
+        got = ivf.ivf_search(queries, index, buf, nprobe=index.nlist, k=K,
+                             mask=mask, spill=sp)
+        with torch.no_grad():
+            want = top_k(pairwise_distance(queries, buf), K, valid=mask)
+        swaps.append(_near_exact(
+            got, want, queries, buf, "euclidean",
+            f"online IVF after {what}: full probe against the masked exact "
+            "route")["near_tie_swaps"])
+
+    worker = threading.Thread(target=searcher)
+    worker.start()
+    spill_max, checks, swaps = 0, 0, []
+    try:
+        full_probe("the build")
+        for lo in range(n0, n0 + n_add, 32):
+            hi = min(lo + 32, n0 + n_add)
+            with state_lock:
+                oiv.add(list(range(lo, hi)), buf[lo:hi])
+                mask = shared["mask"].clone()
+                mask[lo:hi] = True
+                shared["mask"] = mask
+            spill_max = max(spill_max, oiv.stats()["spill_used"])
+            full_probe(f"adding rows {lo}-{hi - 1}")
+            checks += 1
+        gone = list(range(0, 200, 10)) + list(range(n0, n0 + n_add, 7))
+        for lo in range(0, len(gone), 16):
+            batch = gone[lo:lo + 16]
+            with state_lock:
+                mask = shared["mask"].clone()
+                for rid in batch:
+                    oiv.remove(rid)
+                    mask[rid] = False
+                shared["mask"] = mask
+            full_probe(f"removing {len(batch)} rows")
+            checks += 1
+    finally:
+        stop.set()
+        worker.join(timeout=120)
+    check(not worker.is_alive() and not errors,
+          f"the searching thread ran through the churn: {errors[:1]}")
+    st = oiv.stats()
+    check(spill_max > 0 and st["repacks"] >= 1,
+          "the adds filled a cluster into the spill and forced a repack")
+    check(st["live_rows"] == n0 + n_add - len(gone), "live rows counted")
+    emit({"phase": "online_ivf", "ok": True, "capacity": ONLINE_CAP,
+          "initial_rows": n0, "added": n_add, "removed": len(gone),
+          "build_s": build_s, "spill_used_max": spill_max, "stats": st,
+          "full_probe_checks": checks + 1, "near_tie_swaps": sum(swaps),
+          "concurrent_searches": len(searched),
+          "phase_s": time.perf_counter() - t_phase})
+    del buf, oiv
+    torch.cuda.empty_cache()
+
+
+def _sharded_ivf(state, mesh) -> dict:
+    """The sharded IVF routes on the mesh (4 shards of the one card), each
+    at full probe against its single-device form: ShardedIVF and
+    ShardedOnlineIVF against ivf_search and OnlineIVF (indices equal,
+    values at rtol 1e-6), sharded IVF-PQ with a covering rerank against
+    the exact route; then ``serve`` over the 4 shards with ``--ivf_nlist
+    0`` at 10^5 rows."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from art_sbir_tpu_torch.ops import ivf, pq
+
+    def same(a, b, what):
+        check(torch.equal(a[1].long(), b[1].long())
+              and torch.allclose(a[0], b[0], rtol=1e-6, atol=1e-6),
+              f"{what} at full probe equals its single-device form")
+
+    out = {}
+    g, q = _blob_geometry(SERVE_N, seed=15, n_extra=32)
+    t0 = time.perf_counter()
+    sh = ivf.build_ivf_sharded(g, SHARDS, devices=mesh.devices)
+    out["sharded_build_s"] = time.perf_counter() - t0
+    one = ivf.build_ivf(g)
+    same(ivf.ivf_search_sharded(q, sh, g, mesh, nprobe=sh.nlist, k=K),
+         ivf.ivf_search(q, one, g, nprobe=one.nlist, k=K), "ShardedIVF")
+    out["sharded_stats"] = sh.stats()
+
+    n0 = SERVE_N // 2  # the last two shards start empty
+    so = ivf.build_ivf_sharded_online(g, n0, SHARDS, devices=mesh.devices)
+    oo = ivf.build_ivf_online(g, n0)  # the same build: the same centroids
+    mask = torch.arange(SERVE_N, device=g.device) < n0
+    added = ((n0, n0 + n0 // 16), (SERVE_N - SERVE_N // 200, SERVE_N))
+    for lo, hi in added:  # into shard 2, which starts empty, and shard 3
+        so.add(list(range(lo, hi)), g[lo:hi])
+        oo.add(list(range(lo, hi)), g[lo:hi])
+        mask[lo:hi] = True
+    for rid in (list(range(0, n0 // 50, 9))
+                + list(range(n0, n0 + n0 // 16, 11))):
+        so.remove(rid)
+        oo.remove(rid)
+        mask[rid] = False
+    same(so.search(q, g, mesh, nprobe=so.nlist, k=K, mask=mask),
+         oo.search(q, g, nprobe=oo.nlist, k=K, mask=mask),
+         "ShardedOnlineIVF")
+    out["sharded_online_stats"] = so.stats()
+    del sh, one, so, oo
+
+    g2, q2 = g[:PQ_EXACT_N], q
+    sh2 = ivf.build_ivf_sharded(g2, SHARDS, devices=mesh.devices)
+    cb, codes = pq.build_ivf_pq_sharded(g2, sh2, PQ_M)
+    out["sharded_pq_full_probe_vs_exact"] = _held_exact(
+        pq.ivf_pq_search_sharded(q2, sh2, codes, cb, mesh, nprobe=sh2.nlist,
+                                 k=K, rows=g2, rerank_factor=PQ_EXACT_N),
+        q2, g2, "euclidean", "sharded IVF-PQ, a covering rerank")
+    del g, q, g2, sh2, codes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sketches = _sketches(8)
+    with tempfile.TemporaryDirectory() as tmp:
+        folder, paths, slots, save_s = _clustered_cache(
+            tmp, SERVE_N, _planted_rows(sketches), seed=1)
+        _serve_engine(state, "serve_ivf_sharded", _ivf_args(folder, tmp),
+                      mesh, SERVE_N, "ivf", sketches, paths, slots, save_s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # -------------------------------------------------------------- inference
@@ -2339,9 +2926,10 @@ def phase_sharded(state) -> None:
     the sharded int8 route against unsharded K1 and their plain versions,
     timed; ``run_inference`` over the mesh against the unsharded run at
     SHARD_ROWS rows, and at K1_ROWS rows (not divisible by 4: the
-    unsharded route); ``--n_devices`` past the cards present. (The serving
-    engine over the mesh runs in ``serve_sharded`` and
-    ``serve_quant_sharded``.)"""
+    unsharded route); ``--n_devices`` past the cards present. First the
+    sharded IVF routes (:func:`_sharded_ivf`, their own ``sharded_ivf``
+    line, and ``serve_ivf_sharded``). (The serving engine over the mesh
+    runs in ``serve_sharded`` and ``serve_quant_sharded``.)"""
     import torch
 
     from art_sbir_tpu_torch.cli import inference as inference_cli
@@ -2353,6 +2941,9 @@ def phase_sharded(state) -> None:
     from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
 
     mesh = MeshSpec(SHARDS).build(["cuda:0"] * SHARDS)
+    t0 = time.perf_counter()
+    emit({"phase": "sharded_ivf", "ok": True, "shards": SHARDS,
+          **_sharded_ivf(state, mesh), "phase_s": time.perf_counter() - t0})
     gen = torch.Generator(device="cuda").manual_seed(8)
     line = {"phase": "sharded", "ok": True, "shards": SHARDS}
     line.update(_sharded_k1(state, mesh, gen))
@@ -2871,8 +3462,8 @@ def phase_train(state) -> None:
 # ------------------------------------------------------------------- main
 
 PHASES = ("build", "kernels", "kernels_k2", "kernels_int8_wide", "probe_k1",
-          "encoder", "serve", "serve_quant", "inference", "inference_k1",
-          "sharded", "train")
+          "encoder", "serve", "serve_quant", "ivf", "serve_ivf", "online_ivf",
+          "inference", "inference_k1", "sharded", "train")
 
 
 def main(argv=None) -> int:

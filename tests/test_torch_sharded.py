@@ -477,9 +477,12 @@ def test_engine_mesh_guards(data):
                         mesh=_mesh())
     with pytest.raises(ValueError, match="per-shard gallery size 5"):
         RetrievalEngine(_port_forward, feats, paths, k_max=6, mesh=_mesh())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        RetrievalEngine(_port_forward, feats, paths, ivf_nlist=4,
-                        mesh=_mesh())
+    with pytest.raises(ValueError, match="does not compose with quantize"):
+        RetrievalEngine(_port_forward, feats, paths, k_max=5, ivf_nlist=4,
+                        quantize=True, mesh=_mesh())
+    with pytest.raises(ValueError, match="immutable indexes only"):
+        RetrievalEngine(_port_forward, feats, paths, k_max=5, ivf_nlist=4,
+                        pq_m=4, capacity=48, mesh=_mesh())
 
 
 def test_serve_cli_n_devices(tmp_path):
