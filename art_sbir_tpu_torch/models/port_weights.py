@@ -1,19 +1,30 @@
-"""Carry ModifiedResNet weights across from the JAX package's flax trees.
+"""Carry weights across from the JAX package's flax trees, and load the
+reference's published ``.pth`` files.
 
-The inverse of ``art_sbir_tpu/models/torch_port.py::port_modified_resnet``:
-flax trees (nested dicts of numpy arrays) -> the port's state dict in the
-reference torch layout. Conv ``(kh, kw, in, out)`` -> ``(out, in, kh, kw)``;
-dense ``(in, out)`` -> ``(out, in)``; BN ``scale/bias`` + ``mean/var`` ->
-``weight/bias/running_mean/running_var``. Converting an orbax checkpoint
-needs orbax (and so JAX) and is still to port.
+The ``*_from_flax`` functions are the inverses of
+``art_sbir_tpu/models/torch_port.py::port_*``: flax trees (nested dicts of
+numpy arrays) -> the port's state dicts in the reference torch layout.
+Conv ``(kh, kw, in, out)`` and transposed conv ``(kh, kw, out, in)`` ->
+``(out, in, kh, kw)`` and ``(in, out, kh, kw)``; dense ``(in, out)`` ->
+``(out, in)``; BN ``scale/bias`` + ``mean/var`` ->
+``weight/bias/running_mean/running_var``.
+
+The ``.pth`` loaders follow ``art_sbir_tpu/cli/port.py:36-41,76-112``: a
+whole-module pickle is unwrapped with ``.state_dict()``, and a key the
+file lacks keeps the model's fresh value (the JAX package's
+``strict=False`` merge), named on stderr. Converting an orbax checkpoint
+needs orbax (and so JAX) and is still to port (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+import sys
+from pathlib import Path
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -23,8 +34,11 @@ def _t(a) -> torch.Tensor:
 
 
 def _conv(sd: StateDict, prefix: str, p: Mapping) -> None:
+    """A conv, or a transposed conv: both kernels go (3, 2, 0, 1)."""
     sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(p["kernel"]),
                                              (3, 2, 0, 1)))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def _dense(sd: StateDict, prefix: str, p: Mapping) -> None:
@@ -78,3 +92,86 @@ def modified_resnet_with_classification_from_flax(
         if name in params:
             _dense(sd, name, params[name])
     return sd
+
+
+def drawing_from_flax(params: Mapping, n_residual_blocks: int = 3
+                      ) -> StateDict:
+    """Flax ``DrawingGenerator`` params -> the reference ``Generator``
+    layout (the inverse of JAX ``torch_port.py::port_drawing_generator``)."""
+    sd: StateDict = {}
+    _conv(sd, "model0.1", params["stem"])
+    for i in range(2):
+        _conv(sd, f"model1.{i * 3}", params[f"down{i}"])
+    for i in range(n_residual_blocks):
+        _conv(sd, f"model2.{i}.conv_block.1", params[f"res{i}"]["Conv_0"])
+        _conv(sd, f"model2.{i}.conv_block.5", params[f"res{i}"]["Conv_1"])
+    for i in range(2):
+        _conv(sd, f"model3.{i * 3}", params[f"up{i}"])
+    _conv(sd, "model4.1", params["head"])
+    return sd
+
+
+ADAIN_ENCODER_CONVS = (0, 2, 5, 9, 12, 16, 19, 22, 25, 29)
+ADAIN_DECODER_CONVS = (1, 5, 8, 11, 14, 18, 21, 25, 28)
+ADAIN_ENCODER_LAST = 30  # relu4_1: vgg_normalised.pth's keys past it go
+
+
+def adain_from_flax(encoder_params: Mapping, decoder_params: Mapping
+                    ) -> Tuple[StateDict, StateDict]:
+    """Flax ``AdaINEncoder`` and ``AdaINDecoder`` params -> the
+    ``vgg_normalised.pth`` and ``decoder.pth`` layouts (the inverse of JAX
+    ``torch_port.py::port_adain``)."""
+    enc: StateDict = {}
+    names = ["proj"] + [f"conv{i}" for i in range(9)]
+    for name, t in zip(names, ADAIN_ENCODER_CONVS):
+        _conv(enc, str(t), encoder_params[name])
+    dec: StateDict = {}
+    names = [f"conv{i}" for i in range(8)] + ["out"]
+    for name, t in zip(names, ADAIN_DECODER_CONVS):
+        _conv(dec, str(t), decoder_params[name])
+    return enc, dec
+
+
+def load_reference_pth(path: Path | str) -> StateDict:
+    """A reference ``.pth`` on the CPU. The published files are state dicts
+    or whole pickled modules (unwrapped with ``.state_dict()``), so this
+    unpickles objects (``weights_only=False``), as the JAX package's
+    ``cli/port.py::_load_pth`` does: load only files you trust."""
+    loaded = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(loaded, "state_dict"):
+        loaded = loaded.state_dict()
+    return dict(loaded)
+
+
+def load_into(model: nn.Module, sd: Mapping[str, torch.Tensor], what: str
+              ) -> nn.Module:
+    """Load ``sd`` into ``model``. A key of the model that ``sd`` lacks
+    keeps its fresh value and is named on stderr; a key ``sd`` holds that
+    the model does not raises (the caller drops what it knows to drop)."""
+    own = model.state_dict()
+    unexpected = sorted(set(sd) - set(own))
+    if unexpected:
+        raise KeyError(f"{what}: keys not in the model: {unexpected[:8]}")
+    missing = sorted(set(own) - set(sd))
+    if missing:
+        print(f"{what}: {len(missing)} keys missing from the file keep their "
+              f"fresh init: {missing[:8]}", file=sys.stderr, flush=True)
+    model.load_state_dict({**own, **sd})
+    return model
+
+
+def load_adain_pth(src: str) -> Tuple[StateDict, StateDict]:
+    """The published AdaIN pair -> (encoder, decoder) state dicts. ``src``
+    is a directory holding ``vgg_normalised.pth`` and ``decoder.pth``, or
+    the comma-joined pair. The encoder keeps Sequential indices 0..30
+    (through relu4_1): the keys of ``vgg_normalised.pth`` past it
+    (relu4_2..relu5_4, unused by style transfer) are dropped here, by
+    index, as JAX ``torch_port.py::port_adain`` ignores them."""
+    if Path(src).is_dir():
+        vgg_path, dec_path = (Path(src) / "vgg_normalised.pth",
+                              Path(src) / "decoder.pth")
+    else:
+        vgg_path, dec_path = src.split(",")
+    vgg = {k: v for k, v in load_reference_pth(vgg_path).items()
+           if int(k.split(".")[0]) <= ADAIN_ENCODER_LAST}
+    return vgg, load_reference_pth(dec_path)

@@ -84,7 +84,12 @@ Phases, each printing one JSON line:
                   20,000 rows IVF-PQ at full probe with a covering rerank
                   against retrieve. Full probes are held to the exact
                   route's indices but for near-ties within the expanded
-                  form's float32 reach (their count is printed).
+                  form's float32 reach (their count is printed). Each
+                  neighbour the probe misses at nprobe >= 4 is recomputed
+                  in float64 beside the exact route's 10th: within that
+                  reach a near-tie, outside it in a probed cluster a fault
+                  of ops/ivf.py (none allowed), outside it in an unprobed
+                  cluster the probe's approximation (counts printed).
 10. serve_ivf  -- serve_ivf and serve_ivf_pq: the serving path as in
                   ``serve`` over 1,000,000 clustered rows with the 8
                   planted rows, ``--ivf_nlist 0 --ivf_nprobe 0``, then
@@ -176,6 +181,31 @@ Phases, each printing one JSON line:
                   ``TripletLoader`` as the CLI feeds them: the host's wait
                   on the loader. The training path launches no kernel of
                   the port.
+16. drawings   -- the informative-drawings generator at full width (256
+                  px, batch 16) from seed-0 weights written as a
+                  reference .pth and loaded by cli/drawings.py's loader:
+                  float32 (TF32 off) on the card against float64 on the
+                  card, the CPU's float32 distance beside it (the card
+                  within twice the CPU's plus rtol 1e-5); --bf16 against
+                  float32 in uint8 levels (a mean under 6 an image, JAX's
+                  bound); a batch's time in both (CUDA events), images/s
+                  and the share of each peak from the FLOPs of its convs;
+                  cli/drawings.py's main over a synthetic Kaggle corpus
+                  (320 photos at 256 px): wall time, images/s, the
+                  decode / forward / write split, every PNG within one
+                  level of the in-process forward, KaggleCatalogV1
+                  finding a contour drawing for every photo; then
+                  --corpus sketchy over a small Sketchy corpus.
+17. artwork_gen -- AdaIN at 256 px from seed-0 weights written as
+                  vgg_normalised.pth and decoder.pth: float32 on the card
+                  against float64 (the CPU's beside it, as above) at
+                  alpha 1.0 and 0.5, a batch of 8 timed, then
+                  cli/artwork_gen.py's main over 64 content and 16 style
+                  JPEGs: the style pairing of random.Random(seed), one
+                  256 px JPEG a content image, images/s.
+18. dilate     -- cli/transformations.py -m dilate on the card over PNGs
+                  of six sizes (9 x 13 to 1024 x 767): each output equal
+                  bit for bit to dilate_binarize on the CPU.
 
 Every kernel count is set to 0 just before each counted run (each serve
 phase's requests, the probe's runs, each ``inference`` and
@@ -186,7 +216,8 @@ rows (``inference`` ranks its small gallery on the exact route), K2's
 from ``serve_quant``, K1's bf16 form's and P1's from the probe, the
 sharded K1's from ``serve_sharded`` and ``sharded``'s ``run_inference``
 over the mesh, the sharded K2's from ``serve_quant_sharded``; the IVF
-serve runs launch none. Any failed check exits non-zero. The last line is
+serve runs and the generator phases launch none. Any failed check exits
+non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
 """
@@ -1651,6 +1682,55 @@ def _held_exact(got, q, g, metric: str, what: str) -> dict:
     return _near_exact(got, (ev, ei), q, g, metric, what)
 
 
+def _missing_in_float64(q, g, index, exact, got, nprobe: int) -> dict:
+    """Each neighbour of the exact route's top-k that the probe at
+    ``nprobe`` misses, recomputed in float64 beside the exact route's k-th
+    (squared euclidean): inside the expanded form's float32 reach of the
+    k-th (:func:`_near_exact`'s, 1e-5 x (d + 2|q|^2 + |g_m|^2 + |g_k|^2))
+    it is a near-tie that the exact route's cancellation can order either
+    way. Outside it, a miss whose cluster the probe visited is a fault of
+    ``ops/ivf.py``; one whose cluster it did not visit is the probe's
+    approximation."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import ivf
+
+    exact, got = exact.long(), got.long()
+    missing = [(r, int(m)) for r in range(len(q))
+               for m in set(exact[r].tolist()) - set(got[r].tolist())]
+    n = len(g)
+    label = torch.full((n,), -1, dtype=torch.long, device=g.device)
+    rows = index.row_ids.long()
+    cluster = torch.arange(rows.shape[0], device=g.device)[:, None].expand_as(
+        rows)
+    label[rows[rows < n]] = cluster[rows < n]
+    probed = ivf._probe(q.float(), index.centroids, index.metric, nprobe)
+    inside = outside_unprobed = 0
+    faults, worst = [], 0.0
+    for r, m in missing:
+        q64 = q[r].double()
+        kth = int(exact[r, -1])
+        d_m = float(((g[m].double() - q64) ** 2).sum())
+        d_k = float(((g[kth].double() - q64) ** 2).sum())
+        reach = 1e-5 * (d_k + 2 * float((q64 ** 2).sum())
+                        + float((g[m].double() ** 2).sum())
+                        + float((g[kth].double() ** 2).sum()))
+        worst = max(worst, abs(d_m - d_k) / reach)
+        if abs(d_m - d_k) <= reach:
+            inside += 1
+        elif bool((probed[r] == label[m]).any()):
+            faults.append({"query": r, "row": m, "d64": d_m, "kth_d64": d_k})
+        else:
+            outside_unprobed += 1
+    check(not faults, f"IVF at nprobe {nprobe}: {len(faults)} missing "
+          f"neighbours outside float32 reach in probed clusters: "
+          f"{faults[:3]}")
+    return {"missing": len(missing), "inside_reach": inside,
+            "outside_reach_unprobed": outside_unprobed,
+            "outside_reach_probed": len(faults),
+            "worst_gap_over_reach": worst}
+
+
 def _engine_proxy(g, n: int):
     """The serving engine's auto-nprobe proxy: 256 perturbed gallery rows
     drawn with numpy's ``default_rng(0)``."""
@@ -1709,10 +1789,14 @@ def phase_ivf(state) -> None:
     line["stats"] = index.stats()
     _, _, exact = retrieve_chunked(queries, g, zeros(len(queries)), k=K,
                                    chunk=256)
-    line["recall_at_nprobe"] = {
-        str(p): topk_overlap(ivf.ivf_search(queries, index, g, nprobe=p,
-                                            k=K)[1], exact)
-        for p in NPROBES}
+    found = {p: ivf.ivf_search(queries, index, g, nprobe=p, k=K)[1]
+             for p in NPROBES}
+    line["recall_at_nprobe"] = {str(p): topk_overlap(found[p], exact)
+                                for p in NPROBES}
+    line["missing_vs_float64"] = {
+        str(p): _missing_in_float64(queries, g, index, exact, found[p], p)
+        for p in NPROBES if p >= 4}
+    del found
     proxy, sel = _engine_proxy(g, IVF_N)
     t0 = time.perf_counter()
     tuned = ivf.tune_nprobe(index, g, proxy, k=K,
@@ -2357,8 +2441,26 @@ def phase_inference(state) -> None:
     moved = float(torch.max(torch.abs(
         d_card - _chunked(pairwise_distance, qt, gt).cuda())))
     rank_tol = _rank_tolerance(d_card, pos, 2.0 * moved)
-    del d_card
     rank_diff = np.abs(card_ranks - cpu_ranks)
+    bad = np.nonzero(rank_diff > rank_tol)[0]
+    if bad.size:  # what the failure needs to be read: to stderr
+        from art_sbir_tpu_torch.ops.distance import rank_of_positive
+
+        d_cpu = _chunked(pairwise_distance, qt, gt)
+        p_all = torch.as_tensor(np.where(pos < 0, 0, pos))
+        again = {"card": rank_of_positive(d_card.cpu(), p_all).numpy(),
+                 "cpu": rank_of_positive(d_cpu, p_all).numpy()}
+        print(json.dumps({"inference_rank_failure": {
+            "queries": int(bad.size), "moved": moved,
+            "first": [{"query": int(i), "pos": int(pos[i]),
+                       "card": int(card_ranks[i]), "cpu": int(cpu_ranks[i]),
+                       "tol": int(rank_tol[i]),
+                       "card_again": int(again["card"][i]),
+                       "cpu_again": int(again["cpu"][i]),
+                       "card_dpos": float(d_card[i, max(pos[i], 0)]),
+                       "cpu_dpos": float(d_cpu[i, max(pos[i], 0)])}
+                      for i in bad[:5]]}}), file=sys.stderr, flush=True)
+    del d_card
     check(bool((rank_diff <= rank_tol).all()),
           "the card's ranks equal the CPU's but for columns within the two "
           "float32 matrices' difference of the positive's distance")
@@ -3062,8 +3164,9 @@ CHECK_B = 4  # the card-against-CPU float32 step
 
 
 def _forward_flops(model, x) -> int:
-    """2 x the multiply-adds of ``model``'s convolutions and linear layers
-    in one forward of ``x``, from their shapes (forward hooks)."""
+    """2 x the multiply-adds of ``model``'s convolutions, transposed
+    convolutions and linear layers in one forward of ``x``, from their
+    shapes (forward hooks)."""
     import torch
     from torch import nn
 
@@ -3073,12 +3176,17 @@ def _forward_flops(model, x) -> int:
         if isinstance(mod, nn.Conv2d):
             k = mod.in_channels // mod.groups * mod.kernel_size[0] \
                 * mod.kernel_size[1]
+            total[0] += 2 * out.numel() * k
+        elif isinstance(mod, nn.ConvTranspose2d):
+            # each input pixel scatters a k x k x out_channels block
+            k = mod.out_channels // mod.groups * mod.kernel_size[0] \
+                * mod.kernel_size[1]
+            total[0] += 2 * inp[0].numel() * k
         else:
-            k = mod.in_features
-        total[0] += 2 * out.numel() * k
+            total[0] += 2 * out.numel() * mod.in_features
 
     handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, (nn.Conv2d, nn.Linear))]
+               if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))]
     try:
         with torch.no_grad():
             model(x)
@@ -3459,11 +3567,370 @@ def phase_train(state) -> None:
           "loader": loader, "phase_s": time.perf_counter() - t_phase})
 
 
+# ------------------------------------------------------------- generators
+
+GEN_SIZE = 256  # the generators' published resolution
+DRAW_B = 16  # cli/drawings.py's default batch
+ART_B = 8  # cli/artwork_gen.py's default batch
+GEN_CHECK_B = 4  # the drawings' float64 and CPU yardsticks
+ART_CHECK_B = 2  # AdaIN's (three 256 px VGG passes an image on the CPU)
+DRAW_KAGGLE = dict(n_train=256, n_test=64, size=GEN_SIZE, sketch_types=())
+DRAW_SKETCHY = dict(n_classes=3, photos_per_class=4, size=GEN_SIZE)
+ART_CONTENT, ART_STYLES = 64, 16
+
+
+def _he_init(model, seed: int):
+    """Conv weights N(0, 2 / fan_in) and zero biases, drawn from a CPU
+    ``torch.Generator`` seeded with ``seed``: through AdaIN's 18 convs
+    without norms, torch's default init shrinks the signal to the last
+    bias, and every stylized image would be one colour."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                w = mod.weight
+                w.copy_(torch.randn(w.shape, generator=gen)
+                        * (2.0 / w[0].numel()) ** 0.5)
+                mod.bias.zero_()
+    return model
+
+
+def _vs_float64(card_fn, cpu_fn, f64_fn, what: str) -> dict:
+    """The card's float32 output and the CPU's, each against a float64
+    forward of the same model on the card (norm-wise relative distance,
+    and the largest absolute difference): the card within twice the CPU's
+    distance plus rtol 1e-5."""
+    out = {}
+    exact = f64_fn().cpu()
+    for side, fn in (("card", card_fn), ("cpu", cpu_fn)):
+        got = fn().cpu().double()
+        out[side] = {"rel_err": float((got - exact).norm() / exact.norm()),
+                     "max_abs_err": float((got - exact).abs().max())}
+    check(out["card"]["rel_err"] <= 2 * out["cpu"]["rel_err"] + 1e-5,
+          f"{what}: the card's float32 {out['card']['rel_err']:.3g} from "
+          f"float64, the CPU's {out['cpu']['rel_err']:.3g}")
+    return out
+
+
+def _kernel_split(fn, top: int = 6) -> dict:
+    """One call of ``fn`` under torch.profiler: its device time by kind of
+    kernel, from the kernels' names (convolutions, GEMMs and cuDNN's FFT
+    convolution kernels, reductions, padding, elementwise work and
+    copies, the rest), and the ``top`` kernels by time (names cut to 90
+    characters)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds = (("conv", ("conv", "gemm", "xmma", "cutlass", "cudnn", "fprop",
+                       "sm90_", "sm80_", "fft", "complex")),
+             ("reduce", ("reduce",)), ("pad", ("pad",)),
+             ("elementwise_copy", ("elementwise", "copy", "nchw", "nhwc",
+                                   "transpose")))
+    split, named = {}, []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or not ev.self_device_time_total:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        low = ev.key.lower()
+        kind = next((k for k, words in kinds
+                     if any(w in low for w in words)), "other")
+        split[kind] = split.get(kind, 0.0) + ms
+        named.append((ms, ev.key[:90]))
+    return {"device_ms_by_kind": split,
+            "top_kernels_ms": [[n, ms] for ms, n in sorted(named)[::-1][:top]]}
+
+
+def _gen_timing(fn, flops: int, batch: int, peak: float) -> dict:
+    """CUDA-event time of one batch, images/s, the share of ``peak``, and
+    where the device time goes (:func:`_kernel_split`)."""
+    ms = time_ms(fn, reps=10)
+    return {"ms": ms, "device_ms": device_ms(fn, reps=5),
+            "images_per_s": batch * 1e3 / ms,
+            "bound_ms": 1e3 * flops / peak,
+            "share_of_peak": 1e3 * flops / peak / ms, **_kernel_split(fn)}
+
+
+def phase_drawings(state) -> None:
+    """The informative-drawings generator at full width (256 px, batch
+    16), seed-0 weights written as a reference ``.pth`` and loaded through
+    ``cli/drawings.py``'s own loader: float32 on the card against float64
+    (the CPU's float32 beside it), ``--bf16`` against float32 in uint8
+    levels, the time of a batch in both; then ``cli/drawings.py``'s
+    ``main`` (what ``python -m`` runs) over a synthetic Kaggle corpus
+    (every PNG against the in-process forward within one level; the
+    Kaggle catalog then finds a sketch for every photo) and over a small
+    Sketchy corpus."""
+    import copy
+
+    import torch
+
+    from art_sbir_tpu_torch.cli import drawings
+    from art_sbir_tpu_torch.core.device import ieee_f32
+    from art_sbir_tpu_torch.data import get_datasets
+    from art_sbir_tpu_torch.data.loader import decode_paths
+    from art_sbir_tpu_torch.data.synthetic import (make_synthetic_kaggle,
+                                                   make_synthetic_sketchy)
+    from art_sbir_tpu_torch.models.drawing import DrawingGenerator
+    from art_sbir_tpu_torch.models.layers import torch_default_init
+
+    check(state["pil"], "PIL is installed: the phase writes its corpora "
+          "with it")
+    t_phase = time.perf_counter()
+    ieee_f32()
+    tmp = Path(state["tmp"]) / "drawings"
+    tmp.mkdir()
+    pth = tmp / "contour.pth"
+    torch.save(torch_default_init(DrawingGenerator(), seed=0).state_dict(),
+               pth)
+    dev = torch.device("cuda")
+    gen = drawings.load_generator(str(pth), dev)
+    gen16 = drawings.load_generator(str(pth), dev, bf16=True)
+    rng = np.random.default_rng(21)
+    u8 = torch.from_numpy(rng.integers(0, 256, (DRAW_B, GEN_SIZE, GEN_SIZE,
+                                                3), dtype=np.uint8)).cuda()
+    x = u8.permute(0, 3, 1, 2).float() / 255.0
+    line = {"phase": "drawings", "ok": True, "batch": DRAW_B,
+            "size": GEN_SIZE}
+
+    cpu = drawings.load_generator(str(pth), torch.device("cpu"))
+    exact = copy.deepcopy(gen).double()
+    xs = x[:GEN_CHECK_B]
+    with torch.inference_mode():
+        line["f32_vs_f64"] = _vs_float64(
+            lambda: gen(xs), lambda: cpu(xs.cpu()),
+            lambda: exact(xs.double()), "DrawingGenerator")
+    del exact, cpu
+
+    f32 = drawings.forward_u8(gen, u8)
+    b16 = drawings.forward_u8(gen16, u8, bf16=True)
+    diff = (f32.int() - b16.int()).abs().float()
+    per_image = diff.mean(dim=(1, 2))
+    line["bf16_vs_f32_levels"] = {"mean_max": float(per_image.max()),
+                                  "mean": float(per_image.mean()),
+                                  "max": float(diff.max())}
+    check(float(per_image.max()) < 6.0,
+          f"--bf16 within JAX's bound of float32 (a mean under 6 levels an "
+          f"image): {float(per_image.max()):.3g}")
+    flops = _forward_flops(gen, x[:1])
+    line["gflop_per_image"] = flops / 1e9
+
+    def fwd32():
+        with torch.inference_mode():
+            return gen(x)
+
+    x16 = x.to(torch.bfloat16)
+
+    def fwd16():
+        with torch.inference_mode():
+            return gen16(x16)
+
+    line["f32"] = _gen_timing(fwd32, flops * DRAW_B, DRAW_B,
+                              H100_F32_FLOP_PER_S)
+    line["bf16"] = _gen_timing(fwd16, flops * DRAW_B, DRAW_B,
+                               H100_BF16_FLOP_PER_S)
+    # a measurement for later work, not the CLI's path: the same bf16
+    # batch with the weights and input in channels_last (NHWC) memory
+    gen16.to(memory_format=torch.channels_last)
+    x16 = x16.contiguous(memory_format=torch.channels_last)
+    line["bf16_channels_last_ms"] = time_ms(fwd16, reps=10)
+    del x, x16, u8, f32, b16, diff
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    kroot = make_synthetic_kaggle(tmp / "kaggle", **DRAW_KAGGLE)
+    line["corpus_write_s"] = time.perf_counter() - t0
+    stats = drawings.main(["--corpus", "kaggle", "--data_root", str(kroot),
+                           "--model", str(pth), "--image_size",
+                           str(GEN_SIZE)])
+    n = DRAW_KAGGLE["n_train"] + DRAW_KAGGLE["n_test"]
+    check(stats["images"] == n, f"cli/drawings.py drew {n} images")
+    line["cli_kaggle"] = {**stats, "images_per_s":
+                          stats["images"] / stats["wall_s"]}
+    photos = sorted((kroot / "images").iterdir())
+    from PIL import Image
+
+    worst = 0
+    for s in range(0, n, DRAW_B):
+        chunk = photos[s: s + DRAW_B]
+        want = drawings.forward_u8(gen, torch.from_numpy(
+            decode_paths(chunk, GEN_SIZE)).cuda()).cpu().numpy()
+        for img, p in zip(want, chunk):
+            got = np.asarray(Image.open(kroot / "contour_drawings"
+                                        / f"{p.stem}.png"), np.int32)
+            worst = max(worst, int(np.abs(got - img).max()))
+    line["cli_kaggle"]["png_vs_in_process_max_levels"] = worst
+    check(worst <= 1, f"each PNG within one level of the in-process "
+          f"forward: {worst}")
+    found = 0
+    for cat in get_datasets("KaggleV1", size=1.0, root=kroot,
+                            sketch_type="contour_drawings"):
+        found += sum(cat.sketch_for(i).is_file() for i in range(len(cat)))
+        check(len(cat) > 0 and all(cat.sketch_for(i).is_file()
+                                   for i in range(len(cat))),
+              "KaggleCatalogV1 finds a contour drawing for every photo")
+    line["kaggle_catalog_sketches_found"] = found
+
+    sroot = make_synthetic_sketchy(tmp / "sketchy", **DRAW_SKETCHY)
+    stats = drawings.main(["--corpus", "sketchy", "--data_root", str(sroot),
+                           "--model", str(pth), "--name", "opensketch",
+                           "--image_size", str(GEN_SIZE)])
+    shards = sorted(d.name for d in (sroot / "opensketch_drawings").iterdir())
+    n = DRAW_SKETCHY["n_classes"] * DRAW_SKETCHY["photos_per_class"]
+    check(len(shards) == DRAW_SKETCHY["n_classes"] and sum(
+        len(list((sroot / "opensketch_drawings" / d).glob("*.png")))
+        for d in shards) == n, "--corpus sketchy: one folder a class, "
+        "every photo drawn")
+    line["cli_sketchy"] = stats
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    torch.cuda.empty_cache()
+
+
+def phase_artwork_gen(state) -> None:
+    """AdaIN style transfer at 256 px: seed-0 weights written as
+    ``vgg_normalised.pth`` and ``decoder.pth`` and loaded through
+    ``cli/artwork_gen.py``'s own loader; float32 on the card against
+    float64 (the CPU's float32 beside it) at alpha 1.0 and 0.5; the time
+    of a batch of 8; then ``cli/artwork_gen.py``'s ``main`` over synthetic
+    content and style folders: every content image stylized with the
+    style ``random.Random(seed)`` draws."""
+    import copy
+    import random
+
+    import torch
+    from PIL import Image
+
+    from art_sbir_tpu_torch.cli import artwork_gen
+    from art_sbir_tpu_torch.core.device import ieee_f32
+    from art_sbir_tpu_torch.models.adain_net import (AdaINDecoder,
+                                                     AdaINEncoder,
+                                                     style_transfer)
+
+    check(state["pil"], "PIL is installed: the phase writes its folders "
+          "with it")
+    t_phase = time.perf_counter()
+    ieee_f32()
+    tmp = Path(state["tmp"]) / "artwork_gen"
+    (tmp / "adain").mkdir(parents=True)
+    torch.save(_he_init(AdaINEncoder(), 0).state_dict(),
+               tmp / "adain" / "vgg_normalised.pth")
+    torch.save(_he_init(AdaINDecoder(), 1).state_dict(),
+               tmp / "adain" / "decoder.pth")
+    enc, dec = artwork_gen.load_adain(str(tmp / "adain"),
+                                      torch.device("cuda"))
+    rng = np.random.default_rng(22)
+
+    def images(n):
+        return torch.from_numpy(rng.random((n, 3, GEN_SIZE, GEN_SIZE),
+                                           dtype=np.float32)).cuda()
+
+    content, style = images(ART_B), images(ART_B)
+    line = {"phase": "artwork_gen", "ok": True, "batch": ART_B,
+            "size": GEN_SIZE, "f32_vs_f64": {}}
+    cpu = [copy.deepcopy(m).cpu() for m in (enc, dec)]
+    exact = [copy.deepcopy(m).double() for m in (enc, dec)]
+    c, s = content[:ART_CHECK_B], style[:ART_CHECK_B]
+    for alpha in (1.0, 0.5):
+        with torch.inference_mode():
+            line["f32_vs_f64"][str(alpha)] = _vs_float64(
+                lambda: style_transfer(enc, dec, c, s, alpha),
+                lambda: style_transfer(*cpu, c.cpu(), s.cpu(), alpha),
+                lambda: style_transfer(*exact, c.double(), s.double(),
+                                       alpha),
+                f"style_transfer at alpha {alpha}")
+    del cpu, exact
+    with torch.inference_mode():
+        feat = enc(content[:1])
+    flops = 2 * _forward_flops(enc, content[:1]) + _forward_flops(dec, feat)
+    line["gflop_per_image"] = flops / 1e9
+
+    def transfer():
+        with torch.inference_mode():
+            return style_transfer(enc, dec, content, style)
+
+    line["f32"] = _gen_timing(transfer, flops * ART_B, ART_B,
+                              H100_F32_FLOP_PER_S)
+    del content, style
+    torch.cuda.empty_cache()
+
+    folders = {"content": ART_CONTENT, "style": ART_STYLES}
+    for name, n in folders.items():
+        (tmp / name).mkdir()
+        for i in range(n):
+            Image.fromarray(rng.integers(0, 256, (GEN_SIZE + 32, GEN_SIZE, 3),
+                                         dtype=np.uint8)).save(
+                tmp / name / f"{name}{i:03d}.jpg")
+    stats = artwork_gen.main([
+        "--content_dir", str(tmp / "content"), "--style_dir",
+        str(tmp / "style"), "--out_dir", str(tmp / "out"), "--model",
+        str(tmp / "adain"), "--seed", "3", "--image_size", str(GEN_SIZE)])
+    draw = random.Random(3)
+    styles = sorted((tmp / "style").glob("*.jpg"))
+    want = {f"content{i:03d}": str(draw.choice(styles))
+            for i in range(ART_CONTENT)}
+    check(stats["pairs"] == want, "cli/artwork_gen.py pairs each content "
+          "image with random.Random(seed)'s style")
+    outs = sorted((tmp / "out").glob("*.jpg"))
+    check(len(outs) == ART_CONTENT and np.asarray(Image.open(outs[0])).shape
+          == (GEN_SIZE, GEN_SIZE, 3), "one 256 px JPEG a content image")
+    line["cli"] = {k: v for k, v in stats.items() if k != "pairs"}
+    line["cli"]["images_per_s"] = stats["images"] / stats["wall_s"]
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    torch.cuda.empty_cache()
+
+
+DILATE_SIZES = ((257, 301), (64, 64), (481, 333), (1024, 767), (9, 13),
+                (640, 480))
+
+
+def phase_dilate(state) -> None:
+    """``cli/transformations.py -m dilate`` on the card over sparse-stroke
+    PNGs of mixed sizes: each output equal, bit for bit, to
+    ``dilate_binarize`` on the CPU."""
+    import torch
+    from PIL import Image
+
+    from art_sbir_tpu_torch.cli import transformations
+    from art_sbir_tpu_torch.ops.dilate import dilate_binarize
+
+    check(state["pil"], "PIL is installed: the phase writes PNGs with it")
+    t_phase = time.perf_counter()
+    folder = Path(state["tmp"]) / "dilate" / "sketches"
+    folder.mkdir(parents=True)
+    rng = np.random.default_rng(23)
+    for i, (h, w) in enumerate(DILATE_SIZES):
+        img = np.where(rng.random((h, w)) > 0.97, 0, 255).astype(np.uint8)
+        img[rng.random((h, w)) > 0.98] = 251
+        Image.fromarray(img, mode="L").save(folder / f"s{i}.png")
+    t0 = time.perf_counter()
+    transformations.main(["-m", "dilate", "-o", str(folder)])
+    cli_s = time.perf_counter() - t0
+    for i in range(len(DILATE_SIZES)):
+        src = torch.from_numpy(np.array(Image.open(folder / f"s{i}.png")))
+        got = np.asarray(Image.open(folder.parent / "dilated_sketches"
+                                    / f"s{i}.png"))
+        check(np.array_equal(got, dilate_binarize(src).numpy()),
+              f"dilate on the card equals the CPU bit for bit (s{i}.png)")
+    emit({"phase": "dilate", "ok": True, "images": len(DILATE_SIZES),
+          "sizes": DILATE_SIZES, "cli_s": cli_s,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 # ------------------------------------------------------------------- main
 
 PHASES = ("build", "kernels", "kernels_k2", "kernels_int8_wide", "probe_k1",
           "encoder", "serve", "serve_quant", "ivf", "serve_ivf", "online_ivf",
-          "inference", "inference_k1", "sharded", "train")
+          "inference", "inference_k1", "sharded", "train", "drawings",
+          "artwork_gen", "dilate")
 
 
 def main(argv=None) -> int:
@@ -3471,9 +3938,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--phases", default=None,
         help="comma-separated phases to run (build is always first; "
-             "sharded needs inference and inference_k1; train needs no "
-             "other phase); a partial run prints no kernels line and no "
-             "result line")
+             "sharded needs inference and inference_k1; train, drawings, "
+             "artwork_gen and dilate need no other phase); a partial run "
+             "prints no kernels line and no result line")
     args = parser.parse_args(argv)
     names = PHASES if args.phases is None else ["build"] + [
         p for p in args.phases.split(",") if p != "build"]
