@@ -38,8 +38,9 @@ import argparse
 import concurrent.futures
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from art_sbir_tpu_torch.core.checkpoint import load_state_dict
@@ -105,20 +106,20 @@ def forward_u8(gen: DrawingGenerator, u8: torch.Tensor, bf16: bool = False
     return (out[:, 0] * 255).to(torch.uint8)
 
 
-def launch(gen: DrawingGenerator, x: torch.Tensor, device: torch.device,
-           bf16: bool = False):
-    """Queue the upload of the uint8 batch ``x``, its forward and the copy
-    of its drawings into pinned host memory; returns (host drawings, a
-    function that waits for them and gives the seconds from the upload to
-    the copy's end, timed by events on the card)."""
+def launch(forward: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+           device: torch.device):
+    """Queue the upload of the uint8 batch ``x``, ``forward`` of it (uint8
+    out) and the copy of the result into pinned host memory; returns (host
+    result, a function that waits for it and gives the seconds from the
+    upload to the copy's end, timed by events on the card)."""
     if device.type != "cuda":
         t = time.perf_counter()
-        out = forward_u8(gen, x.to(device), bf16)
+        out = forward(x.to(device))
         seconds = time.perf_counter() - t
         return out, lambda: seconds
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    u8 = forward_u8(gen, x.to(device, non_blocking=True), bf16)
+    u8 = forward(x.to(device, non_blocking=True))
     host = torch.empty(u8.shape, dtype=u8.dtype, pin_memory=True)
     host.copy_(u8, non_blocking=True)
     end.record()
@@ -128,6 +129,53 @@ def launch(gen: DrawingGenerator, x: torch.Tensor, device: torch.device,
         return start.elapsed_time(end) / 1e3
 
     return host, wait
+
+
+def overlapped(chunks: Sequence[Sequence[Path]],
+               decode: Callable[[Sequence[Path]], np.ndarray],
+               forward: Callable[[torch.Tensor], torch.Tensor],
+               write: Callable[[np.ndarray, Sequence[Path]], None],
+               device: torch.device) -> Dict[str, float]:
+    """The three overlapped stages over ``chunks`` of paths: ``decode`` of
+    chunk k+1 on the prefetch thread, ``forward`` of chunk k on the
+    device (:func:`launch`), ``write`` of chunk k-1's uint8 results here.
+    Returns the wall time and its split (seconds): decode (on the
+    prefetch thread), the host's wait on it, forward, write."""
+    cuda = device.type == "cuda"
+    stats = {"decode_s": 0.0, "wait_s": 0.0, "forward_s": 0.0,
+             "write_s": 0.0}
+
+    def fetch(chunk):
+        t = time.perf_counter()
+        x = torch.from_numpy(decode(chunk))
+        # pinned, so the upload is queued without waiting for the card
+        return chunk, x.pin_memory() if cuda else x, time.perf_counter() - t
+
+    def finish(host: torch.Tensor, wait, chunk) -> None:
+        stats["forward_s"] += wait()
+        t = time.perf_counter()
+        write(host.numpy(), chunk)
+        stats["write_s"] += time.perf_counter() - t
+
+    t_wall = time.perf_counter()
+    pending = None  # (host results, their wait, chunk) of the last batch
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        future = pool.submit(fetch, chunks[0]) if chunks else None
+        for i in range(len(chunks)):
+            t = time.perf_counter()
+            chunk, x, decode_s = future.result()
+            stats["wait_s"] += time.perf_counter() - t
+            stats["decode_s"] += decode_s
+            future = (pool.submit(fetch, chunks[i + 1])
+                      if i + 1 < len(chunks) else None)
+            host, wait = launch(forward, x, device)
+            if pending is not None:
+                finish(*pending)
+            pending = (host, wait, chunk)
+        if pending is not None:
+            finish(*pending)
+    stats["wall_s"] = time.perf_counter() - t_wall
+    return stats
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -165,48 +213,21 @@ def main(argv=None) -> Dict[str, float]:
     gen = load_generator(args.model, device, args.bf16)
     paths, out_dir = corpus_paths(args)
     out_dir.mkdir(parents=True, exist_ok=True)
-    cuda = device.type == "cuda"
 
-    def fetch(s: int):
-        t = time.perf_counter()
-        chunk = paths[s: s + args.batch_size]
-        x = torch.from_numpy(decode_paths(chunk, args.image_size))
-        # pinned, so the upload is queued without waiting for the card
-        return chunk, x.pin_memory() if cuda else x, time.perf_counter() - t
-
-    def write(host: torch.Tensor, wait, chunk) -> None:
-        stats["forward_s"] += wait()
-        t = time.perf_counter()
-        for img, path in zip(host.numpy(), chunk):
+    def write(imgs: np.ndarray, chunk) -> None:
+        for img, path in zip(imgs, chunk):
             dest = out_dir
             if args.corpus == "sketchy":
                 dest = out_dir / Path(path).parent.name
                 dest.mkdir(parents=True, exist_ok=True)
             Image.fromarray(img, mode="L").save(
                 dest / f"{Path(path).stem}.png")
-        stats["write_s"] += time.perf_counter() - t
 
-    stats = {"images": len(paths), "decode_s": 0.0, "wait_s": 0.0,
-             "forward_s": 0.0, "write_s": 0.0}
-    t_wall = time.perf_counter()
-    starts = list(range(0, len(paths), args.batch_size))
-    pending = None  # (host drawings, their wait, chunk) of the last batch
-    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
-        future = pool.submit(fetch, starts[0]) if starts else None
-        for i in range(len(starts)):
-            t = time.perf_counter()
-            chunk, x, decode_s = future.result()
-            stats["wait_s"] += time.perf_counter() - t
-            stats["decode_s"] += decode_s
-            future = (pool.submit(fetch, starts[i + 1])
-                      if i + 1 < len(starts) else None)
-            host, wait = launch(gen, x, device, args.bf16)
-            if pending is not None:
-                write(*pending)
-            pending = (host, wait, chunk)
-        if pending is not None:
-            write(*pending)
-    stats["wall_s"] = time.perf_counter() - t_wall
+    chunks = [paths[s: s + args.batch_size]
+              for s in range(0, len(paths), args.batch_size)]
+    stats = {"images": len(paths), **overlapped(
+        chunks, lambda chunk: decode_paths(chunk, args.image_size),
+        lambda u8: forward_u8(gen, u8, args.bf16), write, device)}
     print(f"{len(paths)} drawings written to {out_dir} in "
           f"{stats['wall_s']:.3f} s (decode {stats['decode_s']:.3f} s on the "
           f"prefetch thread, waited {stats['wait_s']:.3f} s; forward "

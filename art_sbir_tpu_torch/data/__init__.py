@@ -3,10 +3,10 @@ split semantics, host-side decoding into fixed-shape uint8 batches, and
 synthetic corpora for tests and smoke runs.
 
 Counterpart of ``art_sbir_tpu/data/``. Importing the catalog modules
-fills the :data:`DATASETS` registry: Sketchy, Kaggle, Mixed and
-UnpairedDepth. The stroke (QuickDraw, VectorizedSketchy) and pix2pix
-(SketchyPix2Pix) catalogs come with their slices; asking for one of them
-raises the registry's "unknown dataset" error.
+fills the :data:`DATASETS` registry: Sketchy (SketchyPix2Pix included),
+Kaggle, Mixed and UnpairedDepth. The stroke catalogs (QuickDraw,
+VectorizedSketchy) come with their slice; asking for one of them raises
+the registry's "unknown dataset" error.
 """
 
 from art_sbir_tpu_torch.data.catalog import DATASETS, get_datasets

@@ -6,8 +6,8 @@ under ``data/sketchy/<img_type>``, truncated to ``round(size * n_classes)``;
 sketches are globbed per class from ``sketches_<fmt>``; each sketch's photo
 is derived from the ``n\\d+_\\d+`` ImageNet id in its filename (or the full
 stem for AdaIN ``artworks``); the 90/10 split runs with seed 42 over the
-paired lists. V2 adds class labels and same-class negatives. The pix2pix
-table (``SketchyDatasetPix2Pix``) comes with the pix2pix slice.
+paired lists. V2 adds class labels and same-class negatives;
+``SketchyDatasetPix2Pix`` pairs each sketch (B) with its photo (A).
 """
 
 from __future__ import annotations
@@ -120,5 +120,32 @@ class SketchyCatalogV2(SketchyCatalogV1):
                 return j
 
 
+class SketchyPix2PixCatalog(SketchyCatalogV1):
+    """Paired photo->sketch table for pix2pix training (reference
+    `data_preparation.py:339-371`): A = RGB photo, B = grayscale sketch.
+    ``paired_hflip`` and the ``state_dict``'s "train_random_hflip" are
+    kept from the JAX package, whose ``cli/pix2pix.py`` never flips; the
+    port's does not either (ROADMAP.md §3)."""
+
+    name = "SketchyDatasetPix2Pix"
+    paired_hflip = True
+    image_size = 256
+
+    def item(self, idx: int) -> Dict:
+        return {
+            "A": self.photo_paths[idx],
+            "B": self.sketch_paths[idx],
+            "img_paths": str(self.photo_paths[idx]),
+        }
+
+    @property
+    def state_dict(self) -> Dict:
+        d = super().state_dict
+        d["augmentation"] = "train_random_hflip"
+        d["sketch_type"] = "grayscale"
+        return d
+
+
 DATASETS.register("SketchyV1", SketchyCatalogV1)
 DATASETS.register("SketchyV2", SketchyCatalogV2)
+DATASETS.register("SketchyPix2Pix", SketchyPix2PixCatalog)

@@ -9,7 +9,7 @@ Conv ``(kh, kw, in, out)`` and transposed conv ``(kh, kw, out, in)`` ->
 ``(out, in)``; BN ``scale/bias`` + ``mean/var`` ->
 ``weight/bias/running_mean/running_var``.
 
-The ``.pth`` loaders follow ``art_sbir_tpu/cli/port.py:36-41,76-112``: a
+The ``.pth`` loaders follow ``art_sbir_tpu/cli/port.py:36-41,76-160``: a
 whole-module pickle is unwrapped with ``.state_dict()``, and a key the
 file lacks keeps the model's fresh value (the JAX package's
 ``strict=False`` merge), named on stderr. Converting an orbax checkpoint
@@ -175,3 +175,94 @@ def load_adain_pth(src: str) -> Tuple[StateDict, StateDict]:
     vgg = {k: v for k, v in load_reference_pth(vgg_path).items()
            if int(k.split(".")[0]) <= ADAIN_ENCODER_LAST}
     return vgg, load_reference_pth(dec_path)
+
+
+def _norm(sd: StateDict, prefix: str, params: Mapping, stats: Mapping,
+          name: str) -> None:
+    """A pix2pix ``Norm`` module: batch norm carries its tensors; instance
+    and no norm carry none (and flax holds no entry for them)."""
+    if name in params:
+        _bn(sd, prefix, params[name]["BatchNorm_0"],
+            stats[name]["BatchNorm_0"])
+
+
+def pix2pix_g_from_flax(net_g: str, params: Mapping, batch_stats: Mapping,
+                        n_blocks: int = 9, num_downs: int = 8) -> StateDict:
+    """Flax ``ResnetGenerator`` (``net_g`` "resnet_9blocks"; ``n_blocks``
+    for thinner test models) or ``UnetGenerator`` ("unet_256";
+    ``num_downs``) (params, batch_stats) -> the reference layout (the
+    inverse of JAX ``torch_port.py::port_resnet_generator`` and
+    ``port_unet_generator``)."""
+    sd: StateDict = {}
+    p, s = params, batch_stats
+    if net_g == "resnet_9blocks":
+        for i, t in enumerate((1, 4, 7)):  # stem, two downs
+            _conv(sd, f"model.{t}", p[f"Conv_{i}"])
+            _norm(sd, f"model.{t + 1}", p, s, f"Norm_{i}")
+        for b in range(n_blocks):
+            pre, bp = f"model.{10 + b}.conv_block", p[f"ResnetBlock_{b}"]
+            bs = s.get(f"ResnetBlock_{b}", {})
+            for j, t in enumerate((1, 6)):
+                _conv(sd, f"{pre}.{t}", bp[f"Conv_{j}"])
+                _norm(sd, f"{pre}.{t + 1}", bp, bs, f"Norm_{j}")
+        for i, t in enumerate((10 + n_blocks, 13 + n_blocks)):  # ups
+            _conv(sd, f"model.{t}", p[f"ConvTranspose_{i}"])
+            _norm(sd, f"model.{t + 1}", p, s, f"Norm_{3 + i}")
+        _conv(sd, f"model.{17 + n_blocks}", p["Conv_3"])
+        return sd
+    if net_g != "unet_256":
+        raise NotImplementedError(f"generator {net_g}")
+    prefix = "model.model"
+    for level in range(num_downs):  # 0 = outermost
+        name = f"UnetSkipBlock_{num_downs - 1 - level}"
+        bp, bs = p[name], s.get(name, {})
+        if level == 0:
+            down, up, norms, sub = 0, 3, (), 1
+        elif level == num_downs - 1:
+            down, up, norms, sub = 1, 3, (4,), None
+        else:
+            down, up, norms, sub = 1, 5, (2, 6), 3
+        _conv(sd, f"{prefix}.{down}", bp["Conv_0"])
+        _conv(sd, f"{prefix}.{up}", bp["ConvTranspose_0"])
+        for j, t in enumerate(norms):
+            _norm(sd, f"{prefix}.{t}", bp, bs, f"Norm_{j}")
+        if sub is not None:
+            prefix = f"{prefix}.{sub}.model"
+    return sd
+
+
+def pix2pix_d_from_flax(net_d: str, params: Mapping, batch_stats: Mapping,
+                        n_layers: int = 3) -> StateDict:
+    """Flax ``NLayerDiscriminator`` ("basic", or "n_layers" with
+    ``n_layers``) or ``PixelDiscriminator`` ("pixel") -> the reference
+    layout (the inverse of JAX
+    ``torch_port.py::port_patchgan_discriminator``; the PixelGAN's
+    ``net.*`` keys have no JAX mapping)."""
+    sd: StateDict = {}
+    p, s = params, batch_stats
+    if net_d == "pixel":
+        for i, t in enumerate((0, 2, 5)):
+            _conv(sd, f"net.{t}", p[f"Conv_{i}"])
+        _norm(sd, "net.3", p, s, "Norm_0")
+        return sd
+    n = 3 if net_d == "basic" else n_layers
+    convs = [0] + [2 + 3 * j for j in range(n + 1)]
+    for i, t in enumerate(convs):
+        _conv(sd, f"model.{t}", p[f"Conv_{i}"])
+    for j in range(n):
+        _norm(sd, f"model.{3 + 3 * j}", p, s, f"Norm_{j}")
+    return sd
+
+
+def load_pix2pix_reference(src: Path | str
+                           ) -> Tuple[StateDict, StateDict | None]:
+    """A reference pix2pix checkpoint -> (G, D or None) state dicts. ``src``
+    is a directory holding ``latest_net_G.pth`` and, optionally,
+    ``latest_net_D.pth`` (the layout JAX ``cli/port.py::port_pix2pix``
+    reads), or a G ``.pth`` alone."""
+    src = Path(src)
+    if not src.is_dir():
+        return load_reference_pth(src), None
+    d_path = src / "latest_net_D.pth"
+    return (load_reference_pth(src / "latest_net_G.pth"),
+            load_reference_pth(d_path) if d_path.exists() else None)

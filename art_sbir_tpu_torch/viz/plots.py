@@ -6,8 +6,9 @@ Counterpart of ``art_sbir_tpu/viz/plots.py::visualize`` and what it calls
 green (`visualization.py:196-241`), and ``visualize`` dispatches on the
 inference dict's shape (`visualization.py:262-273`). matplotlib and PIL
 are imported inside the functions: a host without them can still run the
-evaluation and write its JSON. The comparison and triplet sheets come
-with the CLIs that draw them.
+evaluation and write its JSON. :func:`triplet_grid`, pix2pix's sample
+sheet, draws with PIL alone, so it is written where matplotlib is
+missing. The comparison sheets come with the CLI that draws them.
 """
 
 from __future__ import annotations
@@ -130,6 +131,43 @@ def retrieval_grid(retrieval_samples: List[Dict], out: Path, k: int = 10,
     fig.tight_layout()
     fig.savefig(out, dpi=120)
     plt.close(fig)
+    return Path(out)
+
+
+def _tile(img, size: int) -> np.ndarray:
+    """An HWC (or HW) uint8 or [0, 1] float image -> (size, size, 3)
+    uint8."""
+    from PIL import Image
+
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    if img.ndim == 3 and img.shape[-1] == 1:
+        img = img[..., 0]
+    pil = Image.fromarray(img).convert("RGB")
+    return np.asarray(pil.resize((size, size), Image.BICUBIC))
+
+
+def triplet_grid(triplets: Sequence, out: Path,
+                 titles=("sketch", "positive", "negative"),
+                 tile: int = 128) -> Path:
+    """Rows of three HWC images (uint8, or floats in [0, 1]; one channel
+    drawn grey) under a strip of ``titles`` (JAX ``viz/plots.py:141``),
+    drawn with PIL."""
+    from PIL import Image, ImageDraw
+
+    pad, head = 4, 16
+    width = 3 * tile + 4 * pad
+    sheet = Image.new("RGB", (width, head + len(triplets) * (tile + pad)
+                              + pad), "white")
+    draw = ImageDraw.Draw(sheet)
+    for c, title in enumerate(titles[:3]):
+        draw.text((pad + c * (tile + pad), 2), title, fill="black")
+    for r, trip in enumerate(triplets):
+        for c, img in enumerate(trip[:3]):
+            sheet.paste(Image.fromarray(_tile(img, tile)),
+                        (pad + c * (tile + pad), head + r * (tile + pad)))
+    sheet.save(out)
     return Path(out)
 
 

@@ -206,6 +206,22 @@ Phases, each printing one JSON line:
 18. dilate     -- cli/transformations.py -m dilate on the card over PNGs
                   of six sizes (9 x 13 to 1024 x 767): each output equal
                   bit for bit to dilate_binarize on the CPU.
+19. pix2pix    -- pix2pix at full width (256 px, ngf = ndf = 64, the basic
+                  PatchGAN, batch norm, vanilla): the float32 G+D step
+                  (resnet_9blocks, dropout off, batch 2) on the card and
+                  on the CPU against float64 on the card (losses and
+                  running statistics within twice the CPU's distance plus
+                  rtol 1e-5, parameters plus 1e-4); the warm-up step (G's
+                  parameters put, its statistics moved); both generators'
+                  steps at batch 6 in float32 and bf16 (bf16 losses and
+                  samples within JAX's bounds of float32), timed with
+                  their share of peak, busy share and kernel split; then
+                  cli/pix2pix.py --mode generate over 160 synthetic
+                  Sketchy photos (every PNG within one level of the
+                  in-process forward) and --mode train for two epochs
+                  (the JSONs, the warm-up's zero G losses, the sample
+                  sheet; the U-Net's --continue_train bit for bit the
+                  uninterrupted run under deterministic cuDNN).
 
 Every kernel count is set to 0 just before each counted run (each serve
 phase's requests, the probe's runs, each ``inference`` and
@@ -216,8 +232,8 @@ rows (``inference`` ranks its small gallery on the exact route), K2's
 from ``serve_quant``, K1's bf16 form's and P1's from the probe, the
 sharded K1's from ``serve_sharded`` and ``sharded``'s ``run_inference``
 over the mesh, the sharded K2's from ``serve_quant_sharded``; the IVF
-serve runs and the generator phases launch none. Any failed check exits
-non-zero. The last line is
+serve runs and the generator phases (pix2pix too) launch none. Any
+failed check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
 """
@@ -3925,12 +3941,401 @@ def phase_dilate(state) -> None:
           "phase_s": time.perf_counter() - t_phase})
 
 
+PIX_B = 6  # cli/pix2pix.py's default batch
+PIX_CHECK_B = 2  # the float32 step against float64, on the card and the CPU
+PIX_STEP_FWD = 3  # a step's FLOPs as this many of its forward passes'
+PIX_GEN_CORPUS = dict(n_classes=4, photos_per_class=40, sketches_per_photo=1,
+                      size=GEN_SIZE)
+PIX_TRAIN_CORPUS = dict(n_classes=3, photos_per_class=8, sketches_per_photo=1,
+                        size=GEN_SIZE)
+
+
+def _pix2pix_state(model) -> dict:
+    """Both nets' parameters and running statistics, and the first Adam
+    moment of each parameter, in float64 on the CPU."""
+    out = {"params": {}, "stats": {}, "exp_avg": {}}
+    for side, net, opt in (("G", model.net_g, model.opt_g),
+                           ("D", model.net_d, model.opt_d)):
+        for k, p in net.named_parameters():
+            out["params"][f"{side}.{k}"] = p.detach().cpu().double()
+            out["exp_avg"][f"{side}.{k}"] = (
+                opt.state[p]["exp_avg"].detach().cpu().double())
+        for k, b in net.named_buffers():
+            if "running_" in k:
+                out["stats"][f"{side}.{k}"] = b.detach().cpu().double()
+    return out
+
+
+def _pix2pix_vs_float64(rng) -> dict:
+    """The full-width float32 G+D step (resnet_9blocks, basic, batch,
+    vanilla, dropout off, batch ``PIX_CHECK_B``) on the card (TF32 off)
+    and on the CPU, each against the same step in float64 on the card:
+    the losses and every running statistic (norm-wise a tensor) within
+    twice the CPU's distance plus rtol 1e-5; each parameter's gradient
+    (its first Adam moment) and the parameters after Adam within twice
+    plus 1e-4. Adam's first step is ``lr * g / (|g| + eps)``, whose
+    sensitivity to g's relative error is ``eps / (|g| + eps)``, and at
+    this depth the float32 gradients lie about 1% from float64 norm-wise
+    on both devices: the parameters are held where the step is set by
+    its gradient (|g| >= 1e3 eps, and each float32 side's gradient
+    within 10% of float64's, so the step is within 1e-4 lr of float64's);
+    an element outside that (every element where the tensor's gradient
+    lies below 1e-6 of the nets' largest, a symmetry's zero that both
+    float32 sides must show too) moves by a step that rounding and eps
+    decide, and is held at 2 * lr on both devices (their count is
+    printed)."""
+    import torch
+
+    from art_sbir_tpu_torch.core.device import ieee_f32
+    from art_sbir_tpu_torch.train.gan import Pix2Pix, Pix2PixConfig
+
+    ieee_f32()
+    cfg = Pix2PixConfig(use_dropout=False)
+    shape = (PIX_CHECK_B, GEN_SIZE, GEN_SIZE)
+    batch = {"A": torch.from_numpy(rng.random((shape[0], 3) + shape[1:],
+                                              dtype=np.float32)),
+             "B": torch.from_numpy(rng.random((shape[0], 1) + shape[1:],
+                                              dtype=np.float32))}
+    runs, models = {}, {}
+    for name, dev in (("card", "cuda"), ("cpu", "cpu"), ("f64", "cuda")):
+        model = Pix2Pix(cfg, seed=0, device=dev)
+        if name == "f64":
+            model.net_g.double(), model.net_d.double()
+        t0 = time.perf_counter()
+        losses = {k: float(v) for k, v in model.train_step(batch, 1).items()}
+        runs[name] = {"losses": losses, "step_s": time.perf_counter() - t0,
+                      **_pix2pix_state(model)}
+        if name == "card":
+            models[name] = model
+    exact, lr = runs["f64"], cfg.lr
+
+    def dist(a, b) -> float:
+        return float((a - b).norm() / b.norm())
+
+    fails, worst = [], {}
+
+    def held(what, kind, card_err, cpu_err, tol):
+        if card_err > worst.get(kind, (-1.0,))[0]:
+            worst[kind] = (card_err, cpu_err, what)
+        if card_err > 2.0 * cpu_err + tol:
+            fails.append(f"{what}: card {card_err:.3g} from float64, CPU "
+                         f"{cpu_err:.3g}, tolerance {tol}")
+
+    for k, v in exact["losses"].items():
+        if v != 0.0:
+            held(f"loss {k}", "loss", *(abs(runs[s]["losses"][k] - v)
+                                        / abs(v) for s in ("card", "cpu")),
+                 1e-5)
+    for k, v in exact["stats"].items():
+        held(f"running statistic {k}", "stats",
+             *(dist(runs[s]["stats"][k], v) for s in ("card", "cpu")), 1e-5)
+    # Adam's first step is lr * g / (|g| + eps), g = exp_avg / (1 - beta1)
+    scale = max(float(m.abs().max()) for m in exact["exp_avg"].values())
+    eps, noise_elems = 1e-8, 0
+    for k, p64 in exact["params"].items():
+        m64 = exact["exp_avg"][k]
+        if float(m64.abs().max()) <= 1e-6 * scale:  # a symmetry's zero
+            noise = torch.ones_like(m64, dtype=torch.bool)
+            for s in ("card", "cpu"):
+                if float(runs[s]["exp_avg"][k].abs().max()) > 1e-6 * scale:
+                    fails.append(f"{s} gradient of {k}: not rounding noise")
+        else:
+            held(f"gradient (first Adam moment) of {k}", "grads",
+                 *(dist(runs[s]["exp_avg"][k], m64) for s in ("card", "cpu")),
+                 1e-4)
+            # a step set by its gradient: |g| >= 1e3 eps, and each float32
+            # side's gradient within 10% of float64's (the sign and size
+            # of a smaller one are rounding's)
+            noise = m64.abs() / (1.0 - cfg.beta1) < 1e3 * eps
+            for s in ("card", "cpu"):
+                noise |= ((runs[s]["exp_avg"][k] - m64).abs()
+                          > 0.1 * m64.abs())
+        noise_elems += int(noise.sum())
+        for s in ("card", "cpu"):
+            moved = (runs[s]["params"][k] - p64).abs()[noise]
+            if moved.numel() and float(moved.max()) > 2 * lr * (1 + 1e-3):
+                fails.append(f"{s} parameter {k}: a noise element past 2 lr")
+        keep = ~noise
+        if keep.any():
+            held(f"parameter {k}", "params",
+                 *(dist(runs[s]["params"][k][keep], p64[keep])
+                   for s in ("card", "cpu")), 1e-4)
+    out = {"batch": PIX_CHECK_B, "note": "card, CPU and float64 steps all "
+           "at this batch", "losses": {s: runs[s]["losses"] for s in runs},
+           "step_s": {s: runs[s]["step_s"] for s in runs},
+           "params_small_gradient_elements_held_at_2lr": noise_elems,
+           "worst_vs_f64": {kind: {"what": w, "card": c, "cpu": p}
+                            for kind, (c, p, w) in worst.items()}}
+    print(json.dumps({"pix2pix_f32_vs_f64": out, "fails": fails}),
+          file=sys.stderr, flush=True)
+    check(not fails, "the card's float32 pix2pix step against float64: "
+          + "; ".join(fails[:5]))
+
+    # the warm-up step on the card: G's parameters put, its statistics move
+    model = models["card"]
+    g_before = {k: v.clone() for k, v in model.net_g.state_dict().items()}
+    losses = model.train_step(batch, 2, decoder_only=True)
+    after = model.net_g.state_dict()
+    check(all(float(losses[k]) == 0.0 for k in ("G_GAN", "G_L1", "G_total")),
+          "decoder_only: the G losses are zeros")
+    check(all(torch.equal(v, after[k]) for k, v in g_before.items()
+              if "running_" not in k and "num_batches" not in k),
+          "decoder_only: G's parameters unchanged bit for bit")
+    moved = [k for k, v in g_before.items()
+             if "running_" in k and not torch.equal(v, after[k])]
+    check(len(moved) == sum("running_" in k for k in g_before),
+          "decoder_only: every running statistic of G moved")
+    out["decoder_only"] = {"g_params_unchanged": True,
+                           "g_stats_moved": len(moved)}
+    return out
+
+
+def _pix2pix_timed(net_g: str, rng) -> dict:
+    """float32 (TF32 off) and bf16 steps of ``net_g`` with the basic D at
+    batch ``PIX_B``, the CLI's defaults (dropout on): the first step's
+    losses and the samples after it held bf16 against float32 (JAX's
+    bounds: losses rel 0.1, abs 0.05; samples a mean under 0.05); then
+    each form's median step (CUDA events), images/s, peak memory, share
+    of its peak from the convolutions' FLOPs, the device's busy share
+    over 5 profiled steps and the kernel split of one step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from art_sbir_tpu_torch.core.device import ieee_f32
+    from art_sbir_tpu_torch.train.gan import Pix2Pix, Pix2PixConfig
+
+    ieee_f32()
+    shape = (PIX_B, GEN_SIZE, GEN_SIZE)
+    batch = {"A": torch.from_numpy(rng.random((PIX_B, 3) + shape[1:],
+                                              dtype=np.float32)).cuda(),
+             "B": torch.from_numpy(rng.random((PIX_B, 1) + shape[1:],
+                                              dtype=np.float32)).cuda()}
+    models, first, samples = {}, {}, {}
+    for form, bf16 in (("f32", False), ("bf16", True)):
+        models[form] = Pix2Pix(Pix2PixConfig(net_g=net_g, bf16=bf16),
+                               seed=0, device="cuda")
+        first[form] = {k: float(v) for k, v in
+                       models[form].train_step(batch, 1).items()}
+        samples[form] = models[form].generate(batch["A"])
+    for k in ("G_GAN", "G_L1", "D_real", "D_fake"):
+        a, b = first["f32"][k], first["bf16"][k]
+        check(np.isfinite(b) and abs(b - a) <= max(0.1 * abs(a), 0.05),
+              f"{net_g} bf16 loss {k} within JAX's bounds of float32: "
+              f"{b:.5g} against {a:.5g}")
+    sample_diff = float((samples["f32"] - samples["bf16"]).abs().mean())
+    check(samples["bf16"].dtype == torch.float32 and sample_diff < 0.05,
+          f"{net_g} bf16 samples within a mean of 0.05 of float32: "
+          f"{sample_diff:.4g}")
+    del samples
+    g_flops = _forward_flops(models["f32"].net_g.eval(), batch["A"][:1])
+    d_flops = _forward_flops(models["f32"].net_d.eval(), torch.cat(
+        [batch["A"][:1], batch["B"][:1]], 1))
+    # a step: G once and D three times forward (fake, real, G's pass);
+    # the backward passes counted as twice the forward
+    flops = PIX_STEP_FWD * (g_flops + 3 * d_flops) * PIX_B
+    out = {"batch": PIX_B, "gflop_g_forward_per_image": g_flops / 1e9,
+           "gflop_d_forward_per_image": d_flops / 1e9,
+           "step_flops": flops, "step_flops_factor": PIX_STEP_FWD,
+           "first_step_losses": first, "bf16_vs_f32_sample_mean_abs":
+           sample_diff}
+    for form, peak in (("f32", H100_F32_FLOP_PER_S),
+                       ("bf16", H100_BF16_FLOP_PER_S)):
+        model = models.pop(form)
+        seeds = itertools.count(10)
+
+        def step():
+            return model.train_step(batch, next(seeds))
+
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(13):  # 3 warm-up steps, then 10 timed
+            start.record()
+            step()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = float(np.median(times[3:]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        busy_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA) / 1e3
+        out[form] = {
+            "step_ms_median": ms, "step_ms_all": times[3:],
+            "images_per_s": PIX_B * 1e3 / ms,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "bound_ms": 1e3 * flops / peak, "bound_by": "operations",
+            "share_of_peak": 1e3 * flops / peak / ms,
+            "profiled_wall_ms": wall_ms, "device_busy_ms_per_step":
+            busy_ms / 5, "device_busy_share_profiled": busy_ms / wall_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / 5 / ms),
+            **_kernel_split(step)}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _pix2pix_cli_generate(tmp: Path, ref: Path) -> dict:
+    """``cli/pix2pix.py --mode generate`` (its ``main``) over a synthetic
+    Sketchy corpus: every PNG within one level of the in-process forward
+    of the same weights."""
+    import torch
+    from PIL import Image
+
+    from art_sbir_tpu_torch.cli import pix2pix
+    from art_sbir_tpu_torch.data.loader import decode_paths
+    from art_sbir_tpu_torch.data.synthetic import make_synthetic_sketchy
+    from art_sbir_tpu_torch.train.gan import Pix2Pix, Pix2PixConfig
+
+    t0 = time.perf_counter()
+    root = make_synthetic_sketchy(tmp / "pix_gen", **PIX_GEN_CORPUS)
+    corpus_s = time.perf_counter() - t0
+    out_dir = tmp / "photo_sketch"
+    stats = pix2pix.main(["--mode", "generate", "--data_root", str(root),
+                          "--model", str(ref), "--out_dir", str(out_dir)])
+    photos = sorted((root / "photos").rglob("*.jpg"))
+    n = len(photos)
+    check(stats["images"] == n and len(list(out_dir.glob("*.png"))) == n,
+          f"cli/pix2pix.py --mode generate wrote one sketch a photo ({n})")
+    model = Pix2Pix(Pix2PixConfig(), device="cuda")
+    pix2pix.load_weights(model, str(ref))
+    worst = 0
+    for s in range(0, n, PIX_B):
+        chunk = photos[s: s + PIX_B]
+        x = torch.from_numpy(decode_paths(chunk, GEN_SIZE)).cuda()
+        want = pix2pix.to_uint8(model.generate(
+            x.permute(0, 3, 1, 2).float() / 255.0)[:, 0]).cpu().numpy()
+        for img, p in zip(want, chunk):
+            got = np.asarray(Image.open(out_dir / f"{p.stem}.png"), np.int32)
+            worst = max(worst, int(np.abs(got - img).max()))
+    check(worst <= 1, f"each generated PNG within one level of the "
+          f"in-process forward: {worst}")
+    return {**stats, "images_per_s": stats["images"] / stats["wall_s"],
+            "corpus_write_s": corpus_s, "png_vs_in_process_max_levels": worst}
+
+
+def _pix2pix_cli_train(tmp: Path) -> dict:
+    """``cli/pix2pix.py --mode train`` (its ``main``) for 2 epochs on
+    SketchyPix2Pix at the defaults: the four JSONs, the loss keys and
+    series, finite losses, zero G losses in the warm-up epoch, the sample
+    sheet and the export. Then the resume check with the U-Net (which has
+    no reflection padding, whose backward on the card adds with atomics)
+    under deterministic cuDNN: two epochs in one run and one epoch then
+    ``--continue_train`` give the same epoch-2 checkpoint bit for bit."""
+    import os
+
+    import torch
+
+    from art_sbir_tpu_torch.cli import pix2pix
+    from art_sbir_tpu_torch.data.synthetic import make_synthetic_sketchy
+    from art_sbir_tpu_torch.train.gan import LOSS_KEYS
+
+    root = make_synthetic_sketchy(tmp / "pix_train", **PIX_TRAIN_CORPUS)
+    run_dir = tmp / "pix_runs"
+    run_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    try:
+        common = ["--mode", "train", "--data_root", str(root)]
+        t0 = time.perf_counter()
+        folder = pix2pix.main(common + ["-e", "2"])
+        train_s = time.perf_counter() - t0
+        files = {name: json.loads((folder / f"{name}.json").read_text())
+                 for name in ("data_params", "training", "training_params",
+                              "inference")}
+        series = files["training"]["train_losses"]
+        check(set(series) == set(LOSS_KEYS) and all(
+            len(v) == 2 and np.isfinite(v).all() for v in series.values()),
+            "cli/pix2pix.py --mode train: the six loss series, two epochs, "
+            "finite")
+        check(all(series[k][0] == 0.0 for k in ("G_GAN", "G_L1", "G_total")),
+              "the warm-up epoch's G losses are zeros")
+        check((folder / "samples.png").is_file(), "the sample sheet written")
+        check((run_dir / "models" / f"{folder.name}.pt").is_file(),
+              "models/<run>.pt written")
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            unet = common + ["--netG", "unet_256"]
+            pix2pix.main(unet + ["-e", "2", "--checkpoint_dir", "whole"])
+            pix2pix.main(unet + ["-e", "1", "--checkpoint_dir", "split"])
+            pix2pix.main(unet + ["-e", "2", "--checkpoint_dir", "split",
+                                 "--continue_train"])
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        whole = torch.load(run_dir / "whole" / "2.pt", weights_only=True)
+        split = torch.load(run_dir / "split" / "2.pt", weights_only=True)
+        same = whole["numpy_rng"] == split["numpy_rng"]
+        for side in ("g", "d"):
+            same &= all(torch.equal(v, split[side]["model"][k])
+                        for k, v in whole[side]["model"].items())
+            a, b = (whole[side]["optimizer"]["state"],
+                    split[side]["optimizer"]["state"])
+            same &= a.keys() == b.keys() and all(
+                torch.equal(x, y) for k in a
+                for x, y in zip(a[k].values(), b[k].values()))
+        check(same, "--continue_train from epoch 1 reproduces the "
+              "uninterrupted epoch 2's checkpoint bit for bit")
+    finally:
+        os.chdir(cwd)
+    return {"epochs": 2, "train_s": train_s, "losses": series,
+            "steps_per_epoch": -(-files["data_params"]["img_number"]
+                                 // PIX_B),
+            "resume_bitwise": True}
+
+
+def phase_pix2pix(state) -> None:
+    """pix2pix at full width (256 px, ``ngf`` = ``ndf`` = 64, the basic
+    PatchGAN, batch norm, vanilla): the float32 G+D step against float64,
+    the warm-up step, timed steps of both generators in float32 and bf16,
+    then ``cli/pix2pix.py`` in generate mode over a synthetic corpus and
+    in train mode (with the resume check). Seed-0 weights are written as
+    a reference directory (``latest_net_G.pth``, ``latest_net_D.pth``)."""
+    import torch
+
+    from art_sbir_tpu_torch.train.gan import Pix2Pix, Pix2PixConfig
+
+    check(state["pil"], "PIL is installed: the phase writes its corpora "
+          "with it")
+    t_phase = time.perf_counter()
+    tmp = Path(state["tmp"]) / "pix2pix"
+    tmp.mkdir()
+    rng = np.random.default_rng(31)
+    line = {"phase": "pix2pix", "ok": True, "size": GEN_SIZE}
+    t0 = time.perf_counter()
+    line["f32_vs_f64"] = _pix2pix_vs_float64(rng)
+    line["f32_vs_f64"]["check_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for net_g in ("resnet_9blocks", "unet_256"):
+        t0 = time.perf_counter()
+        line[net_g] = _pix2pix_timed(net_g, rng)
+        line[net_g]["s"] = time.perf_counter() - t0
+    ref = tmp / "pix2pix_ref"
+    ref.mkdir()
+    model = Pix2Pix(Pix2PixConfig(), seed=0, device="cpu")
+    torch.save(model.net_g.state_dict(), ref / "latest_net_G.pth")
+    torch.save(model.net_d.state_dict(), ref / "latest_net_D.pth")
+    line["cli_generate"] = _pix2pix_cli_generate(tmp, ref)
+    line["cli_train"] = _pix2pix_cli_train(tmp)
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------- main
 
 PHASES = ("build", "kernels", "kernels_k2", "kernels_int8_wide", "probe_k1",
           "encoder", "serve", "serve_quant", "ivf", "serve_ivf", "online_ivf",
           "inference", "inference_k1", "sharded", "train", "drawings",
-          "artwork_gen", "dilate")
+          "artwork_gen", "dilate", "pix2pix")
 
 
 def main(argv=None) -> int:
@@ -3939,7 +4344,8 @@ def main(argv=None) -> int:
         "--phases", default=None,
         help="comma-separated phases to run (build is always first; "
              "sharded needs inference and inference_k1; train, drawings, "
-             "artwork_gen and dilate need no other phase); a partial run "
+             "artwork_gen, dilate and pix2pix need no other phase); a "
+             "partial run "
              "prints no kernels line and no result line")
     args = parser.parse_args(argv)
     names = PHASES if args.phases is None else ["build"] + [

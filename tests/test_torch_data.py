@@ -113,8 +113,12 @@ def test_catalogs_match_jax(sketchy_root, kaggle_root, name, kw):
 
 
 def test_generative_catalogs_are_not_registered_yet():
-    for name in ("QuickDrawV1", "VectorizedSketchyV1", "SketchyPix2Pix",
-                 "UnpairedV1"):
+    """The stroke catalogs come with their slice; SketchyPix2Pix came with
+    pix2pix (``tests/test_torch_pix2pix_cli.py`` holds its rows)."""
+    from art_sbir_tpu_torch.data import DATASETS
+
+    assert "SketchyPix2Pix" in DATASETS
+    for name in ("QuickDrawV1", "VectorizedSketchyV1", "UnpairedV1"):
         with pytest.raises(KeyError, match="unknown dataset"):
             get_datasets(name)
 
