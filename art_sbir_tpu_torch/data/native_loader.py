@@ -40,22 +40,22 @@ class NativeUnavailable(RuntimeError):
     pass
 
 
-def build() -> Path:
-    """Compile ``native/imgpipe.cpp`` into ``_build/`` (once per source and
-    flags) and return the library's path. The library is written under a
-    temporary name and renamed, so that two processes building at once
-    never load a half-written file."""
-    if not SOURCE.is_file():
-        raise NativeUnavailable(f"missing {SOURCE}")
-    flags = (*CXX_FLAGS, *LIBS)
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def build_library(source: Path, stem: str, libs=()) -> Path:
+    """Compile ``source`` with g++ into ``_build/lib<stem>_<hash>.so``
+    (once per source and flags) and return the library's path. The
+    library is written under a temporary name and renamed, so that two
+    processes building at once never load a half-written file."""
+    if not source.is_file():
+        raise NativeUnavailable(f"missing {source}")
+    flags = (*CXX_FLAGS, *libs)
+    digest = hashlib.sha256(source.read_bytes()
                             + " ".join(flags).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libimgpipe_{digest}.so"
+    out = BUILD_DIR / f"lib{stem}_{digest}.so"
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE), *LIBS]
+    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(source), *libs]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
     except FileNotFoundError as e:
@@ -64,6 +64,12 @@ def build() -> Path:
         raise NativeUnavailable(f"g++ build failed:\n{e.stderr}") from e
     os.replace(tmp, out)
     return out
+
+
+def build() -> Path:
+    """Compile ``native/imgpipe.cpp`` into ``_build/`` and return the
+    library's path."""
+    return build_library(SOURCE, "imgpipe", LIBS)
 
 
 def load() -> ctypes.CDLL:

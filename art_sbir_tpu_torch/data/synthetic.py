@@ -6,8 +6,9 @@ the same files, byte for byte. The real corpora are multi-GB downloads
 miniatures with the directory and CSV contracts the catalogs expect:
 uniform-noise photos and random polyline sketches, or (``learnable=True``)
 photos of outlined shapes with sketches that outline the same shapes, on
-which triplet training visibly learns. The SVG strokes come with the
-stroke slice. PIL is imported inside the functions.
+which triplet training visibly learns; ``with_svg=True`` adds Sketchy-style
+vector sketches (``sketches_svg/``) for the stroke catalogs. PIL is
+imported inside the functions.
 """
 
 from __future__ import annotations
@@ -36,6 +37,31 @@ def _img(seed: int, size: int = 96, sketch: bool = False):
         return img
     arr = rng.integers(0, 255, size=(size, size, 3), dtype=np.uint8)
     return Image.fromarray(arr)
+
+
+def _svg(seed: int, w: int = 640, h: int = 480) -> str:
+    """A Sketchy-style SVG: each stroke its own <path>, one leading moveto
+    then line and cubic-bezier segments (stroke #000)."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for p in range(int(rng.integers(2, 5))):
+        x, y = float(rng.integers(50, 400)), float(rng.integers(50, 400))
+        d = f"m{x},{y}"
+        for _ in range(int(rng.integers(6, 14))):
+            if rng.random() < 0.4:  # cubic bezier, relative control points
+                c = rng.normal(0, 12, 6).round(2)
+                d += f"c{c[0]},{c[1]} {c[2]},{c[3]} {c[4]},{c[5]}"
+            else:
+                dx, dy = rng.normal(0, 18, 2).round(2)
+                d += f"l{dx},{dy}"
+        parts.append(
+            f'<path d="{d}" id="p{seed}_{p}" stroke-width="2" stroke="#000" fill="none"/>'
+        )
+    return (
+        f'<svg width="{w}" height="{h}" xmlns="http://www.w3.org/2000/svg">\n'
+        + "\n".join(parts)
+        + "\n</svg>\n"
+    )
 
 
 def _shape_params(class_id: int, photo_id: int) -> list:
@@ -134,16 +160,20 @@ def _learnable_sketch(class_id: int, photo_id: int, sketch_id: int,
 def make_synthetic_sketchy(root: Path | str, n_classes: int = 3,
                            photos_per_class: int = 3,
                            sketches_per_photo: int = 2,
-                           size: int = 96, learnable: bool = False) -> Path:
+                           size: int = 96, with_svg: bool = False,
+                           learnable: bool = False) -> Path:
     """data/sketchy layout: ``photos/<class>/nX_Y.jpg`` and
-    ``sketches_png/<class>/nX_Y-k.png``. ``learnable=True`` draws each
-    sketch as a line drawing of its photo's shapes, so training moves
-    recall above chance."""
+    ``sketches_png/<class>/nX_Y-k.png`` (and ``sketches_svg/<class>/
+    nX_Y-k.svg`` with ``with_svg``). ``learnable=True`` draws each sketch
+    as a line drawing of its photo's shapes, so training moves recall
+    above chance."""
     root = Path(root)
     for ci in range(n_classes):
         cls = f"class{ci:02d}"
         (root / "photos" / cls).mkdir(parents=True, exist_ok=True)
         (root / "sketches_png" / cls).mkdir(parents=True, exist_ok=True)
+        if with_svg:
+            (root / "sketches_svg" / cls).mkdir(parents=True, exist_ok=True)
         for pi in range(photos_per_class):
             img_id = f"n{ci:08d}_{pi}"
             photo = (_learnable_photo(ci, pi, size) if learnable
@@ -154,6 +184,40 @@ def make_synthetic_sketchy(root: Path | str, n_classes: int = 3,
                           else _img(ci * 1000 + pi * 10 + si, size,
                                     sketch=True))
                 sketch.save(root / "sketches_png" / cls / f"{img_id}-{si}.png")
+                if with_svg:
+                    (root / "sketches_svg" / cls / f"{img_id}-{si}.svg"
+                     ).write_text(_svg(ci * 1000 + pi * 10 + si))
+    return root
+
+
+def make_synthetic_quickdraw(root: Path | str, n_train: int = 40,
+                             n_valid: int = 10, seed: int = 0) -> Path:
+    """QuickDraw's layout: one ``<category>.npz`` a category (the six
+    defaults of :mod:`art_sbir_tpu_torch.data.quickdraw`) holding
+    ``train``, ``valid`` and ``test`` object arrays of int16 stroke-3
+    sketches, 12 to 80 rows each, pen lifts about one row in eight and
+    always on the last row. A port addition: JAX's synthetic module writes
+    no QuickDraw."""
+    from art_sbir_tpu_torch.data.quickdraw import CATEGORIES
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    def sketches(n):
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            t = int(rng.integers(12, 81))
+            s = np.zeros((t, 3), np.int16)
+            s[:, :2] = rng.normal(0, 20, (t, 2)).round()
+            s[:, 2] = rng.random(t) < 0.125
+            s[-1, 2] = 1
+            out[i] = s
+        return out
+
+    for cat in CATEGORIES:
+        np.savez(root / f"{cat}.npz", train=sketches(n_train),
+                 valid=sketches(n_valid), test=sketches(n_valid))
     return root
 
 

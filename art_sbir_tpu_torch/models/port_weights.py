@@ -26,6 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from art_sbir_tpu_torch.models.vgg import CONV_INDICES
+
 StateDict = Dict[str, torch.Tensor]
 
 
@@ -266,3 +268,34 @@ def load_pix2pix_reference(src: Path | str
     d_path = src / "latest_net_D.pth"
     return (load_reference_pth(src / "latest_net_G.pth"),
             load_reference_pth(d_path) if d_path.exists() else None)
+
+
+def photo2sketch_from_flax(params: Mapping) -> StateDict:
+    """Flax ``Photo2Sketch`` params -> the reference layout (the inverse of
+    JAX ``torch_port.py::port_photo2sketch``). JAX's ``TorchLSTMCell``
+    stores ``kernel`` (in, 4H) and ``bias`` with the effective weight
+    ``kernel - k``, ``k = 1 / sqrt(H)`` (``layers.py:51-60``): the
+    ``nn.LSTM``'s ``weight_*_l0`` is ``(kernel - k)^T`` and its
+    ``bias_*_l0`` is ``bias - k``, each taken in float32 as JAX's step
+    takes it."""
+    sd: StateDict = {}
+    enc, dec = params["Image_Encoder"], params["Sketch_Decoder"]
+    for i, t in enumerate(CONV_INDICES):
+        _conv(sd, f"Image_Encoder.feature.{t}", enc["feature"][f"conv{i}"])
+    _dense(sd, "Image_Encoder.fc_mu", enc["fc_mu"])
+    _dense(sd, "Image_Encoder.fc_std", enc["fc_std"])
+    _dense(sd, "Sketch_Decoder.fc_hc", dec["fc_hc"])
+    _dense(sd, "Sketch_Decoder.fc_params", dec["fc_params"])
+    lstm = dec["lstm"]
+    hidden = np.asarray(lstm["hh_kernel"]).shape[0]
+    k = np.float32(1.0) / np.sqrt(np.float32(hidden))
+    for side in ("ih", "hh"):
+        kernel = np.asarray(lstm[f"{side}_kernel"], np.float32) - k
+        sd[f"Sketch_Decoder.lstm.weight_{side}_l0"] = _t(kernel.T)
+        sd[f"Sketch_Decoder.lstm.bias_{side}_l0"] = _t(
+            np.asarray(lstm[f"{side}_bias"], np.float32) - k)
+    att = dec["attention_cell"]
+    _conv(sd, "Sketch_Decoder.attention_cell.conv_f", att["conv_f"])
+    _dense(sd, "Sketch_Decoder.attention_cell.conv_h", att["conv_h"])
+    _dense(sd, "Sketch_Decoder.attention_cell.conv_att", att["conv_att"])
+    return sd

@@ -1,4 +1,4 @@
-"""CLIP normalization and torchvision resize/crop geometry.
+"""CLIP and ImageNet normalization and torchvision resize/crop geometry.
 
 Counterpart of ``art_sbir_tpu/ops/resize.py`` (the parts serving needs;
 the matmul bicubic resize comes with the training slice)."""
@@ -11,6 +11,8 @@ import torch
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)  # reference models.py:294
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)  # reference utils.py:124
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def shortest_side_size(h: int, w: int, size: int) -> Tuple[int, int]:

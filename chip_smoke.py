@@ -222,6 +222,32 @@ Phases, each printing one JSON line:
                   (the JSONs, the warm-up's zero G losses, the sample
                   sheet; the U-Net's --continue_train bit for bit the
                   uninterrupted run under deterministic cuDNN).
+20. photo2sketch -- the Photo2Sketch VAE at full width (VGG16 at 256 px,
+                  z_size 128, dec_rnn_size 512, 20 mixtures, 100 stroke
+                  rows: 101 decoder steps; seed-0 weights, the encoder's
+                  convs He-initialized): the float32 step (batch 2, eps
+                  fed) on the card and on the CPU against float64 on the
+                  card (losses within twice the CPU's distance plus rtol
+                  1e-5, each gradient before the clip plus 1e-4), then
+                  Adam from the CPU's gradients on both at rtol 1e-6;
+                  float32 and bf16-encoder steps at batch 64 (bf16 losses
+                  within JAX's bounds of float32) timed with their share
+                  of peak from VGG's FLOPs, busy time and kernel split of
+                  one step, VGG's device time alone and peak memory;
+                  greedy generate of 101 steps against the CPU's (pen
+                  states equal, or the first fork and its margin) and
+                  timed at batch 4 and 64;
+                  cli/photo2sketch.py for one epoch at batch 64 with
+                  --img_format svg, then jpg, over a synthetic Sketchy
+                  corpus with SVGs (20 classes x 8 photos x 2 sketches),
+                  then --setup Quickdraw over six synthetic archives (the
+                  JSONs, finite losses, models/<run>.pt, the sample SVGs,
+                  JSONs and sheet; --model from the saved .pt bit for bit;
+                  the wall split into catalog parse, batch build, steps
+                  and samples); the rasterizer at batch 64 on the corpus's
+                  sketches (stroke-5, stroke-3, the cached points) equal
+                  bit for bit to the native C++ rasterizer and the CPU,
+                  timed on the card and the host.
 
 Every kernel count is set to 0 just before each counted run (each serve
 phase's requests, the probe's runs, each ``inference`` and
@@ -232,7 +258,7 @@ rows (``inference`` ranks its small gallery on the exact route), K2's
 from ``serve_quant``, K1's bf16 form's and P1's from the probe, the
 sharded K1's from ``serve_sharded`` and ``sharded``'s ``run_inference``
 over the mesh, the sharded K2's from ``serve_quant_sharded``; the IVF
-serve runs and the generator phases (pix2pix too) launch none. Any
+serve runs, the generator phases, pix2pix and photo2sketch launch none. Any
 failed check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
@@ -4330,12 +4356,456 @@ def phase_pix2pix(state) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ photo2sketch
+
+P2S_B = 64  # cli/photo2sketch.py's default batch
+P2S_CHECK_B = 2  # the float32 step against float64, on the card and the CPU
+P2S_GEN_B = 4  # the CLI's sample sheet
+P2S_STEPS = 101  # 100 stroke rows: 101 decoder steps
+P2S_STEP_FWD = 3  # a step's FLOPs as this many of its forward passes'
+P2S_CORPUS = dict(n_classes=20, photos_per_class=8, sketches_per_photo=2,
+                  size=GEN_SIZE, with_svg=True)
+P2S_QUICKDRAW = dict(n_train=48, n_valid=8)  # a category: 288 / 48 sketches
+
+
+def _p2s_sketches(rng, b: int) -> np.ndarray:
+    """(b, 100, 5) padded stroke-5 sketches: N(0, 1) deltas (the catalogs
+    normalize by the deltas' std), a pen lift about one row in seven, an
+    end token after 20 to 99 rows, end rows after it."""
+    out = np.zeros((b, 100, 5), np.float32)
+    for i in range(b):
+        n = int(rng.integers(20, 100))
+        out[i, :n, :2] = rng.standard_normal((n, 2))
+        up = rng.random(n) < 0.15
+        out[i, :n, 3] = up
+        out[i, :n, 2] = ~up
+        out[i, n - 1:, 2:] = [0, 0, 1]
+    return out
+
+
+def _p2s_trainer(cfg, dev):
+    """A seed-0 trainer with the encoder's convs He-initialized
+    (``_he_init``, seed 0): through VGG's 13 convs torch's default init
+    shrinks the features to the last biases, and the checks would hold
+    the decoder alone."""
+    from art_sbir_tpu_torch.train.vae import VAETrainer
+
+    trainer = VAETrainer(cfg, seed=0, device=dev)
+    _he_init(trainer.model.Image_Encoder.feature, 0)
+    return trainer
+
+
+def _p2s_vs_float64(rng) -> dict:
+    """The full-width float32 VAE step (TF32 off) at batch ``P2S_CHECK_B``
+    with a fed eps, on the card and on the CPU, each against the same step
+    in float64 on the card: the three losses within twice the CPU's
+    distance plus rtol 1e-5, each parameter's gradient before the clip
+    (norm-wise) within twice plus 1e-4 (a symmetry's zero, conv_att's bias
+    under the softmax, as rounding noise on every side). Then Adam from
+    the CPU's gradients on both devices, clip included: each parameter at
+    rtol 1e-6 of its value (plus lr)."""
+    import torch
+
+    from art_sbir_tpu_torch.core.device import ieee_f32
+    from art_sbir_tpu_torch.train.vae import VAEConfig
+
+    ieee_f32()
+    cfg = VAEConfig()
+    b = P2S_CHECK_B
+    batch = {"photo": torch.from_numpy(rng.standard_normal(
+                 (b, 3, GEN_SIZE, GEN_SIZE)).astype(np.float32)),
+             "sketch_vector": torch.from_numpy(_p2s_sketches(rng, b))}
+    eps = torch.from_numpy(rng.standard_normal((b, cfg.z_size))
+                           .astype(np.float32))
+    runs, trainers = {}, {}
+    for name, dev in (("card", "cuda"), ("cpu", "cpu"), ("f64", "cuda")):
+        trainer = _p2s_trainer(cfg, dev)
+        if name == "f64":
+            trainer.model.double()
+        t0 = time.perf_counter()
+        losses = trainer.compute_gradients(batch, eps)
+        runs[name] = {
+            "losses": {k: float(v) for k, v in losses.items()},
+            "step_s": time.perf_counter() - t0,
+            "grads": {k: p.grad.detach().cpu().double()
+                      for k, p in trainer.model.named_parameters()}}
+        trainers[name] = trainer
+    exact = runs["f64"]
+    fails, worst, tightest = [], {}, [0.0, ""]
+
+    def held(what, kind, card_err, cpu_err, tol):
+        if card_err > worst.get(kind, (-1.0,))[0]:
+            worst[kind] = (card_err, cpu_err, what)
+        used = card_err / (2.0 * cpu_err + tol)  # of the allowance
+        if used > tightest[0]:
+            tightest[:] = [used, what]
+        if used > 1.0:
+            fails.append(f"{what}: card {card_err:.3g} from float64, CPU "
+                         f"{cpu_err:.3g}, tolerance {tol}")
+
+    for k, v in exact["losses"].items():
+        held(f"loss {k}", "loss", *(abs(runs[s]["losses"][k] - v) / abs(v)
+                                    for s in ("card", "cpu")), 1e-5)
+    scale = max(float(g.norm()) for g in exact["grads"].values())
+    zero = []
+    for k, g in exact["grads"].items():
+        if float(g.norm()) <= 1e-6 * scale:
+            zero.append(k)
+            if any(float(runs[s]["grads"][k].norm()) > 1e-6 * scale
+                   for s in ("card", "cpu")):
+                fails.append(f"gradient of {k}: not rounding noise")
+            continue
+        held(f"gradient of {k}", "grads",
+             *(float((runs[s]["grads"][k] - g).norm() / g.norm())
+               for s in ("card", "cpu")), 1e-4)
+    norms = {s: float(torch.stack([g.square().sum() for g in
+                                   runs[s]["grads"].values()]).sum().sqrt())
+             for s in runs}
+    # Adam alone: the CPU's gradients (clipped on each device) on both
+    for name in ("card", "cpu"):
+        trainer = trainers[name]
+        for k, p in trainer.model.named_parameters():
+            p.grad = runs["cpu"]["grads"][k].float().to(p.device)
+        trainer.apply_gradients()
+    lr = cfg.learning_rate
+    cpu_p = dict(trainers["cpu"].model.named_parameters())
+    adam_err = max(float(((p.detach().cpu() - cpu_p[k].detach()).abs()
+                          / (cpu_p[k].detach().abs() + lr)).max())
+                   for k, p in trainers["card"].model.named_parameters())
+    if adam_err > 1e-6:
+        fails.append(f"Adam from the same gradients: {adam_err:.3g}")
+    out = {"batch": b, "losses": {s: runs[s]["losses"] for s in runs},
+           "step_s": {s: runs[s]["step_s"] for s in runs},
+           "grad_global_norm": norms, "clip_factor": min(
+               1.0, cfg.grad_clip / norms["f64"]),
+           "grads_zero_by_symmetry": zero, "adam_rel_err_max": adam_err,
+           "worst_vs_f64": {kind: {"what": w, "card": c, "cpu": p}
+                            for kind, (c, p, w) in worst.items()},
+           "tightest_share_of_allowance": {"share": tightest[0],
+                                           "what": tightest[1]}}
+    print(json.dumps({"photo2sketch_f32_vs_f64": out, "fails": fails}),
+          file=sys.stderr, flush=True)
+    check(not fails, "the card's float32 VAE step against float64: "
+          + "; ".join(fails[:5]))
+    return out
+
+
+def _p2s_timed(rng) -> dict:
+    """float32 (TF32 off) and bf16-encoder steps at batch ``P2S_B`` from
+    the same seed-0 weights: the first step's losses held bf16 against
+    float32 (JAX's bounds: rel 0.05, abs 0.02); then each form's median
+    step (CUDA events, 10 after 3), sketches/s, peak memory, the share of
+    its peak from VGG's FLOPs (x ``P2S_STEP_FWD``), the device's busy
+    time in one profiled step (its idle share against the median) and its
+    kernel split, and VGG's forward and backward alone (device time), the
+    rest of the step being the decoder's loop, the losses and Adam."""
+    import torch
+
+    from art_sbir_tpu_torch.core.device import ieee_f32
+    from art_sbir_tpu_torch.train.vae import VAEConfig
+
+    ieee_f32()
+    batch = {"photo": torch.from_numpy(rng.standard_normal(
+                 (P2S_B, 3, GEN_SIZE, GEN_SIZE)).astype(np.float32)).cuda(),
+             "sketch_vector": torch.from_numpy(
+                 _p2s_sketches(rng, P2S_B)).cuda()}
+    eps = torch.from_numpy(rng.standard_normal((P2S_B, 128))
+                           .astype(np.float32)).cuda()
+    trainers, first = {}, {}
+    for form, bf16 in (("f32", False), ("bf16", True)):
+        trainers[form] = _p2s_trainer(VAEConfig(bf16_encoder=bf16), "cuda")
+        first[form] = {k: float(v) for k, v in
+                       trainers[form].train_step(batch, eps).items()}
+    for k, a in first["f32"].items():
+        b = first["bf16"][k]
+        check(np.isfinite(b) and abs(b - a) <= max(0.05 * abs(a), 0.02),
+              f"Photo2Sketch bf16 loss {k} within JAX's bounds of float32: "
+              f"{b:.5g} against {a:.5g}")
+    vgg_flops = _forward_flops(trainers["f32"].model.Image_Encoder.feature,
+                               batch["photo"][:1])
+    flops = P2S_STEP_FWD * vgg_flops * P2S_B
+    out = {"batch": P2S_B, "gflop_vgg_forward_per_image": vgg_flops / 1e9,
+           "step_flops_vgg": flops, "step_flops_factor": P2S_STEP_FWD,
+           "first_step_losses": first}
+    for form, peak in (("f32", H100_F32_FLOP_PER_S),
+                       ("bf16", H100_BF16_FLOP_PER_S)):
+        trainer = trainers.pop(form)
+        seeds = itertools.count(10)
+
+        def step():
+            return trainer.train_step(batch, next(seeds))
+
+        def vgg_pass():
+            trainer.model.Image_Encoder.feature(batch["photo"]).float() \
+                .sum().backward()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(13):  # 3 warm-up steps, then 10 timed
+            start.record()
+            step()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = float(np.median(times[3:]))
+        peak_mem = torch.cuda.max_memory_allocated()
+        # one profiled step: the decoder's loop launches about ten
+        # thousand kernels a step, and a profiler session over several
+        # steps costs tens of seconds of the phase
+        split = _kernel_split(step)
+        busy_ms = sum(split["device_ms_by_kind"].values())
+        vgg_ms = device_ms(vgg_pass, reps=2)
+        out[form] = {
+            "step_ms_median": ms, "step_ms_all": times[3:],
+            "sketches_per_s": P2S_B * 1e3 / ms,
+            "peak_memory_bytes": peak_mem,
+            "bound_ms": 1e3 * flops / peak, "bound_by": "operations",
+            "share_of_peak": 1e3 * flops / peak / ms,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / ms),
+            "vgg_fwd_bwd_device_ms": vgg_ms,
+            "rest_device_ms": busy_ms - vgg_ms, **split}
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _p2s_generate(rng) -> dict:
+    """Greedy ``generate`` of ``P2S_STEPS`` steps from the same float32
+    weights on the card and on the CPU at batch ``P2S_GEN_B``: the pen
+    states equal, or the first step where the two sequences fork and the
+    CPU's argmax margin there (the smallest margin of every step along the
+    CPU's sequence is printed); shapes and finite values checked. Then
+    ``generate`` timed on the card at ``P2S_GEN_B`` and ``P2S_B``."""
+    import torch
+
+    from art_sbir_tpu_torch.core.device import ieee_f32
+    from art_sbir_tpu_torch.ops.gmm import split_decoder_output
+    from art_sbir_tpu_torch.train.vae import VAEConfig
+
+    ieee_f32()
+    cfg = VAEConfig()
+    photos = torch.from_numpy(rng.standard_normal(
+        (P2S_B, 3, GEN_SIZE, GEN_SIZE)).astype(np.float32))
+    card = _p2s_trainer(cfg, "cuda")
+    cpu = _p2s_trainer(cfg, "cpu")
+    few = photos[:P2S_GEN_B]
+    s_card, a_card = (t.cpu() for t in card.generate(few, P2S_STEPS))
+    with torch.no_grad():
+        model = cpu.model
+        feat, mu, _ = model.Image_Encoder(few)
+        dec = model.Sketch_Decoder
+        s_cpu, a_cpu = dec.generate(feat, mu, P2S_STEPS)
+        # the argmax margins along the CPU's sequence
+        h, c = dec._init_state(mu)
+        x_em, tokens = dec.attention_cell.embed(feat)
+        stroke, margins = dec._start(P2S_GEN_B, mu), []
+        for s in range(P2S_STEPS):
+            h, c, _ = dec._step(h, c, stroke, x_em, tokens)
+            p = split_decoder_output(dec.fc_params(h), cfg.num_mixture)
+            margins.append(min(
+                float((v[:, 0] - v[:, 1]).min()) for v in (
+                    torch.topk(p.log_pi, 2, dim=-1).values,
+                    torch.topk(p.pen_logits, 2, dim=-1).values)))
+            stroke = s_cpu[:, s]
+    check(s_card.shape == (P2S_GEN_B, P2S_STEPS, 5)
+          and a_card.shape == (P2S_GEN_B, P2S_STEPS, 64)
+          and bool(torch.isfinite(s_card).all())
+          and bool(torch.isfinite(a_card).all()),
+          "generate: strokes (4, 101, 5) and attention (4, 101, 64), finite")
+    differs = ((s_card[..., 2:] != s_cpu[..., 2:]).any(-1)
+               | ((s_card[..., :2] - s_cpu[..., :2]).abs() > 1e-3).any(-1))
+    fork = [int(t) for t in torch.nonzero(differs.any(0)).flatten()[:1]]
+    out = {"batch": P2S_GEN_B, "steps": P2S_STEPS,
+           "pen_states_equal": bool(torch.equal(s_card[..., 2:],
+                                                s_cpu[..., 2:])),
+           "first_fork_step": fork[0] if fork else None,
+           "cpu_margin_at_fork": margins[fork[0]] if fork else None,
+           "cpu_margin_min": min(margins),
+           "cpu_margin_min_step": int(np.argmin(margins)),
+           "before_fork_max_abs_err": float(
+               (s_card[:, :fork[0] if fork else None]
+                - s_cpu[:, :fork[0] if fork else None]).abs().max()),
+           "attention_max_abs_err_before_fork": float(
+               (a_card[:, :fork[0] if fork else None]
+                - a_cpu[:, :fork[0] if fork else None]).abs().max())}
+    for b in (P2S_GEN_B, P2S_B):
+        x = photos[:b].cuda()
+        out[f"ms_b{b}"] = time_ms(lambda: card.generate(x, P2S_STEPS),
+                                  reps=5, warmup=1)
+        out[f"device_ms_b{b}"] = device_ms(
+            lambda: card.generate(x, P2S_STEPS), reps=2)
+    return out
+
+
+def _p2s_raster(s5: np.ndarray, pts: np.ndarray, segs: np.ndarray,
+                s3: np.ndarray) -> dict:
+    """The rasterizer at batch ``P2S_B`` on the corpus's own sketches:
+    ``rasterize_strokes`` on stroke-5 and stroke-3, ``rasterize_prepared``
+    on the catalog's cached points, each on the card equal bit for bit to
+    the native C++ rasterizer (``ops/raster_native.py``) and to the same
+    function on the CPU; the card's times (CUDA events) and its peak
+    memory beside the host's (native and the CPU path, one call each)."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import raster_native
+    from art_sbir_tpu_torch.ops.rasterize import (rasterize_prepared,
+                                                  rasterize_strokes)
+
+    cases = {"stroke5": (rasterize_strokes, (s5,), s5),
+             "stroke3": (rasterize_strokes, (s3,), s3),
+             "prepared": (rasterize_prepared, (pts, segs), s5)}
+    out = {"batch": P2S_B}
+    raster_native.load()  # the g++ build, outside the host's times
+    for name, (fn, args, strokes) in cases.items():
+        host = [torch.from_numpy(a) for a in args]
+        dev = [a.cuda() for a in host]
+        t0 = time.perf_counter()
+        native = raster_native.rasterize_batch_native(strokes)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = fn(*host).numpy()
+        cpu_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        on_card = fn(*dev).cpu().numpy()
+        peak = torch.cuda.max_memory_allocated() - base
+        check(np.array_equal(on_card, native) and np.array_equal(on_card,
+                                                                 on_cpu),
+              f"rasterizer {name}: the card equals the native rasterizer "
+              f"and the CPU bit for bit "
+              f"({int((on_card != native).sum())} pixels off native)")
+        out[name] = {"card_ms": time_ms(lambda: fn(*dev), reps=10),
+                     "card_peak_bytes": peak, "native_host_ms":
+                     1e3 * native_s, "torch_cpu_ms": 1e3 * cpu_s,
+                     "lit_pixels_mean": float((on_card > 0).sum(
+                         axis=(1, 2)).mean())}
+    return out
+
+
+def _p2s_cli(tmp: Path, root: Path, what: str, flags: list) -> dict:
+    """``cli/photo2sketch.py`` (its ``main``) for one epoch at batch
+    ``P2S_B`` with ``--save_rate 1`` from ``tmp / what``: the four JSONs
+    and their keys, finite losses, ``models/<run>.pt``, the sample SVGs,
+    JSONs and sheet; the wall time and its split."""
+    import os
+
+    from art_sbir_tpu_torch.cli import photo2sketch
+    from art_sbir_tpu_torch.train.vae import LOSS_KEYS
+
+    run_dir = tmp / what
+    run_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    try:
+        stats = photo2sketch.main(
+            ["--data_root", str(root), "--size", "1.0", "--batchsize",
+             str(P2S_B), "--max_epoch", "1", "--save_rate", "1"] + flags)
+    finally:
+        os.chdir(cwd)
+    folder = run_dir / stats["folder"]
+    files = {name: json.loads((folder / f"{name}.json").read_text())
+             for name in ("data_params", "training", "training_params",
+                          "inference")}
+    for split in ("train_losses", "test_losses"):
+        series = files["training"][split]
+        check(set(series) == set(LOSS_KEYS) and all(
+            len(v) == 1 and np.isfinite(v).all() for v in series.values()),
+            f"cli/photo2sketch.py {what}: {split}, one epoch, finite")
+    samples = sorted(folder.glob("sample_1_*.json"))
+    check(len(samples) == P2S_GEN_B and all(
+        np.asarray(json.loads(p.read_text())["image"]).shape
+        == (P2S_STEPS, 5) and p.with_suffix(".svg").is_file()
+        for p in samples) and (folder / "samples_1.png").is_file(),
+        f"cli/photo2sketch.py {what}: four samples (SVG, JSON) and the sheet")
+    check((run_dir / stats["model"]).is_file(), "models/<run>.pt written")
+    n = files["data_params"]["img_number"]
+    return {"sketches": n, "steps": -(-n // P2S_B),
+            "losses": files["training"]["train_losses"],
+            "model": str(run_dir / stats["model"]),
+            **{k: v for k, v in stats.items() if k.endswith("_s")}}
+
+
+def phase_photo2sketch(state) -> None:
+    """Photo2Sketch at full width (VGG16 at 256 px, ``z_size`` 128,
+    ``dec_rnn_size`` 512, 20 mixtures, 100 stroke rows, batch 64): the
+    float32 step against float64, timed steps in float32 and bf16, the
+    greedy decode against the CPU's, then ``cli/photo2sketch.py`` on a
+    synthetic Sketchy corpus with SVGs (``--img_format svg``, then
+    ``jpg``) and on six synthetic QuickDraw archives, ``--model`` from the
+    saved ``.pt``, and the rasterizer on the corpus's sketches."""
+    import torch
+
+    from art_sbir_tpu_torch.cli import photo2sketch
+    from art_sbir_tpu_torch.data import get_datasets
+    from art_sbir_tpu_torch.data.synthetic import (make_synthetic_quickdraw,
+                                                   make_synthetic_sketchy)
+    from art_sbir_tpu_torch.train.vae import VAEConfig, VAETrainer
+
+    check(state["pil"], "PIL is installed: the phase writes its corpora "
+          "with it")
+    t_phase = time.perf_counter()
+    tmp = Path(state["tmp"]) / "photo2sketch"
+    tmp.mkdir()
+    rng = np.random.default_rng(37)
+    line = {"phase": "photo2sketch", "ok": True, "size": GEN_SIZE}
+    for name, fn in (("f32_vs_f64", _p2s_vs_float64), ("steps", _p2s_timed),
+                     ("generate", _p2s_generate)):
+        t0 = time.perf_counter()
+        line[name] = fn(rng)
+        line[name]["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sketchy = make_synthetic_sketchy(tmp / "sketchy", **P2S_CORPUS)
+    quickdraw = make_synthetic_quickdraw(tmp / "quick_draw", seed=5,
+                                         **P2S_QUICKDRAW)
+    line["corpus_write_s"] = time.perf_counter() - t0
+    cli = {}
+    for what, root, flags in (
+            ("svg", sketchy, ["--img_format", "svg"]),
+            ("jpg", sketchy, ["--img_format", "jpg"]),
+            ("quickdraw", quickdraw, ["--setup", "Quickdraw"])):
+        cli[what] = _p2s_cli(tmp, root, what, flags)
+    # --model from the saved .pt restores its parameters bit for bit
+    saved = torch.load(cli["svg"]["model"], weights_only=True)
+    trainer = VAETrainer(VAEConfig(), seed=1, device="cuda")
+    photo2sketch.load_weights(trainer, cli["svg"]["model"])
+    got = trainer.model.state_dict()
+    check(set(got) == set(saved) and all(
+        torch.equal(got[k].cpu(), v) for k, v in saved.items()),
+        "--model restores the saved parameters bit for bit")
+    line["cli"] = cli
+
+    train_svg = get_datasets("VectorizedSketchyV1", size=1.0,
+                             img_format="svg", max_erase_count=1,
+                             root=sketchy)[0]
+    items = [train_svg.item(i) for i in range(P2S_B)]
+    qd = get_datasets("QuickdrawV1", size=1.0, root=quickdraw)[0]
+    s3 = np.zeros((P2S_B, 100, 3), np.float32)
+    for i, sk in enumerate(qd.sketches[:P2S_B]):
+        s3[i, :len(sk)] = sk
+    t0 = time.perf_counter()
+    line["raster"] = _p2s_raster(
+        np.stack([it["sketch_vector"] for it in items]),
+        np.stack([it["raster_points"] for it in items]),
+        np.stack([it["raster_segs"] for it in items]), s3)
+    line["raster"]["s"] = time.perf_counter() - t0
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------- main
 
 PHASES = ("build", "kernels", "kernels_k2", "kernels_int8_wide", "probe_k1",
           "encoder", "serve", "serve_quant", "ivf", "serve_ivf", "online_ivf",
           "inference", "inference_k1", "sharded", "train", "drawings",
-          "artwork_gen", "dilate", "pix2pix")
+          "artwork_gen", "dilate", "pix2pix", "photo2sketch")
 
 
 def main(argv=None) -> int:
@@ -4344,7 +4814,8 @@ def main(argv=None) -> int:
         "--phases", default=None,
         help="comma-separated phases to run (build is always first; "
              "sharded needs inference and inference_k1; train, drawings, "
-             "artwork_gen, dilate and pix2pix need no other phase); a "
+             "artwork_gen, dilate, pix2pix and photo2sketch need no other "
+             "phase); a "
              "partial run "
              "prints no kernels line and no result line")
     args = parser.parse_args(argv)

@@ -113,12 +113,18 @@ def test_catalogs_match_jax(sketchy_root, kaggle_root, name, kw):
 
 
 def test_generative_catalogs_are_not_registered_yet():
-    """The stroke catalogs come with their slice; SketchyPix2Pix came with
-    pix2pix (``tests/test_torch_pix2pix_cli.py`` holds its rows)."""
+    """Every generative catalog of the JAX package is registered now:
+    SketchyPix2Pix came with pix2pix (``tests/test_torch_pix2pix_cli.py``
+    holds its rows), the stroke catalogs with Photo2Sketch
+    (``tests/test_torch_strokes.py``). Names the JAX registry does not
+    hold (QuickDraw's spelt with a capital D, "UnpairedV1") still raise."""
+    from art_sbir_tpu.data import DATASETS as JAX_DATASETS
     from art_sbir_tpu_torch.data import DATASETS
 
-    assert "SketchyPix2Pix" in DATASETS
-    for name in ("QuickDrawV1", "VectorizedSketchyV1", "UnpairedV1"):
+    for name in ("SketchyPix2Pix", "VectorizedSketchyV1", "QuickdrawV1"):
+        assert name in DATASETS and name in JAX_DATASETS
+    for name in ("QuickDrawV1", "UnpairedV1"):
+        assert name not in JAX_DATASETS
         with pytest.raises(KeyError, match="unknown dataset"):
             get_datasets(name)
 
