@@ -26,9 +26,15 @@ sheet: greedy decodes of the first test batch's first 4 photos as
 
 ``--model`` takes a port ``.pt`` or a reference state dict (the same
 keys); an orbax directory is refused (ROADMAP.md queue 1 item 8).
-``--n_devices`` other than 0 or 1 and ``--tp_devices`` above 1 exit
-(ROADMAP.md queue 1 item 7). ``main`` returns the results folder and the
-wall time split into catalog parse, batch build, steps and samples.
+``--n_devices N`` (N > 1, -1: every card) trains data parallel with the
+results of one device: one rank a device (``parallel/multihost.py``;
+``main(argv, mesh=...)`` takes a mesh that may repeat a device), each
+building its rows of every batch (a ragged batch whole), the noise drawn
+for the global batch, the gradients averaged before the clip, the losses
+the global batch's; rank 0 writes the results, the model and the
+samples. ``--tp_devices`` above 1 exits (tensor parallelism, ROADMAP.md
+queue 1 item 7). ``main`` returns the results folder and the wall time
+split into catalog parse, batch build, steps and samples (rank 0's).
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import importlib.util
 import json
 import time
 from pathlib import Path
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,13 +62,13 @@ from art_sbir_tpu_torch.ops.rasterize import (rasterize_prepared,
 from art_sbir_tpu_torch.ops.resize import (IMAGENET_MEAN, IMAGENET_STD,
                                            normalize)
 from art_sbir_tpu_torch.ops.svg import build_svg
+from art_sbir_tpu_torch.parallel import multihost
+from art_sbir_tpu_torch.parallel.mesh import Mesh, batch_rows, mesh_from_args
 from art_sbir_tpu_torch.train.vae import LOSS_KEYS, VAEConfig, VAETrainer
 from art_sbir_tpu_torch.viz.plots import loss_curves, triplet_grid
 
 NOT_PORTED = ("orbax checkpoint directories are still to port (ROADMAP.md "
               "queue 1 item 8); pass a port .pt or a reference state dict")
-NOT_PORTED_MESH = ("data- and tensor-parallel training are still to port "
-                   "(ROADMAP.md queue 1 item 7)")
 SAMPLES = 4  # photos on the sample sheet
 SAMPLE_STEPS = 101
 
@@ -97,9 +103,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "GMM heads and the losses stay float32); off by "
                         "default = the reference's float32")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="0 or 1 only: " + NOT_PORTED_MESH)
+                   help="data-parallel ranks (0 or 1 = one device, -1 = "
+                        "every card)")
     p.add_argument("--tp_devices", type=int, default=1,
-                   help="1 only: " + NOT_PORTED_MESH)
+                   help="1 only: tensor parallelism is still to port "
+                        "(ROADMAP.md queue 1 item 7)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs on the CPU")
     return p
@@ -117,18 +125,25 @@ def raster_photo(raster: torch.Tensor) -> torch.Tensor:
 
 
 def batches(catalog, train: bool, rng: np.random.Generator,
-            batch_size: int, image_size: int, device) -> Iterator[Dict]:
+            batch_size: int, image_size: int, device,
+            shard: Optional[Tuple[int, int]] = None) -> Iterator[Dict]:
     """The CLI's batches (JAX ``cli/photo2sketch.py:108-130``): the
     catalog's order, shuffled by ``rng`` in train mode; ``sketch_vector``
     (B, T, 5), ``length`` and ``photo`` (B, 3, S, S) on ``device``. The
     photo is the decoded JPEG (``photo_path``), or the sketch rasterized
     from the catalog's cached points (``raster_points``) or from its
-    strokes."""
+    strokes. ``shard`` = (rank, world): the rank's rows only
+    (``batch_rows``), with ``rows`` = (offset, total) in the batch for
+    the step's noise."""
     order = list(range(len(catalog)))
     if train:
         rng.shuffle(order)
     for s in range(0, len(order), batch_size):
-        items = [catalog.item(i) for i in order[s: s + batch_size]]
+        chunk, rows = order[s: s + batch_size], None
+        if shard is not None:
+            sl = batch_rows(len(chunk), *shard)
+            chunk, rows = chunk[sl], (sl.start, len(chunk))
+        items = [catalog.item(i) for i in chunk]
         vec = torch.from_numpy(np.stack([it["sketch_vector"]
                                          for it in items])).to(device)
         if "photo_path" in items[0]:
@@ -141,7 +156,8 @@ def batches(catalog, train: bool, rng: np.random.Generator,
         else:
             photo = raster_photo(rasterize_strokes(vec))
         yield {"photo": photo, "sketch_vector": vec,
-               "length": torch.tensor([it["length"] for it in items])}
+               "length": torch.tensor([it["length"] for it in items]),
+               "rows": rows}
 
 
 def load_weights(trainer: VAETrainer, src: str) -> None:
@@ -173,17 +189,27 @@ def write_samples(trainer: VAETrainer, batch: Dict, folder: Path,
                  titles=("photo", "generated", "target"))
 
 
-def main(argv=None) -> Dict:
+def main(argv=None, mesh: Optional[Mesh] = None) -> Dict:
     """Returns ``{"folder": results folder, "model": models/<run>.pt,
     "wall_s", "catalog_s", "batch_s", "step_s", "samples_s"}`` (seconds
     from the catalog parse on; ``step_s`` holds the eval batches' losses
-    too, and waits for the card once a pass over a catalog)."""
+    too, and waits for the card once a pass over a catalog). ``mesh``:
+    the data-parallel ranks' devices, in place of ``--n_devices``."""
     args = build_parser().parse_args(argv)
-    if args.n_devices not in (0, 1) or args.tp_devices > 1:
-        raise SystemExit(f"--n_devices {args.n_devices} --tp_devices "
-                         f"{args.tp_devices}: {NOT_PORTED_MESH}; run on one "
-                         "device")
-    device = resolve_device(args.device)
+    if mesh is None:
+        mesh = mesh_from_args(args.n_devices, args.tp_devices, args.device)
+    if mesh is not None and mesh.size > 1:
+        return multihost.spawn(run, mesh.devices, args)
+    return run(resolve_device(args.device if mesh is None
+                              else mesh.devices[0]), args)
+
+
+def run(device: torch.device, args: argparse.Namespace) -> Optional[Dict]:
+    """:func:`main` on ``device``, as one rank of the group where this
+    process is in one (None on a rank other than 0)."""
+    rank, world = multihost.rank(), multihost.world_size()
+    lead = rank == 0
+    shard = (rank, world) if world > 1 else None
     ieee_f32()
     cfg = VAEConfig(
         z_size=args.z_size, dec_rnn_size=args.dec_rnn_size,
@@ -196,6 +222,7 @@ def main(argv=None) -> Dict:
     trainer = VAETrainer(cfg, args.seed, device)
     if args.model:
         load_weights(trainer, args.model)
+    multihost.broadcast_state(trainer.model)
 
     t0 = time.perf_counter()
     dataset = "VectorizedSketchyV1" if args.setup == "Sketchy" else "QuickdrawV1"
@@ -230,13 +257,13 @@ def main(argv=None) -> Dict:
             tracker.reset_sums()
             n = 0
             for batch in timed(batches(catalog, train, rng, args.batchsize,
-                                       args.image_size, device)):
+                                       args.image_size, device, shard)):
                 t = time.perf_counter()
                 if train:
-                    losses = trainer.train_step(batch,
-                                                int(rng.integers(2**31)))
+                    losses = trainer.train_step(
+                        batch, int(rng.integers(2**31)), batch["rows"])
                 else:
-                    losses = trainer.eval_step(batch, 0)
+                    losses = trainer.eval_step(batch, 0, batch["rows"])
                 tracker.add(losses, args.batchsize)  # no wait a step
                 split["step_s"] += time.perf_counter() - t
                 n += 1
@@ -244,14 +271,15 @@ def main(argv=None) -> Dict:
             tracker.append(dict(tracker.sums), max(n, 1))
             sync()
             split["step_s"] += time.perf_counter() - t
-            if train:
+            if train and lead:
                 print(f"Epoch:{epoch} ** Train ** "
                       f"sup_p2s_loss:{tracker.series['reconstruction_loss'][-1]}"
                       f" ** kl:{tracker.series['kl_loss'][-1]} "
                       f"** total:{tracker.series['total_loss'][-1]}",
                       flush=True)
 
-        if (epoch + 1) % args.save_rate == 0 or epoch + 1 == args.max_epoch:
+        if lead and ((epoch + 1) % args.save_rate == 0
+                     or epoch + 1 == args.max_epoch):
             t = time.perf_counter()
             writer = ResultsWriter("Photo2Sketch",
                                    train_cat.state_dict["dataset"])
@@ -276,6 +304,8 @@ def main(argv=None) -> Dict:
                 break
             split["samples_s"] += time.perf_counter() - t
 
+    if not lead:
+        return None
     wall = time.perf_counter() - t0
     print(f"Training done in {timer.elapsed():.1f}s", flush=True)
     return {"folder": folder, "model": model_path, "wall_s": wall, **split}

@@ -34,15 +34,22 @@ Float32 runs IEEE on the card (no TF32).
   queue 1 item 8). Without it both nets take the seeded normal(0.02) init
   (``models/pix2pix.py::init_weights``); JAX's ``jax.random`` stream
   differs.
-* ``--n_devices`` other than 0 or 1 and ``--tp_devices`` above 1 exit
-  (ROADMAP.md queue 1 item 7).
+* ``--n_devices N`` (train mode; N > 1, -1: every card) trains data
+  parallel with the results of one device: one rank a device
+  (``parallel/multihost.py``; ``main(argv, mesh=...)`` takes a mesh that
+  may repeat a device), each decoding its rows of every batch (a ragged
+  batch whole), both nets' BatchNorm over the global batch, G's dropout
+  masks drawn for the global batch, both gradient sets averaged. Every
+  rank resumes from the same checkpoint; rank 0 writes the checkpoints,
+  the results, the sample sheet and ``models/<run>.pt``. ``--tp_devices``
+  above 1 exits (tensor parallelism, ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,14 +65,14 @@ from art_sbir_tpu_torch.data import get_datasets
 from art_sbir_tpu_torch.data.loader import decode_paths
 from art_sbir_tpu_torch.models.port_weights import (load_into,
                                                     load_pix2pix_reference)
+from art_sbir_tpu_torch.parallel import multihost
+from art_sbir_tpu_torch.parallel.mesh import Mesh, batch_rows, mesh_from_args
 from art_sbir_tpu_torch.train.gan import LOSS_KEYS, Pix2Pix, Pix2PixConfig
 from art_sbir_tpu_torch.viz.plots import triplet_grid, visualize
 
 NOT_PORTED = ("orbax checkpoint directories are still to port (ROADMAP.md "
               "queue 1 item 8); pass a directory holding latest_net_G.pth, "
               "a G .pth or a port .pt")
-NOT_PORTED_MESH = ("data- and tensor-parallel training are still to port "
-                   "(ROADMAP.md queue 1 item 7)")
 
 
 def to_uint8(img_signed: torch.Tensor) -> torch.Tensor:
@@ -116,9 +123,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--load_iter", type=int, default=0,
                    help="epoch to resume from (0 = latest)")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="0 or 1 only: " + NOT_PORTED_MESH)
+                   help="data-parallel ranks in train mode (0 or 1 = one "
+                        "device, -1 = every card)")
     p.add_argument("--tp_devices", type=int, default=1,
-                   help="1 only: " + NOT_PORTED_MESH)
+                   help="1 only: tensor parallelism is still to port "
+                        "(ROADMAP.md queue 1 item 7)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs on the CPU")
     return p
@@ -149,20 +158,29 @@ def _paths(catalog) -> List[Path]:
 
 
 def _batches(catalog, size: int, batch_size: int,
-             rng: Optional[np.random.Generator]) -> Iterator[Dict]:
-    """uint8 NHWC batches ``A`` (and ``B``, one channel, where the catalog
-    pairs), shuffled by ``rng`` (JAX ``cli/pix2pix.py:114-136``)."""
+             rng: Optional[np.random.Generator],
+             shard: Optional[Tuple[int, int]] = None
+             ) -> Iterator[Tuple[Dict, Optional[Tuple[int, int]]]]:
+    """(batch, rows): uint8 NHWC batches ``A`` (and ``B``, one channel,
+    where the catalog pairs), shuffled by ``rng`` (JAX
+    ``cli/pix2pix.py:114-136``). ``shard`` = (rank, world): the rank's
+    rows only (``batch_rows``), with ``rows`` = (offset, total) for the
+    step's random draws."""
     order = list(range(len(catalog)))
     if rng is not None:
         rng.shuffle(order)
     for s in range(0, len(order), batch_size):
-        items = [catalog.item(i) for i in order[s: s + batch_size]]
+        chunk, rows = order[s: s + batch_size], None
+        if shard is not None:
+            sl = batch_rows(len(chunk), *shard)
+            chunk, rows = chunk[sl], (sl.start, len(chunk))
+        items = [catalog.item(i) for i in chunk]
         batch = {"A": decode_paths([it.get("A", it.get("image"))
                                     for it in items], size)}
         if "B" in items[0]:
             batch["B"] = decode_paths([it["B"] for it in items], size,
                                       grayscale=True)
-        yield batch
+        yield batch, rows
 
 
 def _to_device(u8: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -207,7 +225,9 @@ def generate(model: Pix2Pix, catalogs, args, device: torch.device
 def train(model: Pix2Pix, train_cat, test_cat, args, cfg: Pix2PixConfig,
           device: torch.device) -> Path:
     """The epochs, the results folder, the sample sheet and the export;
-    returns the results folder."""
+    returns the results folder (None on a rank other than 0)."""
+    rank, world = multihost.rank(), multihost.world_size()
+    lead = rank == 0
     rng = np.random.default_rng(args.seed)
     tracker = LossTracker(list(LOSS_KEYS))
     timer = Timer()
@@ -221,26 +241,36 @@ def train(model: Pix2Pix, train_cat, test_cat, args, cfg: Pix2PixConfig,
             model.load_state_dict(state)
             rng.bit_generator.state = state["numpy_rng"]
             start_epoch = int(step or mgr.latest_step())
-            print(f"Resumed pix2pix from epoch {start_epoch}", flush=True)
+            if lead:
+                print(f"Resumed pix2pix from epoch {start_epoch}",
+                      flush=True)
+            multihost.broadcast_state(model.net_g, model.net_d, model.opt_g,
+                                      model.opt_d)
 
+    shard = (rank, world) if world > 1 else None
     for epoch in range(start_epoch, args.epochs):
         tracker.reset_sums()
         n = 0
-        for batch in _batches(train_cat, args.image_size, args.batch_size,
-                              rng):
+        for batch, rows in _batches(train_cat, args.image_size,
+                                    args.batch_size, rng, shard):
             losses = model.train_step(
                 {k: _to_device(v, device) for k, v in batch.items()},
                 int(rng.integers(2**31)),
-                decoder_only=(epoch == 0))  # the reference's warm-up epoch
+                decoder_only=(epoch == 0),  # the reference's warm-up epoch
+                rows=rows)
             tracker.add(losses)  # device scalars: no wait a step
             n += 1
         tracker.append(dict(tracker.sums), max(n, 1))
-        print(f"Epoch {epoch + 1}: " + ", ".join(
-            f"{k}={tracker.series[k][-1]:.4f}" for k in LOSS_KEYS),
-            flush=True)
-        if mgr is not None and (epoch + 1) % args.checkpoint_every == 0:
+        if lead:
+            print(f"Epoch {epoch + 1}: " + ", ".join(
+                f"{k}={tracker.series[k][-1]:.4f}" for k in LOSS_KEYS),
+                flush=True)
+        if (lead and mgr is not None
+                and (epoch + 1) % args.checkpoint_every == 0):
             mgr.save(epoch + 1, {**model.state_dict(),
                                  "numpy_rng": rng.bit_generator.state})
+    if not lead:
+        return None
 
     writer = ResultsWriter("Pix2PixModel", train_cat.state_dict["dataset"])
     training_dict = {"train_losses": dict(tracker.series),
@@ -258,7 +288,8 @@ def train(model: Pix2Pix, train_cat, test_cat, args, cfg: Pix2PixConfig,
                 "D": {k: v.cpu() for k, v in model.net_d.state_dict().items()}},
                path)
     # the sample sheet: (photo, fake, real) triplets from the test set
-    for batch in _batches(test_cat, args.image_size, args.batch_size, None):
+    for batch, _ in _batches(test_cat, args.image_size, args.batch_size,
+                             None):
         if "B" not in batch:
             break
         fake = to_uint8(model.generate(_to_device(batch["A"], device)))
@@ -272,15 +303,26 @@ def train(model: Pix2Pix, train_cat, test_cat, args, cfg: Pix2PixConfig,
     return writer.path
 
 
-def main(argv=None):
+def main(argv=None, mesh: Optional[Mesh] = None):
     """Generate mode returns the count, the wall time and its split
-    (seconds); train mode returns the results folder."""
+    (seconds); train mode returns the results folder. ``mesh``: the
+    data-parallel ranks' devices, in place of ``--n_devices``."""
     args = build_parser().parse_args(argv)
-    if args.n_devices not in (0, 1) or args.tp_devices > 1:
-        raise SystemExit(f"--n_devices {args.n_devices} --tp_devices "
-                         f"{args.tp_devices}: {NOT_PORTED_MESH}; run on one "
-                         "device")
-    device = resolve_device(args.device)
+    if mesh is None:
+        mesh = mesh_from_args(args.n_devices, args.tp_devices, args.device)
+    if mesh is not None and mesh.size > 1:
+        if args.mode != "train":
+            raise SystemExit(f"--n_devices {args.n_devices}: data "
+                             "parallelism is for --mode train; generate "
+                             "runs on one device")
+        return multihost.spawn(run, mesh.devices, args)
+    return run(resolve_device(args.device if mesh is None
+                              else mesh.devices[0]), args)
+
+
+def run(device: torch.device, args: argparse.Namespace):
+    """:func:`main` on ``device``, as one rank of the group where this
+    process is in one."""
     ieee_f32()
     cfg = Pix2PixConfig(
         net_g=args.netG, net_d=args.netD, norm=args.norm,
@@ -290,6 +332,7 @@ def main(argv=None):
     model = Pix2Pix(cfg, args.seed, device)
     if args.model:
         load_weights(model, args.model)
+    multihost.broadcast_state(model.net_g, model.net_d)
     img_type = args.img_type or ("images" if "Kaggle" in args.dataset
                                  else "photos")
     train_cat, test_cat = get_datasets(

@@ -10,15 +10,37 @@ augment) -> the triplet step (three forwards, backward, Adam) -> retrieval
 evaluation -> ``models/<run>.pt`` (and ``models/<run>_bn_sketch.pt`` under
 ``--bn_recalibrate per_modality``), the 4-JSON results contract and the
 plots. It runs on the card; ``--device cpu`` runs it on the CPU.
-Data-parallel training (``--n_devices`` other than 1), tensor parallelism
-(``--tp_devices``) and several hosts (``--multihost``) are still to port:
-asking for them exits.
+
+Data parallel (``parallel/multihost.py``), with the results of one device:
+
+* ``--n_devices N`` (N > 1; -1: every card) starts N ranks, rank ``i`` on
+  card ``i`` (NCCL), or N ranks on the CPU under ``--device cpu``
+  (gloo); with fewer cards than asked it exits. ``main(argv, mesh=...)``
+  takes a mesh instead, which may repeat a device (two ranks on one
+  card run over gloo).
+* ``--multihost`` joins the group torchrun's environment describes, one
+  rank a process on card ``LOCAL_RANK``; without that environment it
+  trains on one process.
+* Each rank decodes its rows of every batch (``TripletLoader(shard=)``),
+  BatchNorm takes the global batch's statistics, augmentation draws the
+  global batch's parameters, the gradients are averaged before the Adam
+  step and the logged losses are the global batch's. Rank 0 alone runs
+  ``--eval_every_epoch`` (the others wait at a barrier), writes the
+  checkpoints, and after training runs ``--bn_recalibrate`` and
+  ``--inference`` (over a gallery mesh of the ranks' distinct cards) and
+  writes the results and ``models/<run>.pt``; the others leave.
+
+Tensor parallelism (``--tp_devices`` above 1) is still to port: asking
+for it exits.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import os
 from pathlib import Path
+from typing import Optional, Sequence
 
 import torch
 
@@ -32,6 +54,8 @@ from art_sbir_tpu_torch.core.results import ResultsWriter
 from art_sbir_tpu_torch.data import get_datasets
 from art_sbir_tpu_torch.data.loader import TripletLoader
 from art_sbir_tpu_torch.models.resnet import create_encoder
+from art_sbir_tpu_torch.parallel import multihost
+from art_sbir_tpu_torch.parallel.mesh import Mesh, MeshSpec, mesh_from_args
 from art_sbir_tpu_torch.retrieval.engine import run_inference
 from art_sbir_tpu_torch.train.bn import recalibrate_from_catalog, with_stats
 from art_sbir_tpu_torch.train.losses import TripletLossConfig
@@ -40,8 +64,6 @@ from art_sbir_tpu_torch.train.prepare import (finish_gallery_batch,
 from art_sbir_tpu_torch.train.triplet import TripletTrainer, create_train_state
 from art_sbir_tpu_torch.viz.plots import visualize
 
-NOT_PORTED = ("data-parallel training (torch DDP), tensor parallelism and "
-              "several hosts are still to port (ROADMAP.md queue 1 item 8)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -123,11 +145,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "record MRR/recall@K per epoch in training.json "
                         "(epoch_metrics)")
     p.add_argument("--n_devices", type=int, default=1,
-                   help="1 only: " + NOT_PORTED)
+                   help="data-parallel ranks (1 = one device, -1 = every "
+                        "card): one process a device, BatchNorm over the "
+                        "global batch, gradients averaged")
     p.add_argument("--tp_devices", type=int, default=1,
-                   help="1 only: " + NOT_PORTED)
+                   help="1 only: tensor parallelism is still to port "
+                        "(ROADMAP.md queue 1 item 7)")
     p.add_argument("--multihost", action="store_true",
-                   help="not available: " + NOT_PORTED)
+                   help="join the group torchrun's environment describes "
+                        "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                        "MASTER_PORT), one rank a process")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' trains on the CPU")
     return p
@@ -148,14 +175,48 @@ def load_warm_start(model: torch.nn.Module, path: str) -> None:
     model.load_state_dict(sd, strict=False)
 
 
-def main(argv=None) -> Path:
+def main(argv=None, mesh: Optional[Mesh] = None) -> Path:
+    """Train; returns the results folder. ``mesh``: the data-parallel
+    ranks' devices, in place of ``--n_devices``."""
     args = build_parser().parse_args(argv)
-    if args.n_devices not in (0, 1) or args.tp_devices > 1 or args.multihost:
-        raise SystemExit(
-            f"--n_devices {args.n_devices} --tp_devices {args.tp_devices}"
-            f"{' --multihost' if args.multihost else ''}: {NOT_PORTED}; "
-            "train on one device")
-    device = resolve_device(args.device)
+    if mesh is None:  # exits for --tp_devices, or with fewer cards
+        mesh = mesh_from_args(args.n_devices, args.tp_devices, args.device)
+    if args.multihost:
+        if mesh is not None:
+            raise SystemExit("--multihost runs one rank a process; drop "
+                             "--n_devices")
+        device = multihost.initialize(args.device)
+        if device is not None:
+            try:
+                local = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+                return train(device, args, [torch.device(device.type, i)
+                                            for i in range(local)]
+                             if device.type == "cuda" else [device])
+            finally:
+                multihost.leave()
+    if mesh is not None and mesh.size > 1:
+        return multihost.spawn(train, mesh.devices, args,
+                               mesh.distinct_devices())
+    return train(resolve_device(args.device if mesh is None
+                                else mesh.devices[0]), args)
+
+
+def _gallery_mesh(devices: Sequence[torch.device]) -> Optional[Mesh]:
+    """Rank 0's gallery mesh for the evaluation: the ranks' distinct
+    cards (None for one device)."""
+    devices = list(dict.fromkeys(torch.device(d) for d in devices))
+    return MeshSpec(len(devices)).build(devices) if len(devices) > 1 else None
+
+
+def train(device: torch.device, args: argparse.Namespace,
+          devices: Sequence[torch.device] = ()) -> Optional[Path]:
+    """The run on ``device``, as one rank of the group where this process
+    is in one; returns the results folder on rank 0 (None elsewhere).
+    ``devices``: the group's distinct devices on this host, which rank
+    0's evaluation shards the gallery over."""
+    rank, world = multihost.rank(), multihost.world_size()
+    lead = rank == 0
+    say = print if lead else (lambda *a, **k: None)
     if not args.bf16:
         ieee_f32()
 
@@ -191,7 +252,8 @@ def main(argv=None) -> Path:
 
     if args.model:
         load_warm_start(model, args.model)
-        print(f"Model {args.model} loaded", flush=True)
+        say(f"Model {args.model} loaded", flush=True)
+    multihost.broadcast_state(model)
     state = create_train_state(model, args.learning_rate, args.weight_decay)
 
     augment_version = getattr(train_cat, "augment_sketches", 0)
@@ -201,16 +263,19 @@ def main(argv=None) -> Path:
 
     def device_batches(catalog, train: bool):
         loader = TripletLoader(catalog, args.batch_size, args.image_size,
-                               resize_mode=resize_mode)
+                               resize_mode=resize_mode,
+                               shard=(rank, world) if world > 1 else None)
 
         def gen():
             for batch in loader:
                 batch = {k: torch.from_numpy(v).to(device)
                          for k, v in batch.items()}
+                b = len(batch["sketch"])
                 yield finish_triplet_batch(
                     batch, aug_gen,
                     augment_version=augment_version if train else 0,
-                    flip=flip if train else False, train=train)
+                    flip=flip if train else False, train=train,
+                    rows=(rank * b, world * b) if world > 1 else None)
 
         return gen
 
@@ -228,15 +293,21 @@ def main(argv=None) -> Path:
         "width": args.width, "layers": list(args.layers),
         "resize_mode": resize_mode
         or getattr(train_cat, "resize_mode", "square"),
-        "n_devices": 1, "tp_devices": int(args.tp_devices),
+        "n_devices": world, "tp_devices": int(args.tp_devices),
     }
     data_dict = train_cat.state_dict
-    print(param_dict, flush=True)
-    print(data_dict, flush=True)
+    say(param_dict, flush=True)
+    say(data_dict, flush=True)
+    gallery_mesh = _gallery_mesh(devices) if lead else None
 
     def embed(m):
+        replicas = {d: m if d == device else copy.deepcopy(m).to(d)
+                    for d in ([] if gallery_mesh is None
+                              else gallery_mesh.distinct_devices())}
+
         def forward(images_uint8):
-            return m(finish_gallery_batch(images_uint8))
+            net = replicas.get(images_uint8.device, m)
+            return net(finish_gallery_batch(images_uint8))
         return forward
 
     training_dict = {}
@@ -248,31 +319,40 @@ def main(argv=None) -> Path:
             if args.resume and mgr.latest_step() is not None:
                 state.load_state_dict(mgr.restore())
                 start_epoch = int(mgr.latest_step())
-                print(f"Resumed from epoch {start_epoch}", flush=True)
+                say(f"Resumed from epoch {start_epoch}", flush=True)
+                multihost.broadcast_state(model, state.optimizer)
 
         epoch_hook = None
         if args.eval_every_epoch:
             def epoch_hook(epoch: int, st) -> dict:
-                st.model.eval()
-                d = run_inference(
-                    embed(st.model), test_cat, None, args.loss_type,
-                    image_size=args.image_size, resize_mode=resize_mode,
-                    model_name=model_name, save_features=False,
-                    device=device)
-                stats = d.get("drawing_stats", d)
-                return {"mrr": float(stats["mean_reciprocal_rank"]),
-                        "top1": float(stats["topk_acc"][0]),
-                        "top10": float(stats["topk_acc"][9]),
-                        "rank_mean": float(stats["mean"])}
+                out = {}
+                if lead:
+                    st.model.eval()
+                    d = run_inference(
+                        embed(st.model), test_cat, None, args.loss_type,
+                        image_size=args.image_size, resize_mode=resize_mode,
+                        model_name=model_name, save_features=False,
+                        device=device, mesh=gallery_mesh)
+                    stats = d.get("drawing_stats", d)
+                    out = {"mrr": float(stats["mean_reciprocal_rank"]),
+                           "top1": float(stats["topk_acc"][0]),
+                           "top10": float(stats["topk_acc"][9]),
+                           "rank_mean": float(stats["mean"])}
+                multihost.barrier()
+                return out
 
         trainer = TripletTrainer(
-            loss_cfg, args.batch_size, args.epochs, checkpoint_manager=mgr,
+            loss_cfg, args.batch_size, args.epochs,
+            checkpoint_manager=mgr if lead else None,
             checkpoint_every_epochs=args.checkpoint_every,
             epoch_hook=epoch_hook)
-        with maybe_profile(args.trace_dir):
+        with maybe_profile(args.trace_dir if lead else None):
             state, training_dict = trainer.run(
                 state, device_batches(train_cat, True),
-                device_batches(test_cat, False), start_epoch=start_epoch)
+                device_batches(test_cat, False), start_epoch=start_epoch,
+                log=lambda line: say(line, flush=True))
+    if not lead:
+        return None  # rank 0 alone evaluates and writes
     model.eval()
 
     bn_sketch_stats = None
@@ -310,7 +390,7 @@ def main(argv=None) -> Path:
             embed(model), test_cat, args.feature_folder, args.loss_type,
             image_size=args.image_size, resize_mode=resize_mode,
             model_name=model_name, kaggle_queries=kq,
-            query_forward_fn=query_forward, device=device)
+            query_forward_fn=query_forward, device=device, mesh=gallery_mesh)
 
     writer = ResultsWriter(model_name, data_dict["dataset"],
                            root=args.results_root)

@@ -15,10 +15,11 @@ from __future__ import annotations
 
 import concurrent.futures
 import io
+import math
 import random
 import time
 from pathlib import Path
-from typing import BinaryIO, Dict, Iterator, List, Optional, Sequence
+from typing import BinaryIO, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -91,6 +92,15 @@ def decode_paths(paths: Sequence[Path | str], size: int,
     return out
 
 
+def rank_rows(rows: List, rank: int, world: int) -> List:
+    """Rank ``rank``'s share of a batch's rows, tiled first to
+    ``lcm(len(rows), world)`` where ``world`` does not divide it."""
+    reps = math.lcm(len(rows), world) // len(rows)
+    tiled = list(rows) * reps
+    per = len(tiled) // world
+    return tiled[rank * per:(rank + 1) * per]
+
+
 class TripletLoader:
     """Batches a RetrievalCatalog's triplets.
 
@@ -101,6 +111,13 @@ class TripletLoader:
     background thread builds batch k + 1 while the device works on batch
     k. A corrupt image falls back to item 0 with a note (reference
     `data_preparation.py:517-525`).
+
+    ``shard`` = (rank, world): a data-parallel rank's rows. Every rank
+    iterates the same seeded order and asks the catalog for every row (its
+    negatives come from the catalog's generator); a batch of ``b`` rows
+    that ``world`` does not divide is then tiled to ``lcm(b, world)`` rows
+    (the JAX CLI's rule: tiling keeps the mean, the biased variance and
+    the mean-loss gradient), and the rank decodes its contiguous share.
     """
 
     def __init__(self, catalog, batch_size: int = 32, image_size: int = 224,
@@ -108,8 +125,10 @@ class TripletLoader:
                  shuffle: Optional[bool] = None, seed: int = 0,
                  prefetch: bool = True,
                  keys=("sketch", "positive", "negative"),
-                 decode_backend: str = "auto"):
+                 decode_backend: str = "auto",
+                 shard: Optional[Tuple[int, int]] = None):
         self.catalog = catalog
+        self.shard = shard
         self.batch_size = batch_size
         self.image_size = image_size
         # None -> the catalog family's geometry (RetrievalCatalog.resize_mode)
@@ -145,7 +164,11 @@ class TripletLoader:
             return np.stack([self._decode(p) for p in paths])
 
     def _build(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
+        # every row's item, in order, on every rank: a catalog draws its
+        # negatives from its own generator as items are asked for
         items = [self.catalog.item(i) for i in indices]
+        if self.shard is not None:
+            items = rank_rows(items, *self.shard)
         batch: Dict[str, np.ndarray] = {}
         for key in self.keys:
             if key in items[0]:

@@ -31,7 +31,7 @@ the 70x70 PatchGAN (:class:`NLayerDiscriminator`) and the 1x1 PixelGAN
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -68,19 +68,27 @@ class Dropout(nn.Module):
     probability ``1 - p`` and a kept one is scaled by ``1 / (1 - p)``. The
     mask comes from ``generator`` (a ``torch.Generator`` on the input's
     device, set by the trainer each step) or, without one, from torch's
-    global stream."""
+    global stream. ``rows`` = (offset, total) makes the input a
+    data-parallel rank's rows of a global batch of ``total``: the mask is
+    drawn for the global batch and the rank keeps its rows, so every rank
+    drops what one device would."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None
+        self.rows: Optional[Tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        shape, off = x.shape, 0
+        if self.rows is not None:
+            off, total = self.rows
+            shape = (total,) + tuple(x.shape[1:])
+        mask = torch.rand(shape, generator=self.generator,
+                          device=x.device)[off:off + x.shape[0]] < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
@@ -318,11 +326,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def set_dropout_generator(model: nn.Module,
-                          generator: Optional[torch.Generator]) -> None:
-    """Point every :class:`Dropout` of ``model`` at ``generator``."""
+                          generator: Optional[torch.Generator],
+                          rows: Optional[Tuple[int, int]] = None) -> None:
+    """Point every :class:`Dropout` of ``model`` at ``generator`` and
+    ``rows`` (see :class:`Dropout`)."""
     for mod in model.modules():
         if isinstance(mod, Dropout):
             mod.generator = generator
+            mod.rows = rows
 
 
 class GANLoss:

@@ -59,25 +59,55 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance. torch's own update takes the unbiased variance (n / (n - 1)
     times larger), so it is written out here. ``record`` (a list, or None)
     collects each train-mode call's (mean, biased var) for
-    :mod:`art_sbir_tpu_torch.train.bn`."""
+    :mod:`art_sbir_tpu_torch.train.bn`.
+
+    ``sync`` (set by ``parallel/multihost.py::synced_batchnorm``) takes
+    the statistics of the global batch over the default process group,
+    as JAX's BatchNorm under GSPMD does: all-reduce the sums and the
+    count, then the centred sums of squares (two passes, as on one
+    device). ``torch.distributed.nn``'s all-reduce is differentiable and
+    sums the gradients into every rank, as the backward needs; the
+    running statistics come out equal on every rank."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=1e-5, momentum=BN_MOMENTUM)
         self.record = None
+        self.sync = False
+
+    def _global_norm(self, xf: torch.Tensor):
+        """(output, mean, biased var) over every rank's rows."""
+        from torch.distributed.nn.functional import all_reduce
+
+        n = xf.shape[0] * xf.shape[2] * xf.shape[3]
+        s = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                  xf.new_full((1,), float(n))]))
+        mean = s[:-1] / s[-1]
+        centred = xf - mean[None, :, None, None]
+        var = all_reduce(torch.square(centred).sum(dim=(0, 2, 3))) / s[-1]
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        out = (centred * scale[None, :, None, None]
+               + self.bias[None, :, None, None])
+        return out, mean.detach(), var.detach()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            if self.sync:
+                out, mean, var = self._global_norm(xf)
+            else:
+                out = F.batch_norm(xf, None, None, self.weight, self.bias,
+                                   True, 0.0, self.eps)
+                with torch.no_grad():
+                    var, mean = torch.var_mean(xf, dim=(0, 2, 3),
+                                               correction=0)
             with torch.no_grad():
-                var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
                 self.running_var.mul_(1.0 - m).add_(var, alpha=m)
                 self.num_batches_tracked.add_(1)
                 if self.record is not None:
                     self.record.append((mean, var))
-            return F.batch_norm(xf, None, None, self.weight, self.bias,
-                                True, 0.0, self.eps).to(x.dtype)
+            return out.to(x.dtype)
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
         return torch.addcmul(shift.to(x.dtype)[None, :, None, None], x,

@@ -23,7 +23,7 @@ nearest (torchvision's defaults). Images are (B, H, W, C) float in
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,6 +40,16 @@ def _rand(gen: torch.Generator, n: int) -> torch.Tensor:
 
 def _uniform(gen: torch.Generator, n: int, lo, hi) -> torch.Tensor:
     return lo + (hi - lo) * _rand(gen, n)
+
+
+def _draws(b: int, rows: Optional[Tuple[int, int]]) -> Tuple[int, slice]:
+    """How many rows to draw for and which of them to keep: ``rows`` =
+    (offset, total) places a rank's ``b`` rows in a global batch of
+    ``total`` (data-parallel training draws for the global batch, from a
+    generator that advances alike on every rank, and keeps its rows)."""
+    if rows is None:
+        return b, slice(0, b)
+    return rows[1], slice(rows[0], rows[0] + b)
 
 
 def _randint(gen: torch.Generator, shape, hi) -> torch.Tensor:
@@ -218,11 +228,15 @@ def erase_params(gen: torch.Generator, n: int, h: int, w: int,
 
 
 def apply_erase(img: torch.Tensor, gen: torch.Generator, p: float, scale,
-                ratio=(0.3, 3.3), value: float = 1.0) -> torch.Tensor:
-    """One RandomErasing pass on (B, H, W, C), a coin and a box per image."""
+                ratio=(0.3, 3.3), value: float = 1.0,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """One RandomErasing pass on (B, H, W, C), a coin and a box per image
+    (``rows``: see :func:`_draws`)."""
     b, h, w, _ = img.shape
-    do = _rand(gen, b) < p
-    i, j, eh, ew, found = erase_params(gen, b, h, w, scale, ratio)
+    n, keep = _draws(b, rows)
+    do = (_rand(gen, n) < p)[keep]
+    i, j, eh, ew, found = (t[keep] for t in
+                           erase_params(gen, n, h, w, scale, ratio))
     gy = torch.arange(h, device=img.device)[None, :, None]
     gx = torch.arange(w, device=img.device)[None, None, :]
     col = lambda t: t[:, None, None]  # noqa: E731
@@ -241,12 +255,21 @@ def _where(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     return torch.where(cond[:, None, None, None], a, b)
 
 
+def _keep_affine(params, keep: slice):
+    angle, (tx, ty), sc, (shx, shy) = params
+    return angle[keep], (tx[keep], ty[keep]), sc[keep], (shx[keep],
+                                                         shy[keep])
+
+
 def sketch_augment(batch: torch.Tensor, gen: torch.Generator,
-                   version: int = 1, do_normalize: bool = True
-                   ) -> torch.Tensor:
+                   version: int = 1, do_normalize: bool = True,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Batched sketch augmentation, (B, H, W, C) in [0, 1] -> augmented
-    (and CLIP-normalized), replacing reference ``sketch_transformV1/V2``."""
+    (and CLIP-normalized), replacing reference ``sketch_transformV1/V2``.
+    ``rows`` = (offset, total): the batch is a rank's rows of a global
+    batch of ``total``, whose draws are made (:func:`_draws`)."""
     b, h, w, _ = batch.shape
+    n, keep = _draws(b, rows)
     center = ((w - 1) * 0.5, (h - 1) * 0.5)
     if version == 1:
         distortion, p1 = 0.3, 0.5
@@ -267,36 +290,39 @@ def sketch_augment(batch: torch.Tensor, gen: torch.Generator,
     img = batch
 
     # group 1 (p = 0.5): perspective (bilinear), then affine scale (nearest)
-    apply1 = _rand(gen, b) < p1
-    start, end = perspective_endpoints(gen, b, h, w, distortion)
+    apply1 = (_rand(gen, n) < p1)[keep]
+    start, end = perspective_endpoints(gen, n, h, w, distortion)
+    end = end[keep]
     h_inv = homography_from_points(end, start.expand_as(end))  # out -> in
     out = warp_projective(img, h_inv, "bilinear", fill=1.0)
-    angle, tr, sc, sh = affine_params(gen, b, h, w,
-                                      AffineRanges(scale=(1.05, 1.3)))
+    angle, tr, sc, sh = _keep_affine(
+        affine_params(gen, n, h, w, AffineRanges(scale=(1.05, 1.3))), keep)
     out = warp_projective(out, affine_inverse_matrix(angle, tr, sc, sh,
                                                      center),
                           "nearest", fill=1.0)
     img = _where(apply1, out, img)
 
     # group 2: full affine (nearest)
-    apply2 = _rand(gen, b) < p2
-    angle, tr, sc, sh = affine_params(gen, b, h, w, aff2)
+    apply2 = (_rand(gen, n) < p2)[keep]
+    angle, tr, sc, sh = _keep_affine(affine_params(gen, n, h, w, aff2), keep)
     out2 = warp_projective(img, affine_inverse_matrix(angle, tr, sc, sh,
                                                       center),
                            "nearest", fill=1.0)
     img = _where(apply2, out2, img)
 
     for pe, sce, rat in erases:
-        img = apply_erase(img, gen, pe, sce, rat, value=1.0)
+        img = apply_erase(img, gen, pe, sce, rat, value=1.0, rows=rows)
     return normalize(img, CLIP_MEAN, CLIP_STD) if do_normalize else img
 
 
 def paired_hflip(gen: torch.Generator, sketch: torch.Tensor,
-                 pos: torch.Tensor, neg: torch.Tensor, p: float = 0.5):
+                 pos: torch.Tensor, neg: torch.Tensor, p: float = 0.5,
+                 rows: Optional[Tuple[int, int]] = None):
     """AugmentedKaggle's paired flip: one coin for (sketch, pos), another
-    for neg (reference `data_preparation.py:644-657`)."""
-    b = sketch.shape[0]
-    f1 = _rand(gen, b) < p
-    f2 = _rand(gen, b) < p
+    for neg (reference `data_preparation.py:644-657`); ``rows``: see
+    :func:`_draws`."""
+    n, keep = _draws(sketch.shape[0], rows)
+    f1 = (_rand(gen, n) < p)[keep]
+    f2 = (_rand(gen, n) < p)[keep]
     flip = lambda x, f: _where(f, torch.flip(x, dims=(2,)), x)  # noqa: E731
     return flip(sketch, f1), flip(pos, f1), flip(neg, f2)

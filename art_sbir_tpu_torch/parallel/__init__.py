@@ -1,10 +1,15 @@
 """Device meshes for the row-sharded gallery (single process, one list of
-devices); counterpart of ``art_sbir_tpu/parallel``'s data axis."""
+devices) and data-parallel training (one process a device,
+:mod:`~art_sbir_tpu_torch.parallel.multihost`); counterpart of
+``art_sbir_tpu/parallel``'s data axis."""
 
 from art_sbir_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh, MeshSpec,
-                                              data_mesh, mesh_from_args,
-                                              pad_to_multiple, shard_rows,
+                                              batch_rows, data_mesh,
+                                              mesh_from_args,
+                                              pad_to_multiple,
+                                              shard_or_replicate, shard_rows,
                                               split_batch)
 
-__all__ = ["DATA_AXIS", "Mesh", "MeshSpec", "data_mesh", "mesh_from_args",
-           "pad_to_multiple", "shard_rows", "split_batch"]
+__all__ = ["DATA_AXIS", "Mesh", "MeshSpec", "batch_rows", "data_mesh",
+           "mesh_from_args", "pad_to_multiple", "shard_or_replicate",
+           "shard_rows", "split_batch"]

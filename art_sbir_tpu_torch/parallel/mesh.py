@@ -1,4 +1,5 @@
-"""Device meshes for the row-sharded gallery and the sharded embedding.
+"""Device meshes for the row-sharded gallery and the sharded embedding,
+and the rows of a data-parallel rank.
 
 Counterpart of ``art_sbir_tpu/parallel/mesh.py`` for its data axis. The
 port's multi-device model is JAX's single controller: one process holds
@@ -6,7 +7,9 @@ an ordered list of devices, shard ``i`` of a gallery lives on
 ``mesh.devices[i]``, each shard's kernel runs on its own device's current
 stream, and the (Q, k) partials are brought to ``mesh.devices[0]`` and
 merged there (:mod:`art_sbir_tpu_torch.ops.sharded`). No process group
-is needed.
+is needed. Training runs one process a device of the mesh instead
+(:mod:`art_sbir_tpu_torch.parallel.multihost`); each keeps its rows of
+a batch (:func:`shard_or_replicate`).
 
 A mesh may name one device several times: ``[cpu] * 8`` on the CPU, or
 ``[cuda:0] * 4`` on one card, run that many shards on the one device,
@@ -16,7 +19,7 @@ as the JAX package's tests run 8 virtual CPU devices.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -87,16 +90,17 @@ def data_mesh(n_devices: Optional[int] = None, axis_name: str = DATA_AXIS,
 
 
 def mesh_from_args(n_devices: int, tp_devices: int = 1,
-                   multihost: bool = False,
                    device: str | torch.device | None = None
                    ) -> Optional[Mesh]:
     """The CLIs' mesh: ``None`` for ``n_devices`` 1 (or 0), else
-    :func:`data_mesh` (-1: every card). The data axis only. Exits with
-    :func:`data_mesh`'s message where fewer cards are present."""
-    if tp_devices > 1 or multihost:
+    :func:`data_mesh` (-1: every card). The data axis only: the serving
+    CLIs shard a gallery over it, the trainers start a rank on each of
+    its devices. Exits with :func:`data_mesh`'s message where fewer
+    cards are present."""
+    if tp_devices > 1:
         raise SystemExit(
-            "tensor parallelism and several hosts are still to port "
-            "(ROADMAP.md queue 1 item 8); use --n_devices alone")
+            f"--tp_devices {tp_devices}: tensor parallelism is still to "
+            "port (ROADMAP.md queue 1 item 7); use --n_devices alone")
     if n_devices > 1 or n_devices < 0:
         try:
             mesh = data_mesh(n_devices, device=device)
@@ -105,6 +109,35 @@ def mesh_from_args(n_devices: int, tp_devices: int = 1,
         print(f"data mesh: {mesh.size} devices", flush=True)
         return mesh
     return None
+
+
+def batch_rows(n: int, rank: int, world: int) -> slice:
+    """Rank ``rank``'s rows of an ``n``-row batch over ``world`` ranks: its
+    equal share, or every row where ``n`` does not divide (a ragged batch
+    is replicated: each rank computes it whole, and the mean of equal
+    gradients is the gradient)."""
+    if n % world:
+        return slice(0, n)
+    per = n // world
+    return slice(rank * per, (rank + 1) * per)
+
+
+def shard_or_replicate(batch: Dict[str, Any], rank: Optional[int] = None,
+                       world: Optional[int] = None
+                       ) -> Tuple[Dict[str, Any], Tuple[int, int]]:
+    """JAX ``shard_or_replicate`` for one rank (default: this process's
+    in its group): the batch cut to :func:`batch_rows`, and ``(offset,
+    total)``, where its rows start in the batch and the batch's length,
+    which the trainers' random draws take (they draw for ``total`` rows
+    and keep theirs). 0-d entries are kept whole."""
+    from art_sbir_tpu_torch.parallel import multihost
+
+    rank = multihost.rank() if rank is None else rank
+    world = multihost.world_size() if world is None else world
+    n = next(len(v) for v in batch.values() if getattr(v, "ndim", 1))
+    sl = batch_rows(n, rank, world)
+    return ({k: v[sl] if getattr(v, "ndim", 1) else v
+             for k, v in batch.items()}, (sl.start, n))
 
 
 def pad_to_multiple(n: int, m: int) -> int:

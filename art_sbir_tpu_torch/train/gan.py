@@ -22,12 +22,19 @@ Counterpart of ``art_sbir_tpu/train/gan.py`` (reference
 running statistics stay float32 and the losses are taken in float32 (the
 nets return float32). Batches are cast to the parameters' dtype, so nets
 cast with ``.double()`` before the first step run the step in float64.
+
+Data parallel (each rank of a ``torch.distributed`` group holding its rows
+of the batch, ``parallel/mesh.py::shard_or_replicate``): both nets'
+BatchNorm takes the global batch's statistics, G's dropout masks are
+drawn for the global batch (``rows``), each gradient set is averaged over
+the ranks before its Adam step, and the losses are the global batch's.
+A ragged batch is replicated: every rank computes it whole.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -35,6 +42,9 @@ from art_sbir_tpu_torch.core.device import resolve_device
 from art_sbir_tpu_torch.models.pix2pix import (GANLoss, define_d, define_g,
                                                init_weights,
                                                set_dropout_generator)
+from art_sbir_tpu_torch.parallel.multihost import (mean_over_ranks,
+                                                   reduce_gradients,
+                                                   synced_batchnorm)
 from art_sbir_tpu_torch.train.triplet import torch_adam
 
 LOSS_KEYS = ("G_GAN", "G_L1", "D_real", "D_fake", "G_total", "D_total")
@@ -101,52 +111,63 @@ class Pix2Pix:
                     b.copy_(s)
 
     def train_step(self, batch: Dict[str, torch.Tensor], seed: int,
-                   decoder_only: bool = False) -> Dict[str, torch.Tensor]:
+                   decoder_only: bool = False,
+                   rows: Optional[Tuple[int, int]] = None
+                   ) -> Dict[str, torch.Tensor]:
         """One G+D step; the losses as 0-d tensors on the device (read
-        them when needed: nothing here waits for the card)."""
+        them when needed: nothing here waits for the card outside a
+        group). ``rows`` = (offset, total): ``batch`` is this rank's rows
+        of a global batch of ``total`` (None: the whole batch)."""
         cfg, g, d = self.cfg, self.net_g.train(), self.net_d.train()
         real_a, real_b = self._in(batch["A"]), self._in(batch["B"])
         set_dropout_generator(g, torch.Generator(self.device)
-                              .manual_seed(int(seed)))
-        with torch.set_grad_enabled(not decoder_only):
-            fake = g(real_a)
+                              .manual_seed(int(seed)), rows)
+        with synced_batchnorm(g, d):
+            with torch.set_grad_enabled(not decoder_only):
+                fake = g(real_a)
 
-        pred_fake = d(torch.cat([real_a, fake.detach()], 1))
-        pred_real = d(torch.cat([real_a, real_b], 1))
-        d_fake = self.criterion(pred_fake, False)
-        d_real = self.criterion(pred_real, True)
-        d_total = (d_fake + d_real) * 0.5
-        self.opt_d.zero_grad(set_to_none=True)
-        d_total.backward()
-        self.opt_d.step()
-        losses = {"D_fake": d_fake, "D_real": d_real, "D_total": d_total}
+            pred_fake = d(torch.cat([real_a, fake.detach()], 1))
+            pred_real = d(torch.cat([real_a, real_b], 1))
+            d_fake = self.criterion(pred_fake, False)
+            d_real = self.criterion(pred_real, True)
+            d_total = (d_fake + d_real) * 0.5
+            self.opt_d.zero_grad(set_to_none=True)
+            d_total.backward()
+            reduce_gradients(self.net_d.parameters())
+            self.opt_d.step()
+            losses = {"D_fake": d_fake, "D_real": d_real,
+                      "D_total": d_total}
 
-        if decoder_only:
-            zero = torch.zeros((), device=self.device)
-            losses.update({"G_GAN": zero, "G_L1": zero, "G_total": zero})
-        else:
-            pred = self._d_pass_keeping_stats(torch.cat([real_a, fake], 1))
-            g_gan = self.criterion(pred, True)
-            g_l1 = torch.mean(torch.abs(fake - real_b)) * cfg.lambda_l1
-            g_total = g_gan + g_l1
-            self.opt_g.zero_grad(set_to_none=True)
-            g_total.backward()
-            self.opt_g.step()
-            losses.update({"G_GAN": g_gan, "G_L1": g_l1, "G_total": g_total})
+            if decoder_only:
+                zero = torch.zeros((), device=self.device)
+                losses.update({"G_GAN": zero, "G_L1": zero, "G_total": zero})
+            else:
+                pred = self._d_pass_keeping_stats(
+                    torch.cat([real_a, fake], 1))
+                g_gan = self.criterion(pred, True)
+                g_l1 = torch.mean(torch.abs(fake - real_b)) * cfg.lambda_l1
+                g_total = g_gan + g_l1
+                self.opt_g.zero_grad(set_to_none=True)
+                g_total.backward()
+                reduce_gradients(self.net_g.parameters())
+                self.opt_g.step()
+                losses.update({"G_GAN": g_gan, "G_L1": g_l1,
+                               "G_total": g_total})
         set_dropout_generator(g, None)
-        return {k: v.detach() for k, v in losses.items()}
+        return mean_over_ranks({k: v.detach() for k, v in losses.items()})
 
     @torch.no_grad()
     def eval_losses(self, batch: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
         """G's losses in eval mode, no update (reference
-        ``calculate_loss``)."""
+        ``calculate_loss``), the global batch's in a group."""
         real_a, real_b = self._in(batch["A"]), self._in(batch["B"])
         fake = self.net_g.eval()(real_a)
         pred = self.net_d.eval()(torch.cat([real_a, fake], 1))
         g_gan = self.criterion(pred, True)
         g_l1 = torch.mean(torch.abs(fake - real_b)) * self.cfg.lambda_l1
-        return {"G_GAN": g_gan, "G_L1": g_l1, "G_total": g_gan + g_l1}
+        return mean_over_ranks({"G_GAN": g_gan, "G_L1": g_l1,
+                                "G_total": g_gan + g_l1})
 
     @torch.no_grad()
     def generate(self, real_a: torch.Tensor) -> torch.Tensor:

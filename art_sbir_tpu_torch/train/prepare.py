@@ -10,7 +10,7 @@ augmentation (`data_preparation.py:644-657`).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,7 +21,9 @@ from art_sbir_tpu_torch.ops.resize import CLIP_MEAN, CLIP_STD, normalize
 def finish_triplet_batch(batch: Dict[str, torch.Tensor],
                          gen: Optional[torch.Generator] = None,
                          augment_version: int = 0, flip: bool = False,
-                         train: bool = True) -> Dict[str, torch.Tensor]:
+                         train: bool = True,
+                         rows: Optional[Tuple[int, int]] = None
+                         ) -> Dict[str, torch.Tensor]:
     """uint8 triplet batch -> normalized float32 batch (other keys kept).
 
     ``augment_version`` > 0 runs ``sketch_augment`` V1/V2 on the sketch;
@@ -29,7 +31,9 @@ def finish_triplet_batch(batch: Dict[str, torch.Tensor],
     need ``train`` and a ``gen`` on the batch's device. A per-sample
     ``augment`` mask (the Mixed catalogs augment only their
     Kaggle-sourced samples, reference `data_preparation.py:748-753`)
-    keeps the other samples plain."""
+    keeps the other samples plain. ``rows`` = (offset, total): the batch
+    is a data-parallel rank's rows of a global batch of ``total``, and
+    the random draws are the global batch's (``ops/augment.py``)."""
     out = dict(batch)
     f = {k: batch[k].float() / 255.0
          for k in ("sketch", "positive", "negative") if k in batch}
@@ -38,7 +42,7 @@ def finish_triplet_batch(batch: Dict[str, torch.Tensor],
 
     if train and flip and gen is not None:
         fs, fp, fn = paired_hflip(gen, f["sketch"], f["positive"],
-                                  f["negative"])
+                                  f["negative"], rows=rows)
         if sel is not None:
             fs = torch.where(sel, fs, f["sketch"])
             fp = torch.where(sel, fp, f["positive"])
@@ -46,7 +50,7 @@ def finish_triplet_batch(batch: Dict[str, torch.Tensor],
         f["sketch"], f["positive"], f["negative"] = fs, fp, fn
     if train and augment_version and gen is not None:
         augmented = sketch_augment(f["sketch"], gen, version=augment_version,
-                                   do_normalize=True)
+                                   do_normalize=True, rows=rows)
         if sel is not None:
             augmented = torch.where(sel, augmented,
                                     normalize(f["sketch"], CLIP_MEAN,

@@ -17,7 +17,13 @@ Counterpart of ``art_sbir_tpu/train/triplet.py`` (reference
   as the JAX package's ``dtype=bf16`` does; no loss scaler is needed;
 * the reference's iteration-eval bug (it re-evaluates the stale training
   batch, reference `train.py:79-81,89-91`) stays fixed: mini-evals take
-  fresh test batches.
+  fresh test batches;
+* data parallel (each rank in a ``torch.distributed`` group holding its
+  rows of the batch, ``parallel/multihost.py``): BatchNorm takes the
+  global batch's statistics, the gradients are averaged over the ranks
+  before the Adam step, and the returned losses are the global batch's
+  means, as JAX's step gives them under GSPMD. Outside a group the step
+  is the one-device step.
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ import torch
 from torch import nn
 
 from art_sbir_tpu_torch.core.metrics import Timer
+from art_sbir_tpu_torch.parallel.multihost import (mean_over_ranks,
+                                                   reduce_gradients,
+                                                   synced_batchnorm)
 from art_sbir_tpu_torch.train.losses import (TripletLossConfig,
                                              triplet_loss_with_heads)
 
@@ -83,18 +92,20 @@ def forward3(model: nn.Module, batch: Dict[str, torch.Tensor]):
 def make_train_step(cfg: TripletLossConfig) -> Callable:
     """``train_step(state, batch) -> losses``: three train-mode forwards,
     the loss, backward and one Adam step. The losses come back detached,
-    on the device (no host sync)."""
+    on the device (no host sync outside a group)."""
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        s, p, n = forward3(state.model, batch)
+        with synced_batchnorm(state.model):
+            s, p, n = forward3(state.model, batch)
         losses = triplet_loss_with_heads(cfg, s, p, n, batch.get("label"),
                                          batch.get("label2"))
         losses["loss"].backward()
+        reduce_gradients(state.model.parameters())
         state.optimizer.step()
         state.step += 1
-        return {k: v.detach() for k, v in losses.items()}
+        return mean_over_ranks({k: v.detach() for k, v in losses.items()})
 
     return train_step
 
@@ -107,8 +118,8 @@ def make_eval_step(cfg: TripletLossConfig) -> Callable:
         state.model.eval()
         with torch.no_grad():
             s, p, n = forward3(state.model, batch)
-            return triplet_loss_with_heads(cfg, s, p, n, batch.get("label"),
-                                           batch.get("label2"))
+            return mean_over_ranks(triplet_loss_with_heads(
+                cfg, s, p, n, batch.get("label"), batch.get("label2")))
 
     return eval_step
 

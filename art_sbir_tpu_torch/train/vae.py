@@ -21,12 +21,20 @@ the gradients are left as they are while their global norm is below
 losses stay float32, and so do the parameters and the Adam state. Batches
 are cast to the parameters' dtype, so a model cast with ``.double()``
 before the first step runs the step in float64.
+
+Data parallel (each rank of a ``torch.distributed`` group holding its rows
+of the batch, ``parallel/mesh.py::shard_or_replicate``): the noise is
+drawn for the global ``(B, z_size)`` and each rank keeps its rows
+(``rows``), the KL mean is taken over the global batch before the
+tolerance clamps it, the gradients are averaged over the ranks before
+the clip reads their norm, and the losses are the global batch's. A
+ragged batch is replicated: every rank computes it whole.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,6 +43,9 @@ from art_sbir_tpu_torch.core.device import resolve_device
 from art_sbir_tpu_torch.models.photo2sketch import Photo2Sketch
 from art_sbir_tpu_torch.ops.gmm import (kl_divergence_to_standard_normal,
                                         sketch_reconstruction_loss)
+from art_sbir_tpu_torch.parallel.multihost import (global_mean,
+                                                   mean_over_ranks,
+                                                   reduce_gradients)
 from art_sbir_tpu_torch.train.triplet import torch_adam
 
 LOSS_KEYS = ("total_loss", "kl_loss", "reconstruction_loss")
@@ -117,38 +128,53 @@ class VAETrainer:
         return torch.as_tensor(x).to(self.device,
                                      next(self.model.parameters()).dtype)
 
-    def _noise(self, noise: Union[int, torch.Tensor, torch.Generator]):
+    def _noise(self, noise: Union[int, torch.Tensor, torch.Generator],
+               b: int = 0, rows: Optional[Tuple[int, int]] = None):
         if isinstance(noise, int):
-            return torch.Generator(self.device).manual_seed(noise)
+            noise = torch.Generator(self.device).manual_seed(noise)
+        if isinstance(noise, torch.Generator) and rows is not None:
+            off, total = rows
+            noise = torch.randn(
+                (total, self.cfg.z_size), generator=noise,
+                device=noise.device,
+                dtype=next(self.model.parameters()).dtype)[off:off + b]
         return noise
 
-    def losses(self, batch: Dict, noise) -> Dict[str, torch.Tensor]:
+    def losses(self, batch: Dict, noise,
+               rows: Optional[Tuple[int, int]] = None
+               ) -> Dict[str, torch.Tensor]:
         """The three losses at the current step count. ``noise`` is the
         reparameterization noise (B, z_size), a ``torch.Generator`` or a
-        seed for one on the trainer's device."""
+        seed for one on the trainer's device. ``rows`` = (offset, total):
+        ``batch`` is this rank's rows of a global batch of ``total``."""
         cfg = self.cfg
         sketch = self._in(batch["sketch_vector"])
-        gmm, mu, log_var = self.model(self._in(batch["photo"]), sketch,
-                                      self._noise(noise))
+        gmm, mu, log_var = self.model(
+            self._in(batch["photo"]), sketch,
+            self._noise(noise, sketch.shape[0], rows))
         end = sketch.new_tensor(END_ROW).expand(sketch.shape[0], 1, 5)
         target = torch.cat([sketch, end], dim=1)
         recon, _, _ = sketch_reconstruction_loss(gmm, target, cfg.use_mask)
-        kl = kl_divergence_to_standard_normal(mu, log_var, cfg.kl_tolerance)
+        kl = torch.clamp(global_mean(kl_divergence_to_standard_normal(
+            mu, log_var, float("-inf"))), min=cfg.kl_tolerance)
         total = recon + kl_weight_at(cfg, self.step) * kl
         return {"reconstruction_loss": recon, "kl_loss": kl,
                 "total_loss": total}
 
-    def compute_gradients(self, batch: Dict, noise) -> Dict[str, torch.Tensor]:
-        """The losses, with their gradients left in the parameters'
-        ``.grad`` (not clipped)."""
-        losses = self.losses(batch, noise)
+    def compute_gradients(self, batch: Dict, noise,
+                          rows: Optional[Tuple[int, int]] = None
+                          ) -> Dict[str, torch.Tensor]:
+        """The losses, with this rank's gradients left in the parameters'
+        ``.grad`` (not reduced, not clipped)."""
+        losses = self.losses(batch, noise, rows)
         self.optimizer.zero_grad(set_to_none=True)
         losses["total_loss"].backward()
-        return {k: v.detach() for k, v in losses.items()}
+        return mean_over_ranks({k: v.detach() for k, v in losses.items()})
 
     def apply_gradients(self) -> None:
-        """Clip the ``.grad`` of every parameter, take the Adam step at
-        ``lr_at(step)`` and count it."""
+        """Average the ``.grad`` of every parameter over the ranks, clip
+        them, take the Adam step at ``lr_at(step)`` and count it."""
+        reduce_gradients(self.model.parameters())
         grads = [p.grad for p in self.model.parameters()]
         self.grad_norm = clip_by_global_norm(grads, self.cfg.grad_clip)
         for group in self.optimizer.param_groups:
@@ -156,15 +182,19 @@ class VAETrainer:
         self.optimizer.step()
         self.step += 1
 
-    def train_step(self, batch: Dict, noise) -> Dict[str, torch.Tensor]:
+    def train_step(self, batch: Dict, noise,
+                   rows: Optional[Tuple[int, int]] = None
+                   ) -> Dict[str, torch.Tensor]:
         """One update; the losses as 0-d tensors on the device."""
-        losses = self.compute_gradients(batch, noise)
+        losses = self.compute_gradients(batch, noise, rows)
         self.apply_gradients()
         return losses
 
     @torch.no_grad()
-    def eval_step(self, batch: Dict, noise) -> Dict[str, torch.Tensor]:
-        return self.losses(batch, noise)
+    def eval_step(self, batch: Dict, noise,
+                  rows: Optional[Tuple[int, int]] = None
+                  ) -> Dict[str, torch.Tensor]:
+        return mean_over_ranks(self.losses(batch, noise, rows))
 
     @torch.no_grad()
     def generate(self, photos: torch.Tensor, num_steps: int = 101,

@@ -8,7 +8,7 @@ inference dict's shape (`visualization.py:262-273`). matplotlib and PIL
 are imported inside the functions: a host without them can still run the
 evaluation and write its JSON. :func:`triplet_grid`, pix2pix's sample
 sheet, draws with PIL alone, so it is written where matplotlib is
-missing. The comparison sheets come with the CLI that draws them.
+missing. :func:`compared_topk_bars` draws ``cli/compare.py``'s chart.
 """
 
 from __future__ import annotations
@@ -82,6 +82,27 @@ def topk_bars(topk_acc: Sequence[float], out: Path, label: str = "") -> Path:
     for k, v in zip(ks, topk_acc):
         ax.text(k, v * 100.0, f"{v * 100:.1f}", ha="center", va="bottom",
                 fontsize=8)
+    fig.tight_layout()
+    fig.savefig(out)
+    plt.close(fig)
+    return Path(out)
+
+
+def compared_topk_bars(results: Dict[str, Sequence[float]], out: Path
+                       ) -> Path:
+    """Grouped top-k accuracy bars, one group per k and one bar per run
+    (reference `visualization.py:157-194`, JAX ``compared_topk_bars``)."""
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(8, 5))
+    names = list(results)
+    k = len(next(iter(results.values())))
+    width = 0.8 / len(names)
+    for i, name in enumerate(names):
+        xs = np.arange(1, k + 1) + (i - len(names) / 2) * width
+        ax.bar(xs, np.asarray(results[name]) * 100.0, width=width, label=name)
+    ax.set_xlabel("k")
+    ax.set_ylabel("top-k accuracy [%]")
+    ax.legend(fontsize=7)
     fig.tight_layout()
     fig.savefig(out)
     plt.close(fig)

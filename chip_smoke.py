@@ -181,7 +181,21 @@ Phases, each printing one JSON line:
                   ``TripletLoader`` as the CLI feeds them: the host's wait
                   on the loader. The training path launches no kernel of
                   the port.
-16. drawings   -- the informative-drawings generator at full width (256
+16. train_dp   -- data-parallel training, two ranks on the one card over
+                  gloo (scripts/probe_dp_cards.py), held against one
+                  process: the flagship's triplet step (B = 32, 16 a
+                  rank, float32, TF32 off, augmentation on, two Adam
+                  steps: losses and the first step's gradient within
+                  twice the one process's distance from a float64 step
+                  plus rtol 1e-5 and 1e-4; augmented rows, running
+                  statistics and reduced gradients equal on both ranks),
+                  the pix2pix U-Net with dropout (batch 6) and the
+                  full-width VAE (batch 64) at rel 1e-5; the bf16 step at
+                  one process (B = 32) and two ranks with the all-reduces
+                  a step; cli/train.py on two ranks against one (float32
+                  at lr 0, a tenth of the train corpus at 128 px): losses
+                  at rtol 2e-3, topk_acc equal, MRR at rtol 1e-6.
+17. drawings   -- the informative-drawings generator at full width (256
                   px, batch 16) from seed-0 weights written as a
                   reference .pth and loaded by cli/drawings.py's loader:
                   float32 (TF32 off) on the card against float64 on the
@@ -196,17 +210,17 @@ Phases, each printing one JSON line:
                   level of the in-process forward, KaggleCatalogV1
                   finding a contour drawing for every photo; then
                   --corpus sketchy over a small Sketchy corpus.
-17. artwork_gen -- AdaIN at 256 px from seed-0 weights written as
+18. artwork_gen -- AdaIN at 256 px from seed-0 weights written as
                   vgg_normalised.pth and decoder.pth: float32 on the card
                   against float64 (the CPU's beside it, as above) at
                   alpha 1.0 and 0.5, a batch of 8 timed, then
                   cli/artwork_gen.py's main over 64 content and 16 style
                   JPEGs: the style pairing of random.Random(seed), one
                   256 px JPEG a content image, images/s.
-18. dilate     -- cli/transformations.py -m dilate on the card over PNGs
+19. dilate     -- cli/transformations.py -m dilate on the card over PNGs
                   of six sizes (9 x 13 to 1024 x 767): each output equal
                   bit for bit to dilate_binarize on the CPU.
-19. pix2pix    -- pix2pix at full width (256 px, ngf = ndf = 64, the basic
+20. pix2pix    -- pix2pix at full width (256 px, ngf = ndf = 64, the basic
                   PatchGAN, batch norm, vanilla): the float32 G+D step
                   (resnet_9blocks, dropout off, batch 2) on the card and
                   on the CPU against float64 on the card (losses and
@@ -222,7 +236,7 @@ Phases, each printing one JSON line:
                   (the JSONs, the warm-up's zero G losses, the sample
                   sheet; the U-Net's --continue_train bit for bit the
                   uninterrupted run under deterministic cuDNN).
-20. photo2sketch -- the Photo2Sketch VAE at full width (VGG16 at 256 px,
+21. photo2sketch -- the Photo2Sketch VAE at full width (VGG16 at 256 px,
                   z_size 128, dec_rnn_size 512, 20 mixtures, 100 stroke
                   rows: 101 decoder steps; seed-0 weights, the encoder's
                   convs He-initialized): the float32 step (batch 2, eps
@@ -258,7 +272,8 @@ rows (``inference`` ranks its small gallery on the exact route), K2's
 from ``serve_quant``, K1's bf16 form's and P1's from the probe, the
 sharded K1's from ``serve_sharded`` and ``sharded``'s ``run_inference``
 over the mesh, the sharded K2's from ``serve_quant_sharded``; the IVF
-serve runs, the generator phases, pix2pix and photo2sketch launch none. Any
+serve runs, train_dp, the generator phases, pix2pix and photo2sketch
+launch none. Any
 failed check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
@@ -3609,6 +3624,68 @@ def phase_train(state) -> None:
           "loader": loader, "phase_s": time.perf_counter() - t_phase})
 
 
+# ------------------------------------------------------ data parallel
+
+DP_WORLD = 2  # ranks on the one card, over gloo
+DP_TIMED = (2, 5)  # warm-up and timed bf16 steps of the two ranks
+DP_CLI_DSIZE = 0.1  # a tenth of TRAIN_CORPUS: 129 triplets, 5 steps of 32
+
+
+def phase_train_dp(state) -> None:
+    """Data-parallel training: two ranks on the one card over gloo (NCCL
+    refuses two ranks on one card), held against one process by
+    ``scripts/probe_dp_cards.py``'s rules: the flagship's triplet step
+    (global batch 32, float32 with TF32 off, augmentation on, two Adam
+    steps; losses and the first step's flat gradient no farther from a
+    float64 step than twice the one process's float32 distance plus
+    rtol 1e-5 and 1e-4, statistics and gradients equal on both ranks),
+    the pix2pix U-Net with dropout (batch 6) and the full-width VAE
+    (batch 64); the bf16 step at one process (B = 32) and two ranks (16
+    each) with its all-reduces; ``cli/train.py`` on two ranks against
+    one (JAX's CLI rule, float32 at lr 0, 128 px: ``cli_check``)."""
+    import torch
+
+    from art_sbir_tpu_torch.data.synthetic import make_synthetic_sketchy
+    from art_sbir_tpu_torch.parallel import multihost
+    from art_sbir_tpu_torch.scripts import probe_dp_cards as P
+
+    check(state["pil"], "PIL is installed: the phase writes its corpus")
+    t_phase = time.perf_counter()
+    tmp = Path(state["tmp"]) / "train_dp"
+    tmp.mkdir()
+    devices = ["cuda:0"] * DP_WORLD
+    inputs = P.make_inputs(np.random.default_rng(41), P.FULL, b=TRAIN_B,
+                           pix_b=PIX_B, vae_b=P2S_B)
+    inputs["u8_timing"] = inputs["u8"]
+    t0 = time.perf_counter()
+    one_bf16 = P.reference(inputs, P.FULL, "cuda:0", tmp / "ref.pt")
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(P.rank_checks, devices, inputs, P.FULL,
+                            str(tmp / "ref.pt"), DP_TIMED)
+    ranks_s = time.perf_counter() - t0
+    bad = P.failures(ranks)
+
+    t0 = time.perf_counter()
+    root = make_synthetic_sketchy(tmp / "sketchy", **TRAIN_CORPUS)
+    write_s = time.perf_counter() - t0
+    cli = P.cli_check(tmp, root, devices, P.FULL, DP_CLI_DSIZE, TRAIN_B)
+    bad += ["cli/train.py: " + f for f in cli["failures"]]
+    torch.cuda.empty_cache()
+    # the readings first, then the verdict: they say where a rule broke
+    emit({"phase": "train_dp", "ok": not bad, "failures": bad,
+          "backend": ranks["backend"],
+          "ranks": devices, "card": state["card"],
+          **{k: ranks[k] for k in ("triplet", "pix2pix", "vae")},
+          "bf16_step": {"one_process_b32": one_bf16,
+                        "rank0_of_two_b16": ranks["bf16"]},
+          "cli": cli, "one_process_s": one_s, "ranks_s": ranks_s,
+          "corpus_write_s": write_s,
+          "phase_s": time.perf_counter() - t_phase})
+    check(not bad, "train_dp: " + "; ".join(bad))
+
+
 # ------------------------------------------------------------- generators
 
 GEN_SIZE = 256  # the generators' published resolution
@@ -4368,21 +4445,6 @@ P2S_CORPUS = dict(n_classes=20, photos_per_class=8, sketches_per_photo=2,
 P2S_QUICKDRAW = dict(n_train=48, n_valid=8)  # a category: 288 / 48 sketches
 
 
-def _p2s_sketches(rng, b: int) -> np.ndarray:
-    """(b, 100, 5) padded stroke-5 sketches: N(0, 1) deltas (the catalogs
-    normalize by the deltas' std), a pen lift about one row in seven, an
-    end token after 20 to 99 rows, end rows after it."""
-    out = np.zeros((b, 100, 5), np.float32)
-    for i in range(b):
-        n = int(rng.integers(20, 100))
-        out[i, :n, :2] = rng.standard_normal((n, 2))
-        up = rng.random(n) < 0.15
-        out[i, :n, 3] = up
-        out[i, :n, 2] = ~up
-        out[i, n - 1:, 2:] = [0, 0, 1]
-    return out
-
-
 def _p2s_trainer(cfg, dev):
     """A seed-0 trainer with the encoder's convs He-initialized
     (``_he_init``, seed 0): through VGG's 13 convs torch's default init
@@ -4407,6 +4469,7 @@ def _p2s_vs_float64(rng) -> dict:
     import torch
 
     from art_sbir_tpu_torch.core.device import ieee_f32
+    from art_sbir_tpu_torch.scripts.probe_dp_cards import sketches
     from art_sbir_tpu_torch.train.vae import VAEConfig
 
     ieee_f32()
@@ -4414,7 +4477,7 @@ def _p2s_vs_float64(rng) -> dict:
     b = P2S_CHECK_B
     batch = {"photo": torch.from_numpy(rng.standard_normal(
                  (b, 3, GEN_SIZE, GEN_SIZE)).astype(np.float32)),
-             "sketch_vector": torch.from_numpy(_p2s_sketches(rng, b))}
+             "sketch_vector": torch.from_numpy(sketches(rng, b))}
     eps = torch.from_numpy(rng.standard_normal((b, cfg.z_size))
                            .astype(np.float32))
     runs, trainers = {}, {}
@@ -4502,13 +4565,14 @@ def _p2s_timed(rng) -> dict:
     import torch
 
     from art_sbir_tpu_torch.core.device import ieee_f32
+    from art_sbir_tpu_torch.scripts.probe_dp_cards import sketches
     from art_sbir_tpu_torch.train.vae import VAEConfig
 
     ieee_f32()
     batch = {"photo": torch.from_numpy(rng.standard_normal(
                  (P2S_B, 3, GEN_SIZE, GEN_SIZE)).astype(np.float32)).cuda(),
              "sketch_vector": torch.from_numpy(
-                 _p2s_sketches(rng, P2S_B)).cuda()}
+                 sketches(rng, P2S_B)).cuda()}
     eps = torch.from_numpy(rng.standard_normal((P2S_B, 128))
                            .astype(np.float32)).cuda()
     trainers, first = {}, {}
@@ -4804,8 +4868,8 @@ def phase_photo2sketch(state) -> None:
 
 PHASES = ("build", "kernels", "kernels_k2", "kernels_int8_wide", "probe_k1",
           "encoder", "serve", "serve_quant", "ivf", "serve_ivf", "online_ivf",
-          "inference", "inference_k1", "sharded", "train", "drawings",
-          "artwork_gen", "dilate", "pix2pix", "photo2sketch")
+          "inference", "inference_k1", "sharded", "train", "train_dp",
+          "drawings", "artwork_gen", "dilate", "pix2pix", "photo2sketch")
 
 
 def main(argv=None) -> int:
@@ -4813,9 +4877,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--phases", default=None,
         help="comma-separated phases to run (build is always first; "
-             "sharded needs inference and inference_k1; train, drawings, "
-             "artwork_gen, dilate, pix2pix and photo2sketch need no other "
-             "phase); a "
+             "sharded needs inference and inference_k1; train, train_dp, "
+             "drawings, artwork_gen, dilate, pix2pix and photo2sketch need "
+             "no other phase); a "
              "partial run "
              "prints no kernels line and no result line")
     args = parser.parse_args(argv)

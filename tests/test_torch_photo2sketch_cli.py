@@ -194,8 +194,7 @@ def test_model_flag_restores_the_saved_parameters(cli_runs, tmp_path):
         port_cli.load_weights(trainer, str(tmp_path / "orbax"))
 
 
-@pytest.mark.parametrize("flags", [["--n_devices", "2"],
-                                   ["--tp_devices", "2"]])
+@pytest.mark.parametrize("flags", [["--tp_devices", "2"]])
 def test_mesh_flags_exit(flags):
     with pytest.raises(SystemExit, match="queue 1 item 7"):
         port_cli.main(flags + ["--device", "cpu"])

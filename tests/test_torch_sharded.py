@@ -84,10 +84,8 @@ def test_mesh_helpers_match_jax():
                        else None)
     assert port_mesh.mesh_from_args(1, device="cpu") is None
     assert port_mesh.mesh_from_args(3, device="cpu").size == 3
-    with pytest.raises(SystemExit, match="queue 1 item 8"):
+    with pytest.raises(SystemExit, match="queue 1 item 7"):
         port_mesh.mesh_from_args(2, tp_devices=2, device="cpu")
-    with pytest.raises(SystemExit, match="queue 1 item 8"):
-        port_mesh.mesh_from_args(2, multihost=True, device="cpu")
 
 
 def test_shard_rows_and_split_batch():
