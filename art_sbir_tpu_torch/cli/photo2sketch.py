@@ -32,9 +32,17 @@ results of one device: one rank a device (``parallel/multihost.py``;
 building its rows of every batch (a ragged batch whole), the noise drawn
 for the global batch, the gradients averaged before the clip, the losses
 the global batch's; rank 0 writes the results, the model and the
-samples. ``--tp_devices`` above 1 exits (tensor parallelism, ROADMAP.md
-queue 1 item 7). ``main`` returns the results folder and the wall time
-split into catalog parse, batch build, steps and samples (rank 0's).
+samples. ``--tp_devices M`` (M > 1) runs a ``(data, model)`` grid of
+``--n_devices`` (-1: every card divided by M) times M ranks
+(``parallel/tensor.py``): every rank builds the VAE whole from the seed
+(and ``--model``), then keeps its channel slices of VGG's convs, the
+attention's and the heads' linears and the LSTM's gate matrices (and so
+of Adam's moments); rows and noise go by the data index, and the clip
+sums the sharded gradients' squares over the model group. The model is
+saved in one device's layout (gathered), and rank 0 draws the samples
+with the gathered one-device VAE. ``main`` returns the results folder
+and the wall time split into catalog parse, batch build, steps and
+samples (rank 0's).
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from art_sbir_tpu_torch.ops.resize import (IMAGENET_MEAN, IMAGENET_STD,
 from art_sbir_tpu_torch.ops.svg import build_svg
 from art_sbir_tpu_torch.parallel import multihost
 from art_sbir_tpu_torch.parallel.mesh import Mesh, batch_rows, mesh_from_args
+from art_sbir_tpu_torch.parallel.tensor import gather_state, model_shard
 from art_sbir_tpu_torch.train.vae import LOSS_KEYS, VAEConfig, VAETrainer
 from art_sbir_tpu_torch.viz.plots import loss_curves, triplet_grid
 
@@ -106,8 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel ranks (0 or 1 = one device, -1 = "
                         "every card)")
     p.add_argument("--tp_devices", type=int, default=1,
-                   help="1 only: tensor parallelism is still to port "
-                        "(ROADMAP.md queue 1 item 7)")
+                   help="tensor-parallel ranks a data index (parameters "
+                        "and Adam moments channel-sharded over them); "
+                        "combines with --n_devices")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs on the CPU")
     return p
@@ -194,12 +204,14 @@ def main(argv=None, mesh: Optional[Mesh] = None) -> Dict:
     "wall_s", "catalog_s", "batch_s", "step_s", "samples_s"}`` (seconds
     from the catalog parse on; ``step_s`` holds the eval batches' losses
     too, and waits for the card once a pass over a catalog). ``mesh``:
-    the data-parallel ranks' devices, in place of ``--n_devices``."""
+    the ranks' devices (a 2-D mesh for tensor parallelism), in place of
+    ``--n_devices`` and ``--tp_devices``."""
     args = build_parser().parse_args(argv)
     if mesh is None:
         mesh = mesh_from_args(args.n_devices, args.tp_devices, args.device)
     if mesh is not None and mesh.size > 1:
-        return multihost.spawn(run, mesh.devices, args)
+        return multihost.spawn(run, mesh.devices, args,
+                               n_model=mesh.n_model)
     return run(resolve_device(args.device if mesh is None
                               else mesh.devices[0]), args)
 
@@ -207,9 +219,9 @@ def main(argv=None, mesh: Optional[Mesh] = None) -> Dict:
 def run(device: torch.device, args: argparse.Namespace) -> Optional[Dict]:
     """:func:`main` on ``device``, as one rank of the group where this
     process is in one (None on a rank other than 0)."""
-    rank, world = multihost.rank(), multihost.world_size()
-    lead = rank == 0
-    shard = (rank, world) if world > 1 else None
+    lead = multihost.rank() == 0
+    d_rank, n_data = multihost.data_rank(), multihost.data_size()
+    shard = (d_rank, n_data) if n_data > 1 else None
     ieee_f32()
     cfg = VAEConfig(
         z_size=args.z_size, dec_rnn_size=args.dec_rnn_size,
@@ -223,6 +235,8 @@ def run(device: torch.device, args: argparse.Namespace) -> Optional[Dict]:
     if args.model:
         load_weights(trainer, args.model)
     multihost.broadcast_state(trainer.model)
+    tp = model_shard()
+    trainer.tensor_parallel(tp)
 
     t0 = time.perf_counter()
     dataset = "VectorizedSketchyV1" if args.setup == "Sketchy" else "QuickdrawV1"
@@ -278,9 +292,16 @@ def run(device: torch.device, args: argparse.Namespace) -> Optional[Dict]:
                       f"** total:{tracker.series['total_loss'][-1]}",
                       flush=True)
 
-        if lead and ((epoch + 1) % args.save_rate == 0
-                     or epoch + 1 == args.max_epoch):
-            t = time.perf_counter()
+        if not ((epoch + 1) % args.save_rate == 0
+                or epoch + 1 == args.max_epoch):
+            continue
+        t = time.perf_counter()
+        state = gather_state(trainer.model)  # every rank under TP
+        if lead:
+            one = trainer
+            if tp is not None:  # the samples from one device's VAE
+                one = VAETrainer(cfg, args.seed, device)
+                one.model.load_state_dict(state)
             writer = ResultsWriter("Photo2Sketch",
                                    train_cat.state_dict["dataset"])
             folder = writer.path
@@ -291,8 +312,7 @@ def run(device: torch.device, args: argparse.Namespace) -> Optional[Dict]:
             writer.write_all(train_cat.state_dict, training_dict, params, {})
             model_path = checkpoint_path("models", writer.run_name)
             model_path.parent.mkdir(parents=True, exist_ok=True)
-            torch.save({k: v.cpu() for k, v in
-                        trainer.model.state_dict().items()}, model_path)
+            torch.save({k: v.cpu() for k, v in state.items()}, model_path)
             if importlib.util.find_spec("matplotlib") is not None:
                 for k in LOSS_KEYS:
                     loss_curves(train_tracker.series[k],
@@ -300,7 +320,7 @@ def run(device: torch.device, args: argparse.Namespace) -> Optional[Dict]:
                                 folder / f"loss_{k}.png", title=k)
             for batch in batches(test_cat, False, rng, args.batchsize,
                                  args.image_size, device):
-                write_samples(trainer, batch, folder, epoch + 1)
+                write_samples(one, batch, folder, epoch + 1)
                 break
             split["samples_s"] += time.perf_counter() - t
 

@@ -41,8 +41,18 @@ Float32 runs IEEE on the card (no TF32).
   batch whole), both nets' BatchNorm over the global batch, G's dropout
   masks drawn for the global batch, both gradient sets averaged. Every
   rank resumes from the same checkpoint; rank 0 writes the checkpoints,
-  the results, the sample sheet and ``models/<run>.pt``. ``--tp_devices``
-  above 1 exits (tensor parallelism, ROADMAP.md queue 1 item 7).
+  the results, the sample sheet and ``models/<run>.pt``.
+* ``--tp_devices M`` (M > 1; train and generate mode) runs a ``(data,
+  model)`` grid of ``--n_devices`` (-1: every card divided by M) times M
+  ranks (``parallel/tensor.py``): every rank builds both nets whole from
+  the seed (and ``--model``), then keeps its channel slices of the
+  parameters, BatchNorm statistics and Adam states; each conv computes
+  its slice of the output channels and the slices are gathered. Rows and
+  dropout masks go by the data index. Checkpoints and ``models/<run>.pt``
+  are in one device's layout (gathered; a resume cuts them to the
+  slices); rank 0 draws the sample sheet with the gathered one-device
+  nets. Generate mode runs on one data index (every rank computes each
+  batch column-parallel; rank 0 writes the PNGs).
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from art_sbir_tpu_torch.models.port_weights import (load_into,
                                                     load_pix2pix_reference)
 from art_sbir_tpu_torch.parallel import multihost
 from art_sbir_tpu_torch.parallel.mesh import Mesh, batch_rows, mesh_from_args
+from art_sbir_tpu_torch.parallel.tensor import model_shard
 from art_sbir_tpu_torch.train.gan import LOSS_KEYS, Pix2Pix, Pix2PixConfig
 from art_sbir_tpu_torch.viz.plots import triplet_grid, visualize
 
@@ -126,8 +137,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel ranks in train mode (0 or 1 = one "
                         "device, -1 = every card)")
     p.add_argument("--tp_devices", type=int, default=1,
-                   help="1 only: tensor parallelism is still to port "
-                        "(ROADMAP.md queue 1 item 7)")
+                   help="tensor-parallel ranks a data index (both nets' "
+                        "parameters, Adam states and BatchNorm statistics "
+                        "channel-sharded over them); combines with "
+                        "--n_devices")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs on the CPU")
     return p
@@ -204,7 +217,11 @@ def generate(model: Pix2Pix, catalogs, args, device: torch.device
             chunks += [paths[s: s + args.batch_size]
                        for s in range(0, len(paths), args.batch_size)]
 
+    lead = multihost.rank() == 0
+
     def write(imgs: np.ndarray, chunk) -> None:
+        if not lead:  # every rank computes the batch; rank 0 writes it
+            return
         for img, path in zip(imgs, chunk):
             Image.fromarray(img, mode="L").save(out_dir / f"{path.stem}.png")
 
@@ -226,8 +243,8 @@ def train(model: Pix2Pix, train_cat, test_cat, args, cfg: Pix2PixConfig,
           device: torch.device) -> Path:
     """The epochs, the results folder, the sample sheet and the export;
     returns the results folder (None on a rank other than 0)."""
-    rank, world = multihost.rank(), multihost.world_size()
-    lead = rank == 0
+    lead = multihost.rank() == 0
+    d_rank, n_data = multihost.data_rank(), multihost.data_size()
     rng = np.random.default_rng(args.seed)
     tracker = LossTracker(list(LOSS_KEYS))
     timer = Timer()
@@ -247,7 +264,7 @@ def train(model: Pix2Pix, train_cat, test_cat, args, cfg: Pix2PixConfig,
             multihost.broadcast_state(model.net_g, model.net_d, model.opt_g,
                                       model.opt_d)
 
-    shard = (rank, world) if world > 1 else None
+    shard = (d_rank, n_data) if n_data > 1 else None
     for epoch in range(start_epoch, args.epochs):
         tracker.reset_sums()
         n = 0
@@ -265,10 +282,16 @@ def train(model: Pix2Pix, train_cat, test_cat, args, cfg: Pix2PixConfig,
             print(f"Epoch {epoch + 1}: " + ", ".join(
                 f"{k}={tracker.series[k][-1]:.4f}" for k in LOSS_KEYS),
                 flush=True)
-        if (lead and mgr is not None
-                and (epoch + 1) % args.checkpoint_every == 0):
-            mgr.save(epoch + 1, {**model.state_dict(),
-                                 "numpy_rng": rng.bit_generator.state})
+        if mgr is not None and (epoch + 1) % args.checkpoint_every == 0:
+            state = model.state_dict()  # gathered under TP: every rank
+            if lead:
+                mgr.save(epoch + 1, {**state,
+                                     "numpy_rng": rng.bit_generator.state})
+    if model.tp is not None:  # the export and samples: one device's nets
+        state = model.state_dict()  # every rank gathers its slices
+        if lead:
+            model = Pix2Pix(cfg, args.seed, device)
+            model.load_state_dict(state)
     if not lead:
         return None
 
@@ -306,16 +329,18 @@ def train(model: Pix2Pix, train_cat, test_cat, args, cfg: Pix2PixConfig,
 def main(argv=None, mesh: Optional[Mesh] = None):
     """Generate mode returns the count, the wall time and its split
     (seconds); train mode returns the results folder. ``mesh``: the
-    data-parallel ranks' devices, in place of ``--n_devices``."""
+    ranks' devices (a 2-D mesh for tensor parallelism), in place of
+    ``--n_devices`` and ``--tp_devices``."""
     args = build_parser().parse_args(argv)
     if mesh is None:
         mesh = mesh_from_args(args.n_devices, args.tp_devices, args.device)
     if mesh is not None and mesh.size > 1:
-        if args.mode != "train":
+        if args.mode != "train" and mesh.n_data > 1:
             raise SystemExit(f"--n_devices {args.n_devices}: data "
                              "parallelism is for --mode train; generate "
-                             "runs on one device")
-        return multihost.spawn(run, mesh.devices, args)
+                             "runs on one data index")
+        return multihost.spawn(run, mesh.devices, args,
+                               n_model=mesh.n_model)
     return run(resolve_device(args.device if mesh is None
                               else mesh.devices[0]), args)
 
@@ -333,6 +358,7 @@ def run(device: torch.device, args: argparse.Namespace):
     if args.model:
         load_weights(model, args.model)
     multihost.broadcast_state(model.net_g, model.net_d)
+    model.tensor_parallel(model_shard())
     img_type = args.img_type or ("images" if "Kaggle" in args.dataset
                                  else "photos")
     train_cat, test_cat = get_datasets(

@@ -30,8 +30,27 @@ Data parallel (``parallel/multihost.py``), with the results of one device:
   ``--inference`` (over a gallery mesh of the ranks' distinct cards) and
   writes the results and ``models/<run>.pt``; the others leave.
 
-Tensor parallelism (``--tp_devices`` above 1) is still to port: asking
-for it exits.
+Tensor parallel (``parallel/tensor.py``), with the results of one device:
+
+* ``--tp_devices M`` (M > 1) starts a ``(data, model)`` grid of
+  ``--n_devices`` (-1: every card divided by M) times M ranks, rank ``d *
+  M + m`` on card ``d * M + m`` (on the CPU under ``--device cpu``); it
+  exits with fewer cards, and with ``--multihost`` (JAX's rule: single
+  host). ``main(argv, mesh=...)`` takes ``tensor.mesh_2d``'s mesh, which
+  may repeat a device.
+* Every rank builds the whole encoder from the seed (and ``--model``),
+  then keeps its channel slices of the parameters, BatchNorm statistics
+  and (so) Adam's moments; each conv and linear computes its slice of
+  the output channels and the slices are gathered. Rows, augmentation
+  and BatchNorm's statistics go by the data index; the ranks of a model
+  group hold the same rows.
+* Checkpoints (``--checkpoint_dir``, ``--resume``) and ``models/<run>.pt``
+  are in one device's layout, gathered from the slices; a resume cuts
+  them to the rank's slices, so a run resumes across layouts. Rank 0 runs
+  ``--eval_every_epoch``, ``--bn_recalibrate`` and ``--inference`` on the
+  gathered one-device encoder, over a gallery mesh of the data axis's
+  cards. ``training_params.json`` records ``n_devices`` (every rank) and
+  ``tp_devices``.
 """
 
 from __future__ import annotations
@@ -56,6 +75,8 @@ from art_sbir_tpu_torch.data.loader import TripletLoader
 from art_sbir_tpu_torch.models.resnet import create_encoder
 from art_sbir_tpu_torch.parallel import multihost
 from art_sbir_tpu_torch.parallel.mesh import Mesh, MeshSpec, mesh_from_args
+from art_sbir_tpu_torch.parallel.tensor import (gather_state, model_shard,
+                                                tensor_parallel)
 from art_sbir_tpu_torch.retrieval.engine import run_inference
 from art_sbir_tpu_torch.train.bn import recalibrate_from_catalog, with_stats
 from art_sbir_tpu_torch.train.losses import TripletLossConfig
@@ -149,8 +170,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "card): one process a device, BatchNorm over the "
                         "global batch, gradients averaged")
     p.add_argument("--tp_devices", type=int, default=1,
-                   help="1 only: tensor parallelism is still to port "
-                        "(ROADMAP.md queue 1 item 7)")
+                   help="tensor-parallel ranks a data index (parameters, "
+                        "Adam moments and BatchNorm statistics "
+                        "channel-sharded over them); combines with "
+                        "--n_devices; single host")
     p.add_argument("--multihost", action="store_true",
                    help="join the group torchrun's environment describes "
                         "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
@@ -176,11 +199,13 @@ def load_warm_start(model: torch.nn.Module, path: str) -> None:
 
 
 def main(argv=None, mesh: Optional[Mesh] = None) -> Path:
-    """Train; returns the results folder. ``mesh``: the data-parallel
-    ranks' devices, in place of ``--n_devices``."""
+    """Train; returns the results folder. ``mesh``: the ranks' devices (a
+    2-D mesh for tensor parallelism), in place of ``--n_devices`` and
+    ``--tp_devices``."""
     args = build_parser().parse_args(argv)
-    if mesh is None:  # exits for --tp_devices, or with fewer cards
-        mesh = mesh_from_args(args.n_devices, args.tp_devices, args.device)
+    if mesh is None:  # exits with fewer cards, or for TP with --multihost
+        mesh = mesh_from_args(args.n_devices, args.tp_devices, args.device,
+                              args.multihost)
     if args.multihost:
         if mesh is not None:
             raise SystemExit("--multihost runs one rank a process; drop "
@@ -195,8 +220,9 @@ def main(argv=None, mesh: Optional[Mesh] = None) -> Path:
             finally:
                 multihost.leave()
     if mesh is not None and mesh.size > 1:
+        args.tp_devices = mesh.n_model
         return multihost.spawn(train, mesh.devices, args,
-                               mesh.distinct_devices())
+                               mesh.data_devices(), n_model=mesh.n_model)
     return train(resolve_device(args.device if mesh is None
                                 else mesh.devices[0]), args)
 
@@ -212,9 +238,11 @@ def train(device: torch.device, args: argparse.Namespace,
           devices: Sequence[torch.device] = ()) -> Optional[Path]:
     """The run on ``device``, as one rank of the group where this process
     is in one; returns the results folder on rank 0 (None elsewhere).
-    ``devices``: the group's distinct devices on this host, which rank
+    ``devices``: the data axis's distinct devices on this host, which rank
     0's evaluation shards the gallery over."""
     rank, world = multihost.rank(), multihost.world_size()
+    d_rank, n_data = multihost.data_rank(), multihost.data_size()
+    shard = model_shard()
     lead = rank == 0
     say = print if lead else (lambda *a, **k: None)
     if not args.bf16:
@@ -230,12 +258,16 @@ def train(device: torch.device, args: argparse.Namespace,
     num_classes2 = args.num_classes2
     if with_classification and "Kaggle" in args.dataset and num_classes2 == 0:
         num_classes2 = 32  # styles+genres heads (reference utils.py:180)
-    model = create_encoder(
-        with_classification=with_classification,
-        num_classes=args.num_classes, num_classes2=num_classes2,
-        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        device=device, seed=args.seed, input_resolution=args.image_size,
-        width=args.width, layers=tuple(args.layers))
+
+    def build():
+        return create_encoder(
+            with_classification=with_classification,
+            num_classes=args.num_classes, num_classes2=num_classes2,
+            compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+            device=device, seed=args.seed, input_resolution=args.image_size,
+            width=args.width, layers=tuple(args.layers))
+
+    model = build()
     model_name = type(model).__name__
 
     train_cat, test_cat = get_datasets(
@@ -254,7 +286,20 @@ def train(device: torch.device, args: argparse.Namespace,
         load_warm_start(model, args.model)
         say(f"Model {args.model} loaded", flush=True)
     multihost.broadcast_state(model)
+    tensor_parallel(model, shard)
     state = create_train_state(model, args.learning_rate, args.weight_decay)
+
+    def one_device(m):
+        """``m`` in one device's layout on rank 0 (every rank of a model
+        group gathers its slices; None elsewhere), eval mode."""
+        if shard is None:
+            return m.eval()
+        sd = gather_state(m)
+        if not lead:
+            return None
+        full = build()
+        full.load_state_dict(sd)
+        return full
 
     augment_version = getattr(train_cat, "augment_sketches", 0)
     flip = augment_version > 0
@@ -264,7 +309,8 @@ def train(device: torch.device, args: argparse.Namespace,
     def device_batches(catalog, train: bool):
         loader = TripletLoader(catalog, args.batch_size, args.image_size,
                                resize_mode=resize_mode,
-                               shard=(rank, world) if world > 1 else None)
+                               shard=(d_rank, n_data) if n_data > 1
+                               else None)
 
         def gen():
             for batch in loader:
@@ -275,7 +321,7 @@ def train(device: torch.device, args: argparse.Namespace,
                     batch, aug_gen,
                     augment_version=augment_version if train else 0,
                     flip=flip if train else False, train=train,
-                    rows=(rank * b, world * b) if world > 1 else None)
+                    rows=(d_rank * b, n_data * b) if n_data > 1 else None)
 
         return gen
 
@@ -326,10 +372,10 @@ def train(device: torch.device, args: argparse.Namespace,
         if args.eval_every_epoch:
             def epoch_hook(epoch: int, st) -> dict:
                 out = {}
+                net = one_device(st.model)
                 if lead:
-                    st.model.eval()
                     d = run_inference(
-                        embed(st.model), test_cat, None, args.loss_type,
+                        embed(net), test_cat, None, args.loss_type,
                         image_size=args.image_size, resize_mode=resize_mode,
                         model_name=model_name, save_features=False,
                         device=device, mesh=gallery_mesh)
@@ -343,7 +389,7 @@ def train(device: torch.device, args: argparse.Namespace,
 
         trainer = TripletTrainer(
             loss_cfg, args.batch_size, args.epochs,
-            checkpoint_manager=mgr if lead else None,
+            checkpoint_manager=mgr,
             checkpoint_every_epochs=args.checkpoint_every,
             epoch_hook=epoch_hook)
         with maybe_profile(args.trace_dir if lead else None):
@@ -351,9 +397,9 @@ def train(device: torch.device, args: argparse.Namespace,
                 state, device_batches(train_cat, True),
                 device_batches(test_cat, False), start_epoch=start_epoch,
                 log=lambda line: say(line, flush=True))
+    model = one_device(model)
     if not lead:
         return None  # rank 0 alone evaluates and writes
-    model.eval()
 
     bn_sketch_stats = None
     if args.bn_recalibrate != "off":

@@ -39,6 +39,14 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+class Conv2d(nn.Conv2d):
+    """A conv whose float32 weight and bias are cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class InstanceNorm(nn.Module):
     """:func:`instance_norm` as a parameter-free module: it holds no
     state-dict entry, as torch's ``InstanceNorm2d(affine=False)`` holds

@@ -110,13 +110,22 @@ class DecoderRNN2D(nn.Module):
     def _init_state(self, z: torch.Tensor):
         return torch.tanh(self.fc_hc(z)).chunk(2, dim=-1)
 
+    def _gates(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """The (B, 4H) gate pre-activations ``x W_ih^T + b_ih + h W_hh^T +
+        b_hh``; under tensor parallelism each rank computes its rows of
+        the gate matrices' and the slices are gathered."""
+        lstm = self.lstm
+        tp = getattr(lstm, "tp", None)
+        if tp is not None:
+            x, h = tp.copy(x), tp.copy(h)
+        gates = (F.linear(x, lstm.weight_ih_l0, lstm.bias_ih_l0)
+                 + F.linear(h, lstm.weight_hh_l0, lstm.bias_hh_l0))
+        return gates if tp is None else tp.gather(gates, -1)
+
     def _step(self, h, c, stroke, x_em, tokens):
         att, alpha = self.attention_cell.attend(x_em, tokens, h)
         x = torch.cat([att, stroke], dim=-1)
-        lstm = self.lstm
-        gates = (F.linear(x, lstm.weight_ih_l0, lstm.bias_ih_l0)
-                 + F.linear(h, lstm.weight_hh_l0, lstm.bias_hh_l0))
-        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, g, o = self._gates(x, h).chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         return h, c, alpha

@@ -37,30 +37,39 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from art_sbir_tpu_torch.models.layers import InstanceNorm
+from art_sbir_tpu_torch.models.layers import Conv2d, InstanceNorm
 from art_sbir_tpu_torch.models.resnet import BatchNorm2d
+from art_sbir_tpu_torch.parallel.tensor import whole
 
 INIT_STD = 0.02  # reference init_weights 'normal' (pix2pix_model.py:388-420)
 
 
-class Conv2d(nn.Conv2d):
-    """A conv whose float32 weight and bias are cast to the input's dtype."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
-
-
 class ConvTranspose2d(nn.ConvTranspose2d):
     """A transposed conv whose float32 weight and bias are cast to the
-    input's dtype; torch's own geometry, ``(in-1)*s - 2p + k + op``."""
+    input's dtype; torch's own geometry, ``(in-1)*s - 2p + k + op``.
+
+    Under tensor parallelism (``parallel/tensor.py``: ``tp``, ``tp_dims``)
+    the weight holds this rank's INPUT channels where they divide (JAX's
+    kernel is ``(kh, kw, out, in)``): the rank's slice of the input goes
+    through them and the partial outputs are summed over the model group;
+    the bias, sharded on the output channels, is gathered and added
+    once."""
+
+    def _apply_to(self, x: torch.Tensor, weight: torch.Tensor,
+                  bias) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
+            self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
-                                  self.stride, self.padding,
-                                  self.output_padding, self.groups,
-                                  self.dilation)
+        tp = getattr(self, "tp", None)
+        (bias,) = whole(self, "bias")
+        if tp is None or "weight" not in self.tp_dims:
+            return self._apply_to(x, self.weight, bias)
+        y = tp.reduce(self._apply_to(tp.scatter(x, 1), self.weight, None))
+        return y if bias is None else y + bias.to(y.dtype)[None, :, None,
+                                                         None]
 
 
 class Dropout(nn.Module):

@@ -31,6 +31,7 @@ from torch import nn
 
 from art_sbir_tpu_torch.core.device import resolve_device
 from art_sbir_tpu_torch.models.layers import BN_MOMENTUM
+from art_sbir_tpu_torch.parallel.tensor import whole
 
 
 class Conv2d(nn.Conv2d):
@@ -67,49 +68,70 @@ class BatchNorm2d(nn.BatchNorm2d):
     count, then the centred sums of squares (two passes, as on one
     device). ``torch.distributed.nn``'s all-reduce is differentiable and
     sums the gradients into every rank, as the backward needs; the
-    running statistics come out equal on every rank."""
+    running statistics come out equal on every rank. The reduction runs
+    over the data group (``multihost.data_group``).
+
+    Under tensor parallelism (``parallel/tensor.py``) the weight, bias and
+    running statistics hold this rank's channels (``tp``, ``tp_dims``):
+    the input is whole, so the forward gathers them (one collective a
+    call) and a running-statistics update writes the rank's slice."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=1e-5, momentum=BN_MOMENTUM)
         self.record = None
         self.sync = False
 
-    def _global_norm(self, xf: torch.Tensor):
+    def _global_norm(self, xf: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor):
         """(output, mean, biased var) over every rank's rows."""
         from torch.distributed.nn.functional import all_reduce
 
+        from art_sbir_tpu_torch.parallel.multihost import data_group
+
+        group = data_group()
         n = xf.shape[0] * xf.shape[2] * xf.shape[3]
         s = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)),
-                                  xf.new_full((1,), float(n))]))
+                                  xf.new_full((1,), float(n))]), group=group)
         mean = s[:-1] / s[-1]
         centred = xf - mean[None, :, None, None]
-        var = all_reduce(torch.square(centred).sum(dim=(0, 2, 3))) / s[-1]
-        scale = self.weight * torch.rsqrt(var + self.eps)
+        var = all_reduce(torch.square(centred).sum(dim=(0, 2, 3)),
+                         group=group) / s[-1]
+        scale = weight * torch.rsqrt(var + self.eps)
         out = (centred * scale[None, :, None, None]
-               + self.bias[None, :, None, None])
+               + bias[None, :, None, None])
         return out, mean.detach(), var.detach()
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's channels of a whole (C,) vector."""
+        tp = getattr(self, "tp", None)
+        return t if tp is None else tp.local(t, 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
+            weight, bias = whole(self, "weight", "bias")
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             if self.sync:
-                out, mean, var = self._global_norm(xf)
+                out, mean, var = self._global_norm(xf, weight, bias)
             else:
-                out = F.batch_norm(xf, None, None, self.weight, self.bias,
+                out = F.batch_norm(xf, None, None, weight, bias,
                                    True, 0.0, self.eps)
                 with torch.no_grad():
                     var, mean = torch.var_mean(xf, dim=(0, 2, 3),
                                                correction=0)
             with torch.no_grad():
                 m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.running_mean.mul_(1.0 - m).add_(self._local(mean),
+                                                     alpha=m)
+                self.running_var.mul_(1.0 - m).add_(self._local(var),
+                                                    alpha=m)
                 self.num_batches_tracked.add_(1)
                 if self.record is not None:
                     self.record.append((mean, var))
             return out.to(x.dtype)
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * scale
+        weight, bias, running_mean, running_var = whole(
+            self, "weight", "bias", "running_mean", "running_var")
+        scale = weight * torch.rsqrt(running_var + self.eps)
+        shift = bias - running_mean * scale
         return torch.addcmul(shift.to(x.dtype)[None, :, None, None], x,
                              scale.to(x.dtype)[None, :, None, None])
 
@@ -149,7 +171,9 @@ class Bottleneck(nn.Module):
 class AttentionPool2d(nn.Module):
     """Single-query (mean-token) multi-head QKV pooling with a learned
     positional embedding (reference ``models.py:239-272``). The embedding
-    is added in the token dtype; the softmax runs in float32."""
+    is added in the token dtype; the softmax runs in float32. Under
+    tensor parallelism the embedding holds this rank's columns and the
+    forward gathers it."""
 
     def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int,
                  output_dim: int):
@@ -166,7 +190,8 @@ class AttentionPool2d(nn.Module):
         b, c = x.shape[:2]
         tokens = x.flatten(2).transpose(1, 2)  # (B, HW, C)
         tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
-        tokens = tokens + self.positional_embedding[None].to(tokens.dtype)
+        (pe,) = whole(self, "positional_embedding")
+        tokens = tokens + pe[None].to(tokens.dtype)
         h = self.num_heads
         hd = c // h
         # only the mean token is ever a query (the reference queries x[:1])

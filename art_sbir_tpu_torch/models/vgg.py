@@ -10,8 +10,10 @@ between the stages (the map of JAX ``torch_port.py::port_vgg16_features``).
 A 256 px input gives an (512, 8, 8) map, the grid the decoder attends over.
 
 ``dtype=torch.bfloat16`` runs the convs in bf16 on float32 parameters (a
-cast a call): JAX's ``VGGFeatures(dtype=bfloat16)``, whose float32
-parameters are cast to the compute dtype; the output is bf16.
+cast a call, :class:`~art_sbir_tpu_torch.models.layers.Conv2d`): JAX's
+``VGGFeatures(dtype=bfloat16)``, whose float32 parameters are cast to the
+compute dtype; the output is bf16. Every conv is called as a module, so
+tensor parallelism's column-parallel swap reaches each of them.
 
 The weights and activations are channels-last (NHWC in memory, JAX's own
 layout; the tensors stay NCHW in shape): cuDNN's kernels for it run the
@@ -26,8 +28,9 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from art_sbir_tpu_torch.models.layers import Conv2d
 
 # torchvision vgg16, configuration "D"
 VGG16_CFG: Sequence = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
@@ -43,7 +46,7 @@ class VGGFeatures(nn.Sequential):
             if v == "M":
                 layers.append(nn.MaxPool2d(2, 2))
             else:
-                layers += [nn.Conv2d(cin, v, 3, padding=1), nn.ReLU()]
+                layers += [Conv2d(cin, v, 3, padding=1), nn.ReLU()]
                 cin = v
         super().__init__(*layers)
         self.dtype = dtype
@@ -51,13 +54,4 @@ class VGGFeatures(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous(memory_format=torch.channels_last)
-        if self.dtype is None:
-            return super().forward(x)
-        x = x.to(self.dtype)
-        for layer in self:
-            if isinstance(layer, nn.Conv2d):
-                x = F.conv2d(x, layer.weight.to(self.dtype),
-                             layer.bias.to(self.dtype), padding=1)
-            else:
-                x = layer(x)
-        return x
+        return super().forward(x if self.dtype is None else x.to(self.dtype))

@@ -24,6 +24,7 @@ of the resulting tensors is :mod:`art_sbir_tpu_torch.ops.rasterize`.
 from __future__ import annotations
 
 import json
+import os
 import re
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -152,8 +153,12 @@ def parse_svg(
         img[i][2:] = img[i + 1][2:]
 
     if result_dir:
+        # written whole, then renamed: ranks that parse one corpus at once
+        # never read a half-written cache
         out = Path(result_dir) / f"{filename.stem}.json"
-        out.write_text(json.dumps(result))
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp.write_text(json.dumps(result))
+        os.replace(tmp, out)
     return result
 
 

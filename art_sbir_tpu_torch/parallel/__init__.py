@@ -1,7 +1,9 @@
 """Device meshes for the row-sharded gallery (single process, one list of
-devices) and data-parallel training (one process a device,
-:mod:`~art_sbir_tpu_torch.parallel.multihost`); counterpart of
-``art_sbir_tpu/parallel``'s data axis."""
+devices), data-parallel training (one process a device,
+:mod:`~art_sbir_tpu_torch.parallel.multihost`) and tensor-parallel
+training over a ``(data, model)`` grid of such processes
+(:mod:`~art_sbir_tpu_torch.parallel.tensor`); counterpart of
+``art_sbir_tpu/parallel``."""
 
 from art_sbir_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh, MeshSpec,
                                               batch_rows, data_mesh,

@@ -14,6 +14,12 @@ a batch (:func:`shard_or_replicate`).
 A mesh may name one device several times: ``[cpu] * 8`` on the CPU, or
 ``[cuda:0] * 4`` on one card, run that many shards on the one device,
 as the JAX package's tests run 8 virtual CPU devices.
+
+A mesh of ``n_model`` > 1 is JAX's 2-D ``(data, model)`` mesh
+(:func:`~art_sbir_tpu_torch.parallel.tensor.mesh_2d`): ``devices`` holds
+its ranks row-major, rank ``d * n_model + m`` at data index ``d`` and
+model index ``m``; the trainers start a rank on each entry
+(tensor parallelism, :mod:`~art_sbir_tpu_torch.parallel.tensor`).
 """
 
 from __future__ import annotations
@@ -30,23 +36,35 @@ DATA_AXIS = "data"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """An ordered tuple of devices along one named axis."""
+    """An ordered tuple of devices along one named axis, or, with
+    ``n_model`` > 1, a ``(data, model)`` grid of them, row-major."""
 
     devices: Tuple[torch.device, ...]
     axis_name: str = DATA_AXIS
+    n_model: int = 1
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def n_data(self) -> int:
+        return self.size // self.n_model
+
     def distinct_devices(self) -> List[torch.device]:
         """Each device once, in mesh order."""
         return list(dict.fromkeys(self.devices))
 
+    def data_devices(self) -> List[torch.device]:
+        """The data axis's devices (model index 0), each once: the cards a
+        gallery shards over."""
+        return list(dict.fromkeys(self.devices[::self.n_model]))
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """``data`` shards along ``axis_name``."""
+    """``data`` shards along ``axis_name`` (a 2-D mesh:
+    ``tensor.mesh_2d``)."""
 
     data: int = 1
     axis_name: str = DATA_AXIS
@@ -90,17 +108,37 @@ def data_mesh(n_devices: Optional[int] = None, axis_name: str = DATA_AXIS,
 
 
 def mesh_from_args(n_devices: int, tp_devices: int = 1,
-                   device: str | torch.device | None = None
-                   ) -> Optional[Mesh]:
-    """The CLIs' mesh: ``None`` for ``n_devices`` 1 (or 0), else
-    :func:`data_mesh` (-1: every card). The data axis only: the serving
-    CLIs shard a gallery over it, the trainers start a rank on each of
-    its devices. Exits with :func:`data_mesh`'s message where fewer
-    cards are present."""
+                   device: str | torch.device | None = None,
+                   multihost: bool = False) -> Optional[Mesh]:
+    """The CLIs' mesh (JAX ``mesh_from_args``): ``None`` for ``n_devices``
+    1 (or 0), else :func:`data_mesh` (-1: every card); the serving CLIs
+    shard a gallery over it, the trainers start a rank on each of its
+    devices. ``tp_devices`` > 1 makes the 2-D ``(data, model)`` mesh of
+    ``n_devices`` data indices (-1: every card divided by
+    ``tp_devices``), on the CPU that many ranks of the one CPU; it is
+    single-host (``multihost`` exits). Exits with the mesh's message
+    where fewer cards are present."""
     if tp_devices > 1:
-        raise SystemExit(
-            f"--tp_devices {tp_devices}: tensor parallelism is still to "
-            "port (ROADMAP.md queue 1 item 7); use --n_devices alone")
+        from art_sbir_tpu_torch.parallel.tensor import mesh_2d
+
+        if multihost:
+            raise SystemExit(
+                "--tp_devices is single-host (combine with --n_devices "
+                "for in-host data parallelism)")
+        dev = resolve_device(device)
+        devices = cuda_devices() if dev.type == "cuda" else None
+        n_all = 1 if devices is None else len(devices)
+        n_data = (max(n_all // tp_devices, 1) if n_devices < 0
+                  else max(n_devices, 1))
+        if devices is None:
+            devices = [dev] * (n_data * tp_devices)
+        try:
+            mesh = mesh_2d(n_data, tp_devices, devices)
+        except ValueError as e:
+            raise SystemExit(f"--tp_devices {tp_devices}: {e}") from None
+        print(f"mesh: {n_data} data x {tp_devices} model devices "
+              "(params/opt-state/BN stats channel-sharded)", flush=True)
+        return mesh
     if n_devices > 1 or n_devices < 0:
         try:
             mesh = data_mesh(n_devices, device=device)
@@ -126,14 +164,15 @@ def shard_or_replicate(batch: Dict[str, Any], rank: Optional[int] = None,
                        world: Optional[int] = None
                        ) -> Tuple[Dict[str, Any], Tuple[int, int]]:
     """JAX ``shard_or_replicate`` for one rank (default: this process's
-    in its group): the batch cut to :func:`batch_rows`, and ``(offset,
-    total)``, where its rows start in the batch and the batch's length,
-    which the trainers' random draws take (they draw for ``total`` rows
-    and keep theirs). 0-d entries are kept whole."""
+    data index among its group's, which a grid's model ranks share): the
+    batch cut to :func:`batch_rows`, and ``(offset, total)``, where its
+    rows start in the batch and the batch's length, which the trainers'
+    random draws take (they draw for ``total`` rows and keep theirs). 0-d
+    entries are kept whole."""
     from art_sbir_tpu_torch.parallel import multihost
 
-    rank = multihost.rank() if rank is None else rank
-    world = multihost.world_size() if world is None else world
+    rank = multihost.data_rank() if rank is None else rank
+    world = multihost.data_size() if world is None else world
     n = next(len(v) for v in batch.values() if getattr(v, "ndim", 1))
     sl = batch_rows(n, rank, world)
     return ({k: v[sl] if getattr(v, "ndim", 1) else v

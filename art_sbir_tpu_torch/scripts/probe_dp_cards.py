@@ -101,14 +101,24 @@ def make_inputs(rng, geo: dict, b: int = 32, pix_b: int = 8,
             np.float32), "sketch_vector": sketches(rng, vae_b)}}
 
 
+def _whole(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``t`` (``p``'s gradient or a tensor of its shape) in one device's
+    layout: gathered over the model group where ``p`` is a tensor-parallel
+    slice (``parallel/tensor.py``), else ``t``."""
+    from art_sbir_tpu_torch.parallel.tensor import model_shard
+
+    dim = getattr(p, "tp_dim", None)
+    return t if dim is None else model_shard().all_gather(t, dim)
+
+
 def _recording_adam(params, **kw):
     """torch's Adam that keeps each step's (reduced) gradient, flat on the
-    CPU."""
+    CPU, in one device's layout."""
 
     class Recording(torch.optim.Adam):
         def step(self, closure=None):
             self.seen.append(torch.cat([
-                p.grad.detach().reshape(-1).float().cpu()
+                _whole(p.grad.detach(), p).reshape(-1).float().cpu()
                 for g in self.param_groups for p in g["params"]
                 if p.grad is not None]))
             return super().step(closure)
@@ -140,15 +150,20 @@ def triplet_steps(u8: dict, geo: dict, device,
     """``steps`` Adam steps (lr 1e-5, the CLI's) on this rank's rows of the
     uint8 triplet ``u8`` (all of them outside a group), augmented from a
     seeded generator on ``device``: the losses, each step's gradient, the
-    finished sketches and the running statistics, on the CPU."""
+    finished sketches and the running statistics, on the CPU (in one
+    device's layout; in a grid the model is tensor parallel)."""
     from art_sbir_tpu_torch.core.device import ieee_f32
     from art_sbir_tpu_torch.parallel import multihost
+    from art_sbir_tpu_torch.parallel.tensor import (gather_state,
+                                                    held_bytes, model_shard,
+                                                    tensor_parallel)
     from art_sbir_tpu_torch.train.prepare import finish_triplet_batch
     from art_sbir_tpu_torch.train.triplet import TrainState
 
     ieee_f32()
     dtype = getattr(torch, dtype_name)
-    model = _encoder(geo, device, dtype).to(dtype)
+    model = tensor_parallel(_encoder(geo, device, dtype).to(dtype),
+                            model_shard())
     state = TrainState(model, _recording_adam(model.parameters(), lr=1e-5,
                                               weight_decay=2e-3))
     step = _step_fn()
@@ -167,24 +182,39 @@ def triplet_steps(u8: dict, geo: dict, device,
         out["losses"].append({k: float(v) for k, v in
                               step(state, batch).items()})
     out["grads"] = state.optimizer.seen
-    out["grad_names"] = [(k, p.numel()) for k, p in model.named_parameters()
+    out["grad_names"] = [(k, _whole(p.detach(), p).numel())
+                         for k, p in model.named_parameters()
                          if p.grad is not None]
+    whole = gather_state(model)
     out["stats"] = torch.cat([v.detach().reshape(-1).cpu().double()
-                              for k, v in model.state_dict().items()
-                              if "running_" in k])
+                              for k, v in whole.items() if "running_" in k])
+    if model_shard() is not None:  # the slices, gathered, for the grid
+        out["params"] = torch.cat([whole[k].detach().reshape(-1).cpu()
+                                   for k, _ in model.named_parameters()])
+    out["held"] = held_bytes(model, state.optimizer)
     return out
 
 
-def pix2pix_steps(batch: dict, geo: dict, device) -> Dict:
-    """STEPS float32 G+D steps of the U-Net (dropout on) and the basic D on
-    this rank's rows: the losses and both nets' state on the CPU."""
+def pix2pix_steps(batch: dict, geo: dict, device,
+                  dtype_name: str = "float32") -> Dict:
+    """STEPS G+D steps (float32, or ``dtype_name``) of the U-Net (dropout
+    on) and the basic D on this rank's rows: the losses and both nets'
+    state on the CPU (in one device's layout; tensor parallel in a
+    grid)."""
     from art_sbir_tpu_torch.core.device import ieee_f32
     from art_sbir_tpu_torch.parallel.mesh import shard_or_replicate
+    from art_sbir_tpu_torch.parallel.tensor import (gather_state,
+                                                    held_bytes, model_shard)
     from art_sbir_tpu_torch.train.gan import Pix2Pix, Pix2PixConfig
 
     ieee_f32()
     m = Pix2Pix(Pix2PixConfig(net_g="unet_256", ngf=geo["pix_ngf"],
                               ndf=geo["pix_ngf"]), seed=0, device=device)
+    if dtype_name != "float32":
+        m.net_g.to(getattr(torch, dtype_name))
+        m.net_d.to(getattr(torch, dtype_name))
+        m._optimizers()
+    m.tensor_parallel(model_shard())
     local, rows = shard_or_replicate({k: torch.from_numpy(v).to(device)
                                       for k, v in batch.items()})
     losses = [{k: float(v) for k, v in
@@ -193,24 +223,32 @@ def pix2pix_steps(batch: dict, geo: dict, device) -> Dict:
     return {"losses": losses, "state": {
         f"{n}.{k}": v.detach().cpu() for n, net in (("g", m.net_g),
                                                     ("d", m.net_d))
-        for k, v in net.state_dict().items()}}
+        for k, v in gather_state(net).items()},
+        "held": {n: held_bytes(net, opt) for n, net, opt in (
+            ("g", m.net_g, m.opt_g), ("d", m.net_d, m.opt_d))}}
 
 
-def vae_steps(batch: dict, geo: dict, device) -> Dict:
-    """STEPS float32 VAE steps on this rank's rows: losses, clip norm."""
+def vae_steps(batch: dict, geo: dict, device,
+              dtype_name: str = "float32") -> Dict:
+    """STEPS VAE steps (float32, or ``dtype_name``) on this rank's rows:
+    losses, clip norm (tensor parallel in a grid)."""
     from art_sbir_tpu_torch.core.device import ieee_f32
     from art_sbir_tpu_torch.parallel.mesh import shard_or_replicate
+    from art_sbir_tpu_torch.parallel.tensor import held_bytes, model_shard
     from art_sbir_tpu_torch.train.vae import VAEConfig, VAETrainer
 
     ieee_f32()
     t = VAETrainer(VAEConfig(**geo["vae"]), seed=0, device=device)
+    t.model.to(getattr(torch, dtype_name))
+    t.tensor_parallel(model_shard())
     losses = []
     for seed in range(1, STEPS + 1):
         local, rows = shard_or_replicate({k: torch.from_numpy(v).to(device)
                                           for k, v in batch.items()})
         losses.append({k: float(v) for k, v in
                        t.train_step(local, seed, rows).items()})
-    return {"losses": losses, "grad_norm": float(t.grad_norm)}
+    return {"losses": losses, "grad_norm": float(t.grad_norm),
+            "held": held_bytes(t.model, t.optimizer)}
 
 
 def _sync(device) -> None:
@@ -353,7 +391,7 @@ def rank_checks(device, inputs: dict, geo: dict, ref_path: str,
     from art_sbir_tpu_torch.parallel import multihost
 
     ref = torch.load(ref_path, weights_only=False)
-    r = multihost.rank()
+    r = multihost.data_rank()
     out = {"rank": r, "world": multihost.world_size(),
            "device": str(device), "backend": dist.get_backend()}
     t0 = time.perf_counter()
@@ -447,7 +485,7 @@ def failures(d: Dict) -> List[str]:
 
 
 def cli_check(tmp: Path, root: Path, devices, geo: dict,
-              dsize: float, batch: int = 32) -> Dict:
+              dsize: float, batch: int = 32, tp: int = 1) -> Dict:
     """``cli/train.py`` for one float32 epoch with ``--inference`` at
     learning rate 0 on the ranks of ``devices`` (``main(argv,
     mesh=...)``) and on ``devices[0]`` alone; JAX's CLI rule between
@@ -457,9 +495,11 @@ def cli_check(tmp: Path, root: Path, devices, geo: dict,
     steps turn the full-width float32 gradient's own noise (1.8e-2 of
     its norm from float64, one process or two) into losses 0.8% apart
     within five steps (the repo's CLI parity tests run at ``-l 0`` for
-    the same reason)."""
+    the same reason). ``tp`` > 1: the ranks are a ``(len(devices) / tp,
+    tp)`` grid (``--tp_devices``' mesh, ``tensor.mesh_2d``)."""
     from art_sbir_tpu_torch.cli import train
     from art_sbir_tpu_torch.parallel.mesh import MeshSpec
+    from art_sbir_tpu_torch.parallel.tensor import mesh_2d
 
     argv = ["-e", 1, "-b", batch, "-l", 0, "-d", "SketchyV2", "-s", dsize,
             "--model_type", "ModifiedResNet_with_classification",
@@ -477,7 +517,9 @@ def cli_check(tmp: Path, root: Path, devices, geo: dict,
                 folder = train.main(
                     [str(a) for a in argv]
                     + ["--device", str(torch.device(devices[0]).type)],
-                    mesh=MeshSpec(n).build(list(devices[:n])))
+                    mesh=(mesh_2d(n // tp, tp, list(devices))
+                          if n > 1 and tp > 1
+                          else MeshSpec(n).build(list(devices[:n]))))
         finally:
             os.chdir(cwd)
         folder = tmp / f"cli_{n}" / folder

@@ -29,6 +29,14 @@ BatchNorm takes the global batch's statistics, G's dropout masks are
 drawn for the global batch (``rows``), each gradient set is averaged over
 the ranks before its Adam step, and the losses are the global batch's.
 A ragged batch is replicated: every rank computes it whole.
+
+Tensor parallel (:meth:`Pix2Pix.tensor_parallel` in a ``(data, model)``
+grid, ``parallel/tensor.py``): both nets keep their ranks' channel
+slices, the Adam states follow, and the D pass of the G step keeps D's
+statistics slices as the D step left them; rows and dropout masks go by
+the data index, so the ranks of a model group drop alike.
+:meth:`Pix2Pix.state_dict` is in one device's layout (gathered) and
+:meth:`Pix2Pix.load_state_dict` cuts such a state to the rank's slices.
 """
 
 from __future__ import annotations
@@ -45,6 +53,11 @@ from art_sbir_tpu_torch.models.pix2pix import (GANLoss, define_d, define_g,
 from art_sbir_tpu_torch.parallel.multihost import (mean_over_ranks,
                                                    reduce_gradients,
                                                    synced_batchnorm)
+from art_sbir_tpu_torch.parallel.tensor import (ModelShard,
+                                                gather_optimizer_state,
+                                                gather_state,
+                                                slice_optimizer_state,
+                                                slice_state, tensor_parallel)
 from art_sbir_tpu_torch.train.triplet import torch_adam
 
 LOSS_KEYS = ("G_GAN", "G_L1", "D_real", "D_fake", "G_total", "D_total")
@@ -90,9 +103,25 @@ class Pix2Pix:
         self.net_d = init_weights(define_d(
             cfg.net_d, cfg.ndf, cfg.n_layers_d, cfg.norm, compute,
             cfg.input_nc + cfg.output_nc), gen).to(self.device)
-        betas = (cfg.beta1, 0.999)
-        self.opt_g = torch_adam(self.net_g.parameters(), cfg.lr, betas=betas)
-        self.opt_d = torch_adam(self.net_d.parameters(), cfg.lr, betas=betas)
+        self.tp: Optional[ModelShard] = None  # see tensor_parallel
+        self._optimizers()
+
+    def _optimizers(self) -> None:
+        betas = (self.cfg.beta1, 0.999)
+        self.opt_g = torch_adam(self.net_g.parameters(), self.cfg.lr,
+                                betas=betas)
+        self.opt_d = torch_adam(self.net_d.parameters(), self.cfg.lr,
+                                betas=betas)
+
+    def tensor_parallel(self, shard: Optional[ModelShard]) -> "Pix2Pix":
+        """Keep this rank's channel slices of both nets (before the first
+        step: the Adam states start anew on the slices); None: no-op."""
+        self.tp = shard
+        if shard is not None:
+            tensor_parallel(self.net_g, shard)
+            tensor_parallel(self.net_d, shard)
+            self._optimizers()
+        return self
 
     def _in(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.device, next(self.net_g.parameters()).dtype)
@@ -176,13 +205,17 @@ class Pix2Pix:
         return self.net_g.eval()(self._in(real_a))
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"g": {"model": self.net_g.state_dict(),
-                      "optimizer": self.opt_g.state_dict()},
-                "d": {"model": self.net_d.state_dict(),
-                      "optimizer": self.opt_d.state_dict()}}
+        """Both nets and Adam states in one device's layout (under tensor
+        parallelism every rank of the model group must call this)."""
+        return {side: {"model": gather_state(net),
+                       "optimizer": gather_optimizer_state(net, opt)}
+                for side, net, opt in (("g", self.net_g, self.opt_g),
+                                       ("d", self.net_d, self.opt_d))}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """``state`` in one device's layout, cut to the rank's slices."""
         for side, net, opt in (("g", self.net_g, self.opt_g),
                                ("d", self.net_d, self.opt_d)):
-            net.load_state_dict(state[side]["model"])
-            opt.load_state_dict(state[side]["optimizer"])
+            net.load_state_dict(slice_state(net, state[side]["model"]))
+            opt.load_state_dict(slice_optimizer_state(
+                net, opt, state[side]["optimizer"]))

@@ -23,7 +23,13 @@ Counterpart of ``art_sbir_tpu/train/triplet.py`` (reference
   global batch's statistics, the gradients are averaged over the ranks
   before the Adam step, and the returned losses are the global batch's
   means, as JAX's step gives them under GSPMD. Outside a group the step
-  is the one-device step.
+  is the one-device step;
+* tensor parallel (a model made ``parallel/tensor.py::tensor_parallel``
+  in a ``(data, model)`` grid): the same step, each rank holding its
+  channel slices of the parameters, Adam's moments and the BatchNorm
+  statistics; rows, BatchNorm statistics and the sharded gradients go by
+  the data group. :class:`TrainState`'s state dict is in one device's
+  layout (gathered), and loading one cuts it to the rank's slices.
 """
 
 from __future__ import annotations
@@ -36,9 +42,13 @@ import torch
 from torch import nn
 
 from art_sbir_tpu_torch.core.metrics import Timer
-from art_sbir_tpu_torch.parallel.multihost import (mean_over_ranks,
+from art_sbir_tpu_torch.parallel.multihost import (mean_over_ranks, rank,
                                                    reduce_gradients,
                                                    synced_batchnorm)
+from art_sbir_tpu_torch.parallel.tensor import (gather_optimizer_state,
+                                                gather_state,
+                                                slice_optimizer_state,
+                                                slice_state)
 from art_sbir_tpu_torch.train.losses import (TripletLossConfig,
                                              triplet_loss_with_heads)
 
@@ -67,12 +77,19 @@ class TrainState:
         self.step = step
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(), "step": self.step}
+        """In one device's layout (under tensor parallelism every rank of
+        the model group must call this: the slices are gathered)."""
+        return {"model": gather_state(self.model),
+                "optimizer": gather_optimizer_state(self.model,
+                                                    self.optimizer),
+                "step": self.step}
 
     def load_state_dict(self, d: Dict[str, Any]) -> None:
-        self.model.load_state_dict(d["model"])
-        self.optimizer.load_state_dict(d["optimizer"])
+        """``d`` in one device's layout (cut to the rank's slices under
+        tensor parallelism)."""
+        self.model.load_state_dict(slice_state(self.model, d["model"]))
+        self.optimizer.load_state_dict(slice_optimizer_state(
+            self.model, self.optimizer, d["optimizer"]))
         self.step = int(d["step"])
 
 
@@ -128,7 +145,9 @@ def make_eval_step(cfg: TripletLossConfig) -> Callable:
 class TripletTrainer:
     """Epoch loop with the reference's logging cadence (reference
     `train.py:45-48`): iteration losses every 10000 // B train batches
-    when epochs <= 6, mini test evals of 1000 // B batches."""
+    when epochs <= 6, mini test evals of 1000 // B batches. In a group
+    every rank takes the checkpoint's state (tensor parallelism gathers
+    it) and rank 0 writes it."""
 
     cfg: TripletLossConfig
     batch_size: int = 32
@@ -195,7 +214,9 @@ class TripletTrainer:
                 f"Test loss: {test_losses[-1]:.5f}")
             if (self.checkpoint_manager is not None
                     and (epoch + 1) % self.checkpoint_every_epochs == 0):
-                self.checkpoint_manager.save(epoch + 1, state.state_dict())
+                sd = state.state_dict()
+                if rank() == 0:
+                    self.checkpoint_manager.save(epoch + 1, sd)
             if self.epoch_hook is not None:
                 m = {"epoch": epoch + 1, **self.epoch_hook(epoch + 1, state)}
                 epoch_metrics.append(m)

@@ -29,12 +29,20 @@ drawn for the global ``(B, z_size)`` and each rank keeps its rows
 tolerance clamps it, the gradients are averaged over the ranks before
 the clip reads their norm, and the losses are the global batch's. A
 ragged batch is replicated: every rank computes it whole.
+
+Tensor parallel (:meth:`VAETrainer.tensor_parallel` in a ``(data,
+model)`` grid, ``parallel/tensor.py``): VGG's convs, ``conv_f``,
+``conv_h``, ``fc_hc``, ``fc_mu``, ``fc_std`` and the LSTM's gate matrices
+keep their ranks' output slices (``conv_att`` and ``fc_params`` are
+replicated: 1 and 123 outputs); the noise goes by the data index, and
+the clip's global norm sums the sharded gradients' squares over the
+model group and adds the replicated ones once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,6 +54,8 @@ from art_sbir_tpu_torch.ops.gmm import (kl_divergence_to_standard_normal,
 from art_sbir_tpu_torch.parallel.multihost import (global_mean,
                                                    mean_over_ranks,
                                                    reduce_gradients)
+from art_sbir_tpu_torch.parallel.tensor import (ModelShard, layout,
+                                                tensor_parallel)
 from art_sbir_tpu_torch.train.triplet import torch_adam
 
 LOSS_KEYS = ("total_loss", "kl_loss", "reconstruction_loss")
@@ -90,13 +100,25 @@ def kl_weight_at(cfg: VAEConfig, step: int) -> float:
                  * _f32_decay(cfg.kl_decay_rate, step))
 
 
-def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads, max_norm: float,
+                        shard: Optional[ModelShard] = None,
+                        sharded: Sequence[bool] = ()) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place on ``grads``; returns the
     global norm before the clip (a 0-d tensor; nothing waits for the
     card). The norm is optax's ``sqrt(sum of sum(g^2))``: torch's
     ``vector_norm`` of a float32 tensor of millions of elements lies up to
-    1e-4 from it on the CPU, whose ``sum`` is a cascade."""
-    norm = torch.stack([torch.sum(torch.square(g)) for g in grads]).sum().sqrt()
+    1e-4 from it on the CPU, whose ``sum`` is a cascade. Under tensor
+    parallelism (``shard``) the squares of the gradients flagged in
+    ``sharded`` (this rank's slices) are summed over the model group and
+    the others (replicated, equal on every rank) added once."""
+    squares = [torch.sum(torch.square(g)) for g in grads]
+    if shard is None or not any(sharded):
+        norm = torch.stack(squares).sum().sqrt()
+    else:
+        local = shard.all_reduce(torch.stack(
+            [q for q, f in zip(squares, sharded) if f]).sum())
+        norm = torch.stack([local] + [q for q, f in zip(squares, sharded)
+                                      if not f]).sum().sqrt()
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -123,6 +145,16 @@ class VAETrainer:
                                     cfg.learning_rate, betas=(0.5, 0.999))
         self.step = 0
         self.grad_norm: Optional[torch.Tensor] = None
+
+    def tensor_parallel(self, shard: Optional[ModelShard]) -> "VAETrainer":
+        """Keep this rank's channel slices of the model (before the first
+        step: Adam starts anew on the slices); None: no-op."""
+        if shard is not None:
+            tensor_parallel(self.model, shard)
+            self.optimizer = torch_adam(self.model.parameters(),
+                                        self.cfg.learning_rate,
+                                        betas=(0.5, 0.999))
+        return self
 
     def _in(self, x: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device,
@@ -175,8 +207,12 @@ class VAETrainer:
         """Average the ``.grad`` of every parameter over the ranks, clip
         them, take the Adam step at ``lr_at(step)`` and count it."""
         reduce_gradients(self.model.parameters())
-        grads = [p.grad for p in self.model.parameters()]
-        self.grad_norm = clip_by_global_norm(grads, self.cfg.grad_clip)
+        params = list(self.model.parameters())
+        lay = layout(self.model)
+        self.grad_norm = clip_by_global_norm(
+            [p.grad for p in params], self.cfg.grad_clip,
+            None if lay is None else lay.shard,
+            [getattr(p, "tp_dim", None) is not None for p in params])
         for group in self.optimizer.param_groups:
             group["lr"] = lr_at(self.cfg, self.step)
         self.optimizer.step()

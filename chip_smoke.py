@@ -195,7 +195,24 @@ Phases, each printing one JSON line:
                   a step; cli/train.py on two ranks against one (float32
                   at lr 0, a tenth of the train corpus at 128 px): losses
                   at rtol 2e-3, topk_acc equal, MRR at rtol 1e-6.
-17. drawings   -- the informative-drawings generator at full width (256
+17. train_tp   -- tensor-parallel training, a 1 data x 2 model grid on
+                  the one card over gloo (scripts/probe_tp_cards.py),
+                  held against one process at full width with the batch
+                  cut to 8 (the triplet, the VAE; the U-Net keeps 6):
+                  the flagship's triplet step (float32, TF32 off,
+                  augmentation on, one Adam step), two steps each of the
+                  pix2pix U-Net with dropout and the VAE: every loss and
+                  the triplet's gradient within twice the one process's
+                  distance from float64 plus rtol 1e-5 and 1e-4; rows
+                  equal to the one process's, gathered statistics,
+                  parameters and pix2pix state equal on both ranks; each
+                  rank's bytes of parameters, Adam state and buffers
+                  beside one process's; float32 triplet steps timed with
+                  their collectives (count, bytes) and the collectives'
+                  share; cli/train.py --tp_devices 2 against one process
+                  (float32 at lr 0, 128 px, 32 triplets in batches of
+                  16) by JAX's CLI rule.
+18. drawings   -- the informative-drawings generator at full width (256
                   px, batch 16) from seed-0 weights written as a
                   reference .pth and loaded by cli/drawings.py's loader:
                   float32 (TF32 off) on the card against float64 on the
@@ -210,17 +227,17 @@ Phases, each printing one JSON line:
                   level of the in-process forward, KaggleCatalogV1
                   finding a contour drawing for every photo; then
                   --corpus sketchy over a small Sketchy corpus.
-18. artwork_gen -- AdaIN at 256 px from seed-0 weights written as
+19. artwork_gen -- AdaIN at 256 px from seed-0 weights written as
                   vgg_normalised.pth and decoder.pth: float32 on the card
                   against float64 (the CPU's beside it, as above) at
                   alpha 1.0 and 0.5, a batch of 8 timed, then
                   cli/artwork_gen.py's main over 64 content and 16 style
                   JPEGs: the style pairing of random.Random(seed), one
                   256 px JPEG a content image, images/s.
-19. dilate     -- cli/transformations.py -m dilate on the card over PNGs
+20. dilate     -- cli/transformations.py -m dilate on the card over PNGs
                   of six sizes (9 x 13 to 1024 x 767): each output equal
                   bit for bit to dilate_binarize on the CPU.
-20. pix2pix    -- pix2pix at full width (256 px, ngf = ndf = 64, the basic
+21. pix2pix    -- pix2pix at full width (256 px, ngf = ndf = 64, the basic
                   PatchGAN, batch norm, vanilla): the float32 G+D step
                   (resnet_9blocks, dropout off, batch 2) on the card and
                   on the CPU against float64 on the card (losses and
@@ -236,7 +253,7 @@ Phases, each printing one JSON line:
                   (the JSONs, the warm-up's zero G losses, the sample
                   sheet; the U-Net's --continue_train bit for bit the
                   uninterrupted run under deterministic cuDNN).
-21. photo2sketch -- the Photo2Sketch VAE at full width (VGG16 at 256 px,
+22. photo2sketch -- the Photo2Sketch VAE at full width (VGG16 at 256 px,
                   z_size 128, dec_rnn_size 512, 20 mixtures, 100 stroke
                   rows: 101 decoder steps; seed-0 weights, the encoder's
                   convs He-initialized): the float32 step (batch 2, eps
@@ -272,8 +289,8 @@ rows (``inference`` ranks its small gallery on the exact route), K2's
 from ``serve_quant``, K1's bf16 form's and P1's from the probe, the
 sharded K1's from ``serve_sharded`` and ``sharded``'s ``run_inference``
 over the mesh, the sharded K2's from ``serve_quant_sharded``; the IVF
-serve runs, train_dp, the generator phases, pix2pix and photo2sketch
-launch none. Any
+serve runs, train_dp, train_tp, the generator phases, pix2pix and
+photo2sketch launch none. Any
 failed check exits non-zero. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
@@ -3686,6 +3703,71 @@ def phase_train_dp(state) -> None:
     check(not bad, "train_dp: " + "; ".join(bad))
 
 
+# ---------------------------------------------------- tensor parallel
+
+TP_WORLD = 2  # a 1 data x 2 model grid on the one card, over gloo
+TP_B = 8  # the triplet's and the VAE's batch (32 and 64 elsewhere): the
+# ranks' gathers of ResNet50's and VGG16's conv outputs go through the host
+TP_TIMED = (0, 2)  # timed float32 triplet steps (the check's step warmed)
+TP_CLI_B = 16
+TP_CLI_CORPUS = dict(n_classes=8, photos_per_class=4, sketches_per_photo=1,
+                     size=128, learnable=True)  # 2 steps of 16
+
+
+def phase_train_tp(state) -> None:
+    """Tensor-parallel training: a 1 data x 2 model grid on the one card
+    over gloo (NCCL refuses two ranks on one card), held against one
+    process by ``scripts/probe_tp_cards.py``'s rules at full width, the
+    batch cut to ``TP_B`` for the triplet and the VAE (the U-Net keeps
+    ``PIX_B``): losses and the triplet's first gradient within twice the
+    one process's float32 distance from a float64 step plus rtol 1e-5
+    and 1e-4, gathered state equal on both ranks, each rank's bytes
+    beside one process's; float32 triplet steps with their collectives;
+    ``cli/train.py --tp_devices 2`` against one process (JAX's CLI rule,
+    float32 at lr 0, 128 px: ``cli_check``)."""
+    import torch
+
+    from art_sbir_tpu_torch.data.synthetic import make_synthetic_sketchy
+    from art_sbir_tpu_torch.parallel import multihost
+    from art_sbir_tpu_torch.scripts import probe_dp_cards as P
+    from art_sbir_tpu_torch.scripts import probe_tp_cards as TPC
+
+    check(state["pil"], "PIL is installed: the phase writes its corpus")
+    t_phase = time.perf_counter()
+    tmp = Path(state["tmp"]) / "train_tp"
+    tmp.mkdir()
+    devices = ["cuda:0"] * TP_WORLD
+    inputs = P.make_inputs(np.random.default_rng(43), P.FULL, b=TP_B,
+                           pix_b=PIX_B, vae_b=TP_B)
+    t0 = time.perf_counter()
+    TPC.reference(inputs, P.FULL, "cuda:0", tmp / "ref.pt")
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(TPC.rank_checks, devices, inputs, P.FULL,
+                            str(tmp / "ref.pt"), TP_TIMED, n_model=TP_WORLD)
+    ranks_s = time.perf_counter() - t0
+    bad = TPC.failures(ranks)
+
+    t0 = time.perf_counter()
+    root = make_synthetic_sketchy(tmp / "sketchy", **TP_CLI_CORPUS)
+    write_s = time.perf_counter() - t0
+    cli = P.cli_check(tmp, root, devices, P.FULL, 1.0, TP_CLI_B,
+                      tp=TP_WORLD)
+    bad += ["cli/train.py: " + f for f in cli["failures"]]
+    torch.cuda.empty_cache()
+    # the readings first, then the verdict: they say where a rule broke
+    emit({"phase": "train_tp", "ok": not bad, "failures": bad,
+          "backend": ranks["backend"], "grid": ranks["grid"],
+          "ranks": devices, "card": state["card"],
+          "batches": {"triplet": TP_B, "pix2pix": PIX_B, "vae": TP_B},
+          **{k: ranks[k] for k in ("triplet", "pix2pix", "vae", "timing")},
+          "cli": cli, "one_process_s": one_s, "ranks_s": ranks_s,
+          "corpus_write_s": write_s,
+          "phase_s": time.perf_counter() - t_phase})
+    check(not bad, "train_tp: " + "; ".join(bad))
+
+
 # ------------------------------------------------------------- generators
 
 GEN_SIZE = 256  # the generators' published resolution
@@ -4869,6 +4951,7 @@ def phase_photo2sketch(state) -> None:
 PHASES = ("build", "kernels", "kernels_k2", "kernels_int8_wide", "probe_k1",
           "encoder", "serve", "serve_quant", "ivf", "serve_ivf", "online_ivf",
           "inference", "inference_k1", "sharded", "train", "train_dp",
+          "train_tp",
           "drawings", "artwork_gen", "dilate", "pix2pix", "photo2sketch")
 
 
@@ -4878,6 +4961,7 @@ def main(argv=None) -> int:
         "--phases", default=None,
         help="comma-separated phases to run (build is always first; "
              "sharded needs inference and inference_k1; train, train_dp, "
+             "train_tp, "
              "drawings, artwork_gen, dilate, pix2pix and photo2sketch need "
              "no other phase); a "
              "partial run "

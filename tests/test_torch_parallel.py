@@ -428,8 +428,11 @@ def test_mesh_from_args_semantics():
     assert M.mesh_from_args(-1, device="cpu").size == 1
     mesh = M.mesh_from_args(2, device="cpu")
     assert mesh.devices == (torch.device("cpu"),) * 2
-    with pytest.raises(SystemExit, match="queue 1 item 7"):
-        M.mesh_from_args(2, 4, device="cpu")
+    # tensor parallelism: the (data, model) grid, single host as JAX's
+    grid = M.mesh_from_args(2, 4, device="cpu")
+    assert (grid.n_data, grid.n_model, grid.size) == (2, 4, 8)
+    with pytest.raises(SystemExit, match="single-host"):
+        M.mesh_from_args(2, 4, device="cpu", multihost=True)
 
 
 def test_mesh_from_args_exits_with_fewer_cards(monkeypatch):

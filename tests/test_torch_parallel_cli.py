@@ -143,8 +143,11 @@ def test_train_cli_multihost_matches_one_device(sketchy, one_device,
 
 
 def test_train_cli_tp_exits():
-    with pytest.raises(SystemExit, match="queue 1 item 7"):
-        port_train.main(["--tp_devices", "2", "--device", "cpu"])
+    """Tensor parallelism is single-host, as JAX's: with --multihost the
+    CLI exits with JAX's message (tests/test_torch_tp_cli.py runs it)."""
+    with pytest.raises(SystemExit, match="single-host"):
+        port_train.main(["--tp_devices", "2", "--multihost", "--device",
+                         "cpu"])
 
 
 def _series(folder: Path) -> dict:

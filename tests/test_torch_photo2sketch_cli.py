@@ -15,9 +15,9 @@ archives.
   JSON keys, the data and training parameters, the loss series' keys and
   lengths, the sample SVGs and JSONs. The losses cannot match: the noise
   differs. ``--model`` with the saved ``.pt`` restores the parameters bit
-  for bit; an orbax directory, ``--n_devices 2`` and ``--tp_devices 2``
-  are refused; without a card and without ``--device cpu`` the CLI
-  raises.
+  for bit; an orbax directory is refused; without a card and without
+  ``--device cpu`` the CLI raises. ``--tp_devices 2`` (two gloo ranks)
+  gives the one process's loss series at JAX's tensor-parallel bound.
 * The svg and Quickdraw branches run end to end only on the card (their
   VGG runs at 256 px): ``chip_smoke.py``'s ``photo2sketch`` phase.
 """
@@ -195,9 +195,29 @@ def test_model_flag_restores_the_saved_parameters(cli_runs, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--tp_devices", "2"]])
-def test_mesh_flags_exit(flags):
-    with pytest.raises(SystemExit, match="queue 1 item 7"):
-        port_cli.main(flags + ["--device", "cpu"])
+def test_mesh_flags_exit(flags, sketchy, cli_runs, tmp_path):
+    """No mesh flag exits any longer: ``--tp_devices 2`` trains on a 1 x 2
+    grid of gloo ranks and gives the one process's run (every loss series
+    at JAX's tensor-parallel bound, rel 1e-4, abs 1e-5,
+    ``tests/test_sharding.py:472-491``) and its files."""
+    root = tmp_path / "data"
+    shutil.copytree(sketchy, root)
+    folder, out = _run(port_cli, tmp_path / "tp", THIN + flags + [
+        "--data_root", str(root), "--device", "cpu"])
+    pdir, _ = cli_runs["port"]
+    assert (sorted(p.name for p in folder.iterdir())
+            == sorted(p.name for p in pdir.iterdir()))
+    got, want = _read(folder, "training"), _read(pdir, "training")
+    for split in ("train_losses", "test_losses"):
+        for k in LOSS_KEYS:
+            np.testing.assert_allclose(got[split][k], want[split][k],
+                                       rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{split} {k}")
+    saved = torch.load(folder.parents[1] / out["model"], weights_only=True)
+    one = torch.load(pdir.parents[1] / cli_runs["port"][1]["model"],
+                     weights_only=True)
+    assert {k: v.shape for k, v in saved.items()} == {
+        k: v.shape for k, v in one.items()}
 
 
 def test_cli_raises_without_a_card(monkeypatch, sketchy):

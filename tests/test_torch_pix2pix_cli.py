@@ -225,8 +225,8 @@ def test_continue_train_reproduces_two_epochs(corpus, weights, tmp_path,
 def test_entry_point_needs_a_card_or_cpu(corpus, weights, tmp_path,
                                          monkeypatch):
     """Without ``--device cpu`` and a card, both modes raise before any
-    work; several devices and an orbax directory exit naming their
-    ROADMAP items."""
+    work; generate mode over several data indices exits, and an orbax
+    directory exits naming its ROADMAP item."""
     monkeypatch.chdir(tmp_path)
     base = ["--data_root", str(corpus), *THIN]
     if not torch.cuda.is_available():
@@ -235,7 +235,10 @@ def test_entry_point_needs_a_card_or_cpu(corpus, weights, tmp_path,
                 port_cli.main(["--mode", mode, *base])
         assert not (tmp_path / "data").exists()
         assert not (tmp_path / "results").exists()
-    with pytest.raises(SystemExit, match="item 7"):
-        port_cli.main(["--tp_devices", "2", *base, "--device", "cpu"])
+    # --tp_devices runs in both modes (tests/test_torch_tp_pix2pix_cli.py);
+    # generate runs on one data index
+    with pytest.raises(SystemExit, match="generate runs on one data index"):
+        port_cli.main(["--tp_devices", "2", "--n_devices", "2", *base,
+                       "--device", "cpu"])
     with pytest.raises(SystemExit, match="item 8"):
         port_cli.main(["--model", str(weights[1]), *base, "--device", "cpu"])

@@ -84,8 +84,11 @@ def test_mesh_helpers_match_jax():
                        else None)
     assert port_mesh.mesh_from_args(1, device="cpu") is None
     assert port_mesh.mesh_from_args(3, device="cpu").size == 3
-    with pytest.raises(SystemExit, match="queue 1 item 7"):
-        port_mesh.mesh_from_args(2, tp_devices=2, device="cpu")
+    # the 2-D (data, model) mesh of tensor parallelism, JAX's shape
+    grid = port_mesh.mesh_from_args(2, tp_devices=2, device="cpu")
+    assert (grid.n_data, grid.n_model) == tuple(
+        jax_mesh.mesh_from_args(2, 2)[0].shape.values()) == (2, 2)
+    assert grid.devices == (CPU,) * 4
 
 
 def test_shard_rows_and_split_batch():

@@ -182,9 +182,11 @@ def test_train_cli_resumes(sketchy_root, init, tmp_path, monkeypatch):
                       weights_only=True)["step"] == 2 * t1["steps"]
 
 
-@pytest.mark.parametrize("flags", [["--tp_devices", "2"]])
+@pytest.mark.parametrize("flags", [["--tp_devices", "2", "--multihost"]])
 def test_train_cli_parallel_options_exit(flags):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 7"):
+    """--tp_devices runs (tests/test_torch_tp_cli.py) but, as JAX's, on
+    one host only."""
+    with pytest.raises(SystemExit, match="single-host"):
         port_cli.main(flags + ["--device", "cpu"])
 
 
