@@ -22,3 +22,22 @@ def ieee_f32() -> None:
     decimal digits), so both switches are set off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def card_fields(device: str | torch.device) -> dict:
+    """``{"device_name", "power_limit"}`` of a CUDA device as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them (a card may be set below its maximum power and then runs
+    slower, so a time recorded on it names both); ``{}`` off the card."""
+    import subprocess
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {}
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    line = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    name, limit = (s.strip() for s in line.rsplit(",", 1))
+    return {"device_name": name, "power_limit": limit}

@@ -279,6 +279,23 @@ Phases, each printing one JSON line:
                   sketches (stroke-5, stroke-3, the cached points) equal
                   bit for bit to the native C++ rasterizer and the CPU,
                   timed on the card and the host.
+23. goldens    -- ``cli/goldens.py`` on the card: the ``ci`` preset (the
+                  whole RN50 at 64 px, bf16, 12 photos; the 4-JSON
+                  contract, the port's CPU golden's gallery and query
+                  counts, finite losses, a monotone topk_acc, an MRR in
+                  (0, 1], losses within the CPU's bf16 spread of the
+                  port's CPU golden), then ``gan_ci`` and ``vae_ci``
+                  (finite float32 loss series within rel 0.1 of the CPU
+                  goldens: dropout and VAE noise come from the device's
+                  generator); then ``scripts/probe_ivf.py``'s ``run`` at
+                  100,000 clustered rows, one round, B in {1, 8}: K1's
+                  float32 form (with and without the norms given) equal
+                  to the exact route's top-10 on the near-row queries but
+                  for near-ties within float32's reach; the int8 route
+                  (K2 at r = 40 and the exact rerank) equal to the plain
+                  int8 route bit for bit, each exact neighbour it lacks
+                  outside the int8 scan's top 40 (counted); IVF recall@10
+                  at nprobe 4, 8 and 16 printed.
 
 Every kernel count is set to 0 just before each counted run (each serve
 phase's requests, the probe's runs, each ``inference`` and
@@ -288,7 +305,8 @@ the kernels line are the sums over those runs: K1's float32 form's from
 rows (``inference`` ranks its small gallery on the exact route), K2's
 from ``serve_quant``, K1's bf16 form's and P1's from the probe, the
 sharded K1's from ``serve_sharded`` and ``sharded``'s ``run_inference``
-over the mesh, the sharded K2's from ``serve_quant_sharded``; the IVF
+over the mesh, the sharded K2's from ``serve_quant_sharded``, and K1's
+and K2's from ``goldens``' run of the IVF probe; the IVF
 serve runs, train_dp, train_tp, the generator phases, pix2pix and
 photo2sketch launch none. Any
 failed check exits non-zero. The last line is
@@ -322,6 +340,7 @@ R_WIDE = (256, 512, 1024)  # K2's budgets past the JAX engine's 128
 PROBE_SHAPES = ((32, 100_352), (512, 999_424))  # (Q, N) of the K1 probe
 EVAL_CHUNKS = (76, 1024)  # inference_k1's query chunks: partial, full
 SHARDS = 4  # logical shards of the one card in the sharded runs
+ROOT = Path(__file__).resolve().parent  # the checkout
 
 
 def bound(nbytes: float, ops: float, op_rate: float):
@@ -4946,13 +4965,197 @@ def phase_photo2sketch(state) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- goldens
+
+GOLDEN_IVF_N = 100_000  # probe_ivf's gallery in the goldens phase
+# The ci preset trains in bf16 (cli/train.py's default) for 3 steps of 4.
+# The port's own CPU run of it at 1 to 8 intra-op threads spans final
+# train losses 2.2169-2.4020 (8.3% of the CPU golden's) and test losses
+# 1.3429-1.3556 (0.9%): bf16 sums move with the order of their products,
+# and the card's order is cuDNN's. The card is held within twice that
+# spread.
+CI_TRAIN_RTOL, CI_TEST_RTOL = 0.17, 0.02
+# gan_ci and vae_ci train in float32 (their CLIs' default, TF32 off) for
+# two epochs, and the CPU's runs at 1 to 4 threads agree within 3e-6. But
+# G's dropout masks and the VAE's noise come from a generator on the
+# device seeded per step: the card's generator (Philox) draws other masks
+# and noise than the CPU's from the same seeds, so the card's series is
+# another draw of the same process, not a rounding of the CPU's. JAX's
+# bounds for such a pair (bf16 against float32: rel 0.05, abs 0.02),
+# doubled for two epochs of draws on 4-image batches; a broken step (no
+# update, a NaN, a wrong sign) moves these losses by far more.
+GEN_RTOL, GEN_ATOL = 0.1, 0.04
+
+
+def _golden_ci(tmp: Path) -> dict:
+    """The ``ci`` preset on the card against the port's CPU golden."""
+    import contextlib
+
+    from art_sbir_tpu_torch.cli import goldens
+    from art_sbir_tpu_torch.core.results import RESULT_FILES
+
+    cpu = json.loads((ROOT / "goldens" / "torch_ci_cpu.json").read_text())
+    t0 = time.perf_counter()
+    with contextlib.chdir(tmp):  # the CLI exports models/<run>.pt here
+        got = goldens.main(["--preset", "ci", "--device", "cuda",
+                            "--root", "data", "--results_root", "results",
+                            "--out", "torch_ci_cuda.json"])
+        runs = sorted(Path("results").iterdir())
+        check(len(runs) == 1 and all((runs[0] / f"{name}.json").is_file()
+                                     for name in RESULT_FILES),
+              f"ci: the 4-JSON contract ({sorted(RESULT_FILES)})")
+    wall = time.perf_counter() - t0
+    check(got["backend"] == "cuda" and "H100" in got.get("device_name", ""),
+          f"ci: the golden names the card ({got.get('device_name')})")
+    check((got["n_gallery"], got["n_queries"])
+          == (cpu["n_gallery"], cpu["n_queries"]),
+          f"ci: gallery and queries {got['n_gallery']}, {got['n_queries']} "
+          f"as the CPU golden's {cpu['n_gallery']}, {cpu['n_queries']}")
+    check(all(np.isfinite([got["final_train_loss"],
+                           got["final_test_loss"]])), "ci: finite losses")
+    check(got["topk_acc"] == sorted(got["topk_acc"]),
+          f"ci: topk_acc non-decreasing ({got['topk_acc']})")
+    check(0.0 < got["mrr"] <= 1.0, f"ci: MRR {got['mrr']} in (0, 1]")
+    losses = {}
+    for key, rtol in (("final_train_loss", CI_TRAIN_RTOL),
+                      ("final_test_loss", CI_TEST_RTOL)):
+        rel = abs(got[key] - cpu[key]) / abs(cpu[key])
+        losses[key] = {"card": got[key], "cpu_golden": cpu[key],
+                       "rel": rel, "rtol": rtol}
+        check(rel <= rtol, f"ci: {key} {got[key]} within rel {rtol} of the "
+              f"CPU golden's {cpu[key]} (rel {rel:.3g})")
+    return {"n_gallery": got["n_gallery"], "n_queries": got["n_queries"],
+            "mrr": got["mrr"], "chance_mrr": got["chance_mrr"],
+            "topk_acc": got["topk_acc"], "losses": losses,
+            "device_name": got["device_name"],
+            "power_limit": got["power_limit"], "wall_s": wall,
+            "wall_times_s": got["wall_times_s"]}
+
+
+def _golden_generative(tmp: Path, preset: str) -> dict:
+    """``gan_ci`` or ``vae_ci`` on the card against the port's CPU
+    golden: the same loss series, finite, within ``GEN_RTOL`` and
+    ``GEN_ATOL``."""
+    from art_sbir_tpu_torch.cli import goldens
+
+    cpu = json.loads((ROOT / "goldens" / f"torch_{preset}_cpu.json")
+                     .read_text())
+    got = goldens.main(["--preset", preset, "--device", "cuda", "--root",
+                        str(tmp), "--out", str(tmp / f"torch_{preset}.json")])
+    check(got["backend"] == "cuda", f"{preset}: recorded on the card")
+    worst = {}
+    for split in ("train_losses", "test_losses"):
+        check(sorted(got.get(split, {})) == sorted(cpu.get(split, {})),
+              f"{preset}: the CPU golden's {split} keys")
+        for key, want in cpu.get(split, {}).items():
+            have = np.asarray(got[split][key], np.float64)
+            want = np.asarray(want, np.float64)
+            check(have.shape == want.shape and np.isfinite(have).all(),
+                  f"{preset}: {split}[{key}] finite, {len(want)} entries")
+            err = np.abs(have - want)
+            check(bool((err <= GEN_ATOL + GEN_RTOL * np.abs(want)).all()),
+                  f"{preset}: {split}[{key}] {have.tolist()} within rel "
+                  f"{GEN_RTOL} of the CPU golden's {want.tolist()}")
+            worst[f"{split}.{key}"] = float(
+                (err / np.maximum(np.abs(want), 1e-12)).max())
+    return {"final": {k: v[-1] for k, v in got["train_losses"].items()},
+            "worst_rel_to_cpu": worst, "wall_times_s": got["wall_times_s"]}
+
+
+def phase_goldens(state) -> None:
+    """The pipeline goldens' CI presets on the card, then the IVF probe at
+    100,000 rows through K1 and K2 (counted)."""
+    import torch
+
+    from art_sbir_tpu_torch.ops.quant import (_quantize_queries,
+                                              retrieve_quantized)
+    from art_sbir_tpu_torch.ops.quant_fused import quant_candidates_reference
+    from art_sbir_tpu_torch.scripts import probe_ivf
+
+    t_phase = time.perf_counter()
+    tmp = Path(state["tmp"]) / "goldens"
+    tmp.mkdir()
+    line = {"phase": "goldens", "ok": True, "ci": _golden_ci(tmp)}
+    for preset in ("gan_ci", "vae_ci"):
+        t0 = time.perf_counter()
+        line[preset] = _golden_generative(tmp / preset, preset)
+        line[preset]["wall_s"] = time.perf_counter() - t0
+
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    res = probe_ivf.run(GOLDEN_IVF_N, D, rounds=1, clustered=True,
+                        device="cuda", batches=(1, 8))
+    probe_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    fallback = {name: c.fallback_rows for name, c in counters.items()}
+    check(launches["K1"] > 0 and launches["K2"] > 0,
+          f"probe_ivf launched K1 and K2 ({launches})")
+    check(launches["K1_bf16"] == 0 and launches["P1"] == 0,
+          f"probe_ivf launched no other kernel ({launches})")
+    check(not any(fallback.values()), f"no fallback rows ({fallback})")
+    state["launches"]["K1"] = state["launches"].get("K1", 0) + launches["K1"]
+    state["launches"]["K2"] = state["launches"].get("K2", 0) + launches["K2"]
+    arr = res["arrays"]
+    q, g = arr["queries"], arr["gallery"]
+    ev, ei = arr["exact"]
+    held = {}
+    for tag in ("K1 f32", "K1 f32 gg"):  # K1 reports squared distances
+        v, i = (t.to(g.device) for t in arr[tag])
+        held[tag] = _near_exact((torch.sqrt(torch.clamp(v, min=0.0)), i),
+                                (ev, ei), q, g, "euclidean",
+                                f"probe_ivf {tag} on the near-row queries")
+    # The int8 route returns the exact top-10 of K2's 40 candidates: it
+    # equals the plain int8 route bit for bit (K2 is exact by
+    # construction), and each neighbour of the exact route's top-10 that
+    # it lacks lies outside the int8 scan's top 40 (the route's
+    # approximation, counted) or within float32's reach of the route's
+    # 10th in float64 (a near-tie, as _missing_in_float64 allows).
+    tag = "K2 r40+rerank"
+    v, i = (t.to(g.device) for t in arr[tag])
+    pv, pi = retrieve_quantized(q, arr["quantized"], g, k=K, rerank_factor=4)
+    check(torch.equal(i.long(), pi.long()) and torch.equal(v, pv),
+          f"probe_ivf {tag}: the plain int8 route's top-10 bit for bit")
+    missing = sum(len(set(ei[r].tolist()) - set(i[r].tolist()))
+                  for r in range(len(q)))
+    held[tag] = {"equals_plain_route": True, "missing_of_exact": missing,
+                 "of": int(ei.numel())}
+    for r in range(len(q)):
+        held_r = set(i[r].tolist())
+        if held_r != set(ei[r].tolist()):
+            _, cand, _ = quant_candidates_reference(
+                *_quantize_queries(q[r:r + 1].float(), "euclidean"),
+                arr["quantized"].q8, arr["quantized"].scale,
+                arr["quantized"].sq_norm, r=4 * K, metric="euclidean")
+            q64, kth = q[r].double(), int(i[r, -1])
+            d_k = float(((g[kth].double() - q64) ** 2).sum())
+            for m in (set(ei[r].tolist()) - held_r) & set(cand[0].tolist()):
+                d_m = float(((g[m].double() - q64) ** 2).sum())
+                reach = 1e-5 * (d_k + 2 * float((q64 ** 2).sum())
+                                + float((g[m].double() ** 2).sum())
+                                + float((g[kth].double() ** 2).sum()))
+                check(abs(d_m - d_k) <= reach,
+                      f"probe_ivf {tag}: query {r}'s neighbour {m}, among "
+                      f"the int8 top {4 * K}, is missing beyond a near-tie")
+    del arr, q, g
+    line["probe_ivf"] = {
+        "n": GOLDEN_IVF_N, "build_s": res["build_s"], "stats": res["stats"],
+        "recall": res["recall"], "ms_per_dispatch": res["ms_per_dispatch"],
+        "held_to_exact": held, "launches": launches, "s": probe_s}
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------- main
 
 PHASES = ("build", "kernels", "kernels_k2", "kernels_int8_wide", "probe_k1",
           "encoder", "serve", "serve_quant", "ivf", "serve_ivf", "online_ivf",
           "inference", "inference_k1", "sharded", "train", "train_dp",
           "train_tp",
-          "drawings", "artwork_gen", "dilate", "pix2pix", "photo2sketch")
+          "drawings", "artwork_gen", "dilate", "pix2pix", "photo2sketch",
+          "goldens")
 
 
 def main(argv=None) -> int:
@@ -4962,8 +5165,8 @@ def main(argv=None) -> int:
         help="comma-separated phases to run (build is always first; "
              "sharded needs inference and inference_k1; train, train_dp, "
              "train_tp, "
-             "drawings, artwork_gen, dilate, pix2pix and photo2sketch need "
-             "no other phase); a "
+             "drawings, artwork_gen, dilate, pix2pix, photo2sketch and "
+             "goldens need no other phase); a "
              "partial run "
              "prints no kernels line and no result line")
     args = parser.parse_args(argv)
