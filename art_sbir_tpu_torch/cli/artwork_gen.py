@@ -15,9 +15,11 @@ and 'adain_sketches', `artwork_gen.py:95-115`). Batched on the card;
 
 ``--model``: a directory holding the published ``vgg_normalised.pth`` and
 ``decoder.pth``, or the comma-joined pair. Without it the encoder and the
-decoder take torch's default init from ``torch.Generator``s seeded with 0
-and 1, where the JAX package takes ``jax.random.key(0)`` and ``key(1)``.
-An orbax directory is refused (ROADMAP.md queue 1 item 8).
+decoder take JAX's init distributions (``models/layers.py::flax_init``)
+from ``torch.Generator``s seeded with 0 and 1, where the JAX package
+takes ``jax.random.key(0)`` and ``key(1)``. An orbax directory is
+refused, naming ``scripts/orbax_to_pt.py``, which converts it into the
+directory form.
 """
 
 from __future__ import annotations
@@ -31,28 +33,28 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from art_sbir_tpu_torch.core.checkpoint import ORBAX_DIR
 from art_sbir_tpu_torch.core.device import ieee_f32, resolve_device
 from art_sbir_tpu_torch.data.loader import decode_image
 from art_sbir_tpu_torch.models.adain_net import (AdaINDecoder, AdaINEncoder,
                                                  style_transfer)
-from art_sbir_tpu_torch.models.layers import torch_default_init
+from art_sbir_tpu_torch.models.layers import flax_init
 from art_sbir_tpu_torch.models.port_weights import load_adain_pth, load_into
 
-NOT_PORTED = ("orbax checkpoint directories are still to port (ROADMAP.md "
-              "queue 1 item 8); pass a directory holding vgg_normalised.pth "
-              "and decoder.pth, or the comma-joined pair")
+NOT_A_MODEL = (f"{ORBAX_DIR}; or pass a directory holding "
+               "vgg_normalised.pth and decoder.pth, or the comma-joined pair")
 
 
 def load_adain(model: Optional[str], device: torch.device
                ) -> Tuple[AdaINEncoder, AdaINDecoder]:
     """(encoder, decoder) of ``--model`` on ``device``, in eval mode; a
     seeded fresh init without it."""
-    enc = torch_default_init(AdaINEncoder(), seed=0)
-    dec = torch_default_init(AdaINDecoder(), seed=1)
+    enc = flax_init(AdaINEncoder(), seed=0)
+    dec = flax_init(AdaINDecoder(), seed=1)
     if model is not None:
         if not ((Path(model) / "vgg_normalised.pth").exists()
                 or model.endswith(".pth")):
-            raise SystemExit(f"--model {model}: {NOT_PORTED}")
+            raise SystemExit(f"--model {model}: {NOT_A_MODEL}")
         enc_sd, dec_sd = load_adain_pth(model)
         load_into(enc, enc_sd, f"AdaIN encoder from {model}")
         load_into(dec, dec_sd, f"AdaIN decoder from {model}")

@@ -12,10 +12,12 @@ under ``<data_root>/<name>_drawings/``. It runs on the card; ``--device
 cpu`` runs it on the CPU.
 
 * ``--model``: a reference ``.pth`` or a port ``.pt`` (both the reference
-  layout). Without it the generator takes torch's default init drawn
-  from a ``torch.Generator`` seeded with 0, where the JAX package takes
+  layout). Without it the generator takes JAX's init distributions
+  (``models/layers.py::flax_init``) drawn from a ``torch.Generator``
+  seeded with 0, where the JAX package takes
   ``model.init(jax.random.key(0))``: the two streams differ. An orbax
-  directory is refused (ROADMAP.md queue 1 item 8).
+  directory is refused, naming ``scripts/orbax_to_pt.py``, which converts
+  it.
 * ``--bf16``: weights and input in bf16, the output back in float32 (JAX
   ``drawings.py:61-66``). Float32 runs IEEE on the card (no TF32).
 * A drawing is ``uint8(img * 255)``, truncating, as JAX writes it.
@@ -43,16 +45,15 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from art_sbir_tpu_torch.core.checkpoint import load_state_dict
+from art_sbir_tpu_torch.core.checkpoint import ORBAX_DIR, load_state_dict
 from art_sbir_tpu_torch.core.device import ieee_f32, resolve_device
 from art_sbir_tpu_torch.data.loader import decode_paths
 from art_sbir_tpu_torch.models.drawing import DrawingGenerator
-from art_sbir_tpu_torch.models.layers import torch_default_init
+from art_sbir_tpu_torch.models.layers import flax_init
 from art_sbir_tpu_torch.models.port_weights import (load_into,
                                                     load_reference_pth)
 
-NOT_PORTED = ("orbax checkpoint directories are still to port (ROADMAP.md "
-              "queue 1 item 8); pass a reference .pth or a port .pt")
+NOT_A_MODEL = f"{ORBAX_DIR}; or pass a reference .pth or a port .pt"
 
 
 def load_generator(model: Optional[str], device: torch.device,
@@ -60,10 +61,10 @@ def load_generator(model: Optional[str], device: torch.device,
     """The generator of ``--model`` (a reference ``.pth`` or a port
     ``.pt``; a seeded fresh init without one) on ``device``, in eval mode,
     bf16 with ``bf16``."""
-    gen = torch_default_init(DrawingGenerator(), seed=0)
+    gen = flax_init(DrawingGenerator(), seed=0)
     if model is not None:
         if Path(model).is_dir():
-            raise SystemExit(f"--model {model}: {NOT_PORTED}")
+            raise SystemExit(f"--model {model}: {NOT_A_MODEL}")
         sd = (load_reference_pth(model) if model.endswith(".pth")
               else load_state_dict(model))
         load_into(gen, sd, f"DrawingGenerator from {model}")

@@ -23,10 +23,12 @@ field for field:
 Every preset runs the stock CLIs (``cli/train.main``,
 ``cli/photo2sketch.main``, ``cli/pix2pix.main``) with JAX's argv plus
 ``--device``; no precision flag is passed, so each CLI's default applies
-(bf16 for the triplet trainer, float32 for the other two). The default
-output is ``goldens/torch_<preset>_<cpu|cuda>.json``: the port never
-writes the JAX package's ``goldens/<preset>_<backend>.json``. A golden
-recorded on the card also holds the card's name and power limit
+(bf16 for the triplet trainer, float32 for the other two), unless
+``--no-bf16`` asks the triplet trainer for IEEE float32 (TF32 off). The
+default output is ``goldens/torch_<preset>_<cpu|cuda>.json``, and
+``goldens/torch_<preset>_f32_<cpu|cuda>.json`` under ``--no-bf16``: the
+port never writes the JAX package's ``goldens/<preset>_<backend>.json``.
+A golden recorded on the card also holds the card's name and power limit
 (``device_name``, ``power_limit``), which its wall times stand beside.
 With ``--device cpu`` the ``*_ci`` presets first pin what makes a CPU run
 repeat bit for bit (:func:`pin_ci_environment`).
@@ -118,8 +120,9 @@ def _device_fields(device) -> dict:
 
 
 def run(preset_name: str, root: Path, results_root: Path, seed: int = 0,
-        device: str = "cuda") -> dict:
-    """Drive ``cli/train.main`` through the preset; returns the golden."""
+        device: str = "cuda", bf16: bool = True) -> dict:
+    """Drive ``cli/train.main`` through the preset (``bf16`` False: with
+    ``--no-bf16``); returns the golden."""
     from art_sbir_tpu_torch.cli import train as train_cli
 
     preset = PRESETS[preset_name]
@@ -149,6 +152,8 @@ def run(preset_name: str, root: Path, results_root: Path, seed: int = 0,
         argv += ["--width", str(preset["width"])]
     if "layers" in preset:
         argv += ["--layers"] + [str(x) for x in preset["layers"]]
+    if not bf16:
+        argv += ["--no-bf16"]
     argv += ["--device", str(device)]
     out_path = train_cli.main(argv)
     t_pipeline = time.perf_counter() - t0
@@ -161,6 +166,7 @@ def run(preset_name: str, root: Path, results_root: Path, seed: int = 0,
     n = int(stats["size"])
     return {
         "preset": preset_name,
+        **({} if bf16 else {"precision": "float32"}),
         **_device_fields(device),
         "seed": seed,
         "config": preset,
@@ -236,8 +242,9 @@ def pin_ci_environment() -> None:
     torch.use_deterministic_algorithms(True)
 
 
-def default_out(preset: str, backend: str) -> Path:
-    return Path("goldens") / f"torch_{preset}_{backend}.json"
+def default_out(preset: str, backend: str, bf16: bool = True) -> Path:
+    tag = preset if bf16 else f"{preset}_f32"
+    return Path("goldens") / f"torch_{tag}_{backend}.json"
 
 
 def main(argv=None) -> dict:
@@ -255,9 +262,14 @@ def main(argv=None) -> dict:
                         "<cpu|cuda>.json); its name starts with torch_")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' records on the CPU")
+    p.add_argument("--no-bf16", dest="bf16", action="store_false",
+                   help="the triplet presets train in IEEE float32 (TF32 "
+                        "off) instead of cli/train.py's default bf16")
     args = p.parse_args(argv)
+    if not args.bf16 and args.preset in GENERATIVE_PRESETS:
+        p.error(f"--no-bf16: {args.preset} trains in float32 already")
     out = Path(args.out) if args.out else default_out(
-        args.preset, torch.device(args.device).type)
+        args.preset, torch.device(args.device).type, args.bf16)
     if not out.name.startswith("torch_"):
         p.error(f"--out {out}: goldens/<preset>_<backend>.json are the JAX "
                 "package's; the port's goldens are named torch_*.json")
@@ -272,7 +284,7 @@ def main(argv=None) -> dict:
                              golden["train_losses"].items()}}
     else:
         golden = run(args.preset, Path(args.root), Path(args.results_root),
-                     args.seed, args.device)
+                     args.seed, args.device, args.bf16)
         summary = {k: golden[k] for k in
                    ("preset", "backend", "n_gallery", "n_queries", "mrr")}
     out.parent.mkdir(parents=True, exist_ok=True)

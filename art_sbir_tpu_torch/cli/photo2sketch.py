@@ -15,7 +15,8 @@ reference's hyperparameters. The svg and Quickdraw branches rasterize at
 256 px whatever ``--image_size`` says, as JAX does. Every train step draws
 ``rng.integers(2**31)`` from ``np.random.default_rng(seed)`` and seeds the
 step's noise generator with it, and every eval batch takes seed 0, so
-each epoch's shuffle is JAX's (the noise itself is torch's). Every
+each epoch's shuffle is JAX's (the noise itself is torch's, drawn on the
+host: the same on the card as on the CPU). Every
 ``save_rate`` epochs, and after the last, it writes the 4-JSON results
 contract (``results/Photo2Sketch_<dataset>_<time>/``, JAX's keys),
 ``loss_<key>.png`` where matplotlib is installed, the model as
@@ -25,7 +26,8 @@ sheet: greedy decodes of the first test batch's first 4 photos as
 (photo, generated, target).
 
 ``--model`` takes a port ``.pt`` or a reference state dict (the same
-keys); an orbax directory is refused (ROADMAP.md queue 1 item 8).
+keys); an orbax directory is refused, naming ``scripts/orbax_to_pt.py``,
+which converts it.
 ``--n_devices N`` (N > 1, -1: every card) trains data parallel with the
 results of one device: one rank a device (``parallel/multihost.py``;
 ``main(argv, mesh=...)`` takes a mesh that may repeat a device), each
@@ -57,7 +59,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from art_sbir_tpu_torch.core.checkpoint import checkpoint_path
+from art_sbir_tpu_torch.core.checkpoint import ORBAX_DIR, checkpoint_path
 from art_sbir_tpu_torch.core.device import ieee_f32, resolve_device
 from art_sbir_tpu_torch.core.metrics import LossTracker, Timer
 from art_sbir_tpu_torch.core.results import ResultsWriter
@@ -76,8 +78,7 @@ from art_sbir_tpu_torch.parallel.tensor import gather_state, model_shard
 from art_sbir_tpu_torch.train.vae import LOSS_KEYS, VAEConfig, VAETrainer
 from art_sbir_tpu_torch.viz.plots import loss_curves, triplet_grid
 
-NOT_PORTED = ("orbax checkpoint directories are still to port (ROADMAP.md "
-              "queue 1 item 8); pass a port .pt or a reference state dict")
+NOT_A_MODEL = f"{ORBAX_DIR}; or pass a port .pt or a reference state dict"
 SAMPLES = 4  # photos on the sample sheet
 SAMPLE_STEPS = 101
 
@@ -173,7 +174,7 @@ def batches(catalog, train: bool, rng: np.random.Generator,
 def load_weights(trainer: VAETrainer, src: str) -> None:
     """``--model`` into the trainer's model."""
     if Path(src).is_dir():
-        raise SystemExit(f"--model {src}: {NOT_PORTED}")
+        raise SystemExit(f"--model {src}: {NOT_A_MODEL}")
     load_into(trainer.model, load_reference_pth(src),
               f"Photo2Sketch from {src}")
 

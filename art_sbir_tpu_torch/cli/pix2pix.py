@@ -30,10 +30,10 @@ Float32 runs IEEE on the card (no TF32).
 * ``--model``: a reference directory holding ``latest_net_G.pth`` and,
   optionally, ``latest_net_D.pth`` (a D that does not load keeps its
   fresh init, as the reference skips it), a G ``.pth`` alone, or a port
-  ``.pt`` written by train mode. An orbax directory is refused (ROADMAP.md
-  queue 1 item 8). Without it both nets take the seeded normal(0.02) init
-  (``models/pix2pix.py::init_weights``); JAX's ``jax.random`` stream
-  differs.
+  ``.pt`` written by train mode. An orbax directory is refused, naming
+  ``scripts/orbax_to_pt.py``, which converts it. Without it both nets
+  take the seeded normal(0.02) init (``models/pix2pix.py::init_weights``);
+  JAX's ``jax.random`` stream differs.
 * ``--n_devices N`` (train mode; N > 1, -1: every card) trains data
   parallel with the results of one device: one rank a device
   (``parallel/multihost.py``; ``main(argv, mesh=...)`` takes a mesh that
@@ -65,7 +65,7 @@ import numpy as np
 import torch
 
 from art_sbir_tpu_torch.cli.drawings import overlapped
-from art_sbir_tpu_torch.core.checkpoint import (CheckpointManager,
+from art_sbir_tpu_torch.core.checkpoint import (ORBAX_DIR, CheckpointManager,
                                                 checkpoint_path,
                                                 load_state_dict)
 from art_sbir_tpu_torch.core.device import ieee_f32, resolve_device
@@ -81,9 +81,8 @@ from art_sbir_tpu_torch.parallel.tensor import model_shard
 from art_sbir_tpu_torch.train.gan import LOSS_KEYS, Pix2Pix, Pix2PixConfig
 from art_sbir_tpu_torch.viz.plots import triplet_grid, visualize
 
-NOT_PORTED = ("orbax checkpoint directories are still to port (ROADMAP.md "
-              "queue 1 item 8); pass a directory holding latest_net_G.pth, "
-              "a G .pth or a port .pt")
+NOT_A_MODEL = (f"{ORBAX_DIR}; or pass a directory holding "
+               "latest_net_G.pth, a G .pth or a port .pt")
 
 
 def to_uint8(img_signed: torch.Tensor) -> torch.Tensor:
@@ -154,7 +153,7 @@ def load_weights(model: Pix2Pix, src: str) -> None:
         load_into(model.net_d, sd["D"], f"pix2pix D from {src}")
         return
     if Path(src).is_dir() and not (Path(src) / "latest_net_G.pth").exists():
-        raise SystemExit(f"--model {src}: {NOT_PORTED}")
+        raise SystemExit(f"--model {src}: {NOT_A_MODEL}")
     g_sd, d_sd = load_pix2pix_reference(src)
     load_into(model.net_g, g_sd, f"pix2pix G from {src}")
     if d_sd is not None:

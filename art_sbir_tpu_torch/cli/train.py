@@ -66,6 +66,7 @@ import torch
 from art_sbir_tpu_torch.core.checkpoint import (CheckpointManager,
                                                 checkpoint_path,
                                                 load_state_dict,
+                                                refuse_orbax_run,
                                                 save_state_dict)
 from art_sbir_tpu_torch.core.device import ieee_f32, resolve_device
 from art_sbir_tpu_torch.core.metrics import maybe_profile
@@ -187,7 +188,14 @@ def load_warm_start(model: torch.nn.Module, path: str) -> None:
     """Load a state dict in the reference layout with ``strict=False``
     semantics (missing keys keep their init, reference
     `utils.py:167,172`); a classifier head whose size differs from the
-    model's is dropped for re-initialization (`utils.py:177-197`)."""
+    model's is dropped for re-initialization (`utils.py:177-197`). A
+    directory (a run the JAX package saved with orbax) loads the ``.pt``
+    beside it, ``<path>.pt``, which ``scripts/orbax_to_pt.py`` writes; with
+    none there it raises ``SystemExit`` naming the tool."""
+    if Path(path).is_dir():
+        run = Path(path)
+        refuse_orbax_run(run.parent, run.name)
+        path = checkpoint_path(run.parent, run.name)
     sd = load_state_dict(path)
     own = model.state_dict()
     for name in ("classifier", "classifier2"):

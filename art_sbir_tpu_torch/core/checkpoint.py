@@ -3,8 +3,10 @@ epoch-tagged resumable training checkpoints.
 
 Counterpart of ``art_sbir_tpu/core/checkpoint.py``. The JAX package keeps
 orbax checkpoints; the port saves and restores plain state dicts.
-Converting an orbax checkpoint to ``.pt`` needs orbax and is still to
-port.
+``scripts/orbax_to_pt.py``, beside both packages (it needs the JAX
+package and orbax), converts the JAX package's exports into the ``.pt``
+forms the port's CLIs take; the port refuses an orbax directory and names
+the tool (:data:`ORBAX_DIR`).
 """
 
 from __future__ import annotations
@@ -15,8 +17,23 @@ from typing import Any, Dict, Optional
 import torch
 
 
+ORBAX_DIR = ("an orbax checkpoint directory of the JAX package: convert it "
+             "with scripts/orbax_to_pt.py (run where the JAX package and "
+             "orbax are installed)")
+
+
 def checkpoint_path(models_root: Path | str, folder: str) -> Path:
     return Path(models_root) / f"{folder}.pt"
+
+
+def refuse_orbax_run(models_root: Path | str, folder: str) -> None:
+    """Raise ``SystemExit`` where ``<models_root>/<folder>/`` is a directory
+    (a run the JAX package saved with orbax) and ``<folder>.pt`` is
+    absent, rather than go on from a fresh init."""
+    run = Path(models_root) / folder
+    if run.is_dir() and not checkpoint_path(models_root, folder).is_file():
+        raise SystemExit(f"{run}: {ORBAX_DIR}, into "
+                         f"{checkpoint_path(models_root, folder)}")
 
 
 def save_state_dict(path: Path | str, state_dict: Dict[str, torch.Tensor]

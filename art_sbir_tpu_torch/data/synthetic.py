@@ -14,6 +14,8 @@ imported inside the functions.
 from __future__ import annotations
 
 import csv
+import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List
 
@@ -166,9 +168,12 @@ def make_synthetic_sketchy(root: Path | str, n_classes: int = 3,
     ``sketches_png/<class>/nX_Y-k.png`` (and ``sketches_svg/<class>/
     nX_Y-k.svg`` with ``with_svg``). ``learnable=True`` draws each sketch
     as a line drawing of its photo's shapes, so training moves recall
-    above chance."""
+    above chance. Classes are written by a pool of threads (PIL's
+    encoders release the GIL); every image has its own seed, so the files
+    do not depend on the order."""
     root = Path(root)
-    for ci in range(n_classes):
+
+    def write_class(ci: int) -> None:
         cls = f"class{ci:02d}"
         (root / "photos" / cls).mkdir(parents=True, exist_ok=True)
         (root / "sketches_png" / cls).mkdir(parents=True, exist_ok=True)
@@ -187,6 +192,12 @@ def make_synthetic_sketchy(root: Path | str, n_classes: int = 3,
                 if with_svg:
                     (root / "sketches_svg" / cls / f"{img_id}-{si}.svg"
                      ).write_text(_svg(ci * 1000 + pi * 10 + si))
+
+    from PIL import Image
+
+    Image.init()  # the format plugins, once, before the threads save
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(write_class, range(n_classes)))
     return root
 
 

@@ -12,8 +12,9 @@ Conv ``(kh, kw, in, out)`` and transposed conv ``(kh, kw, out, in)`` ->
 The ``.pth`` loaders follow ``art_sbir_tpu/cli/port.py:36-41,76-160``: a
 whole-module pickle is unwrapped with ``.state_dict()``, and a key the
 file lacks keeps the model's fresh value (the JAX package's
-``strict=False`` merge), named on stderr. Converting an orbax checkpoint
-needs orbax (and so JAX) and is still to port (ROADMAP.md queue 1 item 8).
+``strict=False`` merge), named on stderr. ``scripts/orbax_to_pt.py``
+restores the JAX package's orbax exports (it needs orbax, and so JAX) and
+writes them through these functions as the port's ``.pt`` files.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from art_sbir_tpu_torch.models import inception
 from art_sbir_tpu_torch.models.vgg import CONV_INDICES
 
 StateDict = Dict[str, torch.Tensor]
@@ -56,6 +58,20 @@ def _bn(sd: StateDict, prefix: str, p: Mapping, s: Mapping) -> None:
     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
 
 
+def _resnet_norms(tree: Mapping, layers: Sequence[int]):
+    """(port prefix, flax subtree) of each BatchNorm of a flax
+    ``ModifiedResNet`` tree, its params or its batch_stats."""
+    for i in (1, 2, 3):
+        yield f"bn{i}", tree[f"bn{i}"]
+    for stage, blocks in enumerate(layers, start=1):
+        for b in range(blocks):
+            t, pre = tree[f"layer{stage}_{b}"], f"layer{stage}.{b}"
+            for i in (1, 2, 3):
+                yield f"{pre}.bn{i}", t[f"bn{i}"]
+            if "downsample_bn" in t:
+                yield f"{pre}.downsample.1", t["downsample_bn"]
+
+
 def modified_resnet_from_flax(params: Mapping, batch_stats: Mapping,
                               layers: Sequence[int] = (3, 4, 6, 3)
                               ) -> StateDict:
@@ -63,22 +79,34 @@ def modified_resnet_from_flax(params: Mapping, batch_stats: Mapping,
     sd: StateDict = {}
     for i in (1, 2, 3):
         _conv(sd, f"conv{i}", params[f"conv{i}"])
-        _bn(sd, f"bn{i}", params[f"bn{i}"], batch_stats[f"bn{i}"])
     for stage, blocks in enumerate(layers, start=1):
         for b in range(blocks):
-            p, s = params[f"layer{stage}_{b}"], batch_stats[f"layer{stage}_{b}"]
-            pre = f"layer{stage}.{b}"
+            p, pre = params[f"layer{stage}_{b}"], f"layer{stage}.{b}"
             for i in (1, 2, 3):
                 _conv(sd, f"{pre}.conv{i}", p[f"conv{i}"])
-                _bn(sd, f"{pre}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
             if "downsample_conv" in p:
                 _conv(sd, f"{pre}.downsample.0", p["downsample_conv"])
-                _bn(sd, f"{pre}.downsample.1", p["downsample_bn"],
-                    s["downsample_bn"])
+    for (prefix, p), (_, s) in zip(_resnet_norms(params, layers),
+                                   _resnet_norms(batch_stats, layers)):
+        _bn(sd, prefix, p, s)
     attn = params["attnpool"]
     sd["attnpool.positional_embedding"] = _t(attn["positional_embedding"])
     for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
         _dense(sd, f"attnpool.{name}", attn[name])
+    return sd
+
+
+def modified_resnet_stats_from_flax(batch_stats: Mapping,
+                                    layers: Sequence[int] = (3, 4, 6, 3)
+                                    ) -> StateDict:
+    """A flax ``ModifiedResNet``'s batch_stats alone (the JAX trainer's
+    ``<run>_bn_sketch`` export) -> the port's statistics dict
+    (``<layer>.running_mean`` and ``running_var``: ``train/bn.py``'s
+    layout, which ``models/<run>_bn_sketch.pt`` holds)."""
+    sd: StateDict = {}
+    for prefix, s in _resnet_norms(batch_stats, layers):
+        sd[f"{prefix}.running_mean"] = _t(s["mean"])
+        sd[f"{prefix}.running_var"] = _t(s["var"])
     return sd
 
 
@@ -298,4 +326,72 @@ def photo2sketch_from_flax(params: Mapping) -> StateDict:
     _conv(sd, "Sketch_Decoder.attention_cell.conv_f", att["conv_f"])
     _dense(sd, "Sketch_Decoder.attention_cell.conv_h", att["conv_h"])
     _dense(sd, "Sketch_Decoder.attention_cell.conv_att", att["conv_att"])
+    return sd
+
+
+def _basic_conv(sd: StateDict, prefix: str, p: Mapping, s: Mapping) -> None:
+    """A flax ``BasicConv2d`` (``Conv_0``, ``BatchNorm_0``) -> torchvision's
+    ``<prefix>.conv`` and ``<prefix>.bn``."""
+    _conv(sd, f"{prefix}.conv", p["Conv_0"])
+    _bn(sd, f"{prefix}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+
+
+def inception_v3_from_flax(params: Mapping, batch_stats: Mapping
+                           ) -> StateDict:
+    """Flax ``InceptionV3`` (params, batch_stats) -> the port's
+    torchvision-layout state dict. Flax names each block by its class
+    and call order (``BasicConv2d_0``, ``InceptionA_2``, ...); the call
+    order inside each block is torchvision's attribute order, which
+    :mod:`~art_sbir_tpu_torch.models.inception` keeps (``AuxLogits`` is
+    there only where the tree was made in train mode)."""
+    sd: StateDict = {}
+    for i, (name, *_) in enumerate(inception.STEM):
+        _basic_conv(sd, name, params[f"BasicConv2d_{i}"],
+                    batch_stats[f"BasicConv2d_{i}"])
+    seen: Dict[str, int] = {}
+    for name, block, args in inception.MIXED:
+        kind = block.__name__
+        flax_name = f"{kind}_{seen.get(kind, 0)}"
+        seen[kind] = seen.get(kind, 0) + 1
+        with torch.device("meta"):  # the children's names, no weights
+            children = [n for n, _ in block(*args).named_children()]
+        for j, child in enumerate(children):
+            _basic_conv(sd, f"{name}.{child}",
+                        params[flax_name][f"BasicConv2d_{j}"],
+                        batch_stats[flax_name][f"BasicConv2d_{j}"])
+    if "AuxLogits" in params:
+        p, s = params["AuxLogits"], batch_stats["AuxLogits"]
+        for j, child in enumerate(("conv0", "conv1")):
+            _basic_conv(sd, f"AuxLogits.{child}", p[f"BasicConv2d_{j}"],
+                        s[f"BasicConv2d_{j}"])
+        _dense(sd, "AuxLogits.fc", p["Dense_0"])
+    _dense(sd, "fc", params["fc"])
+    return sd
+
+
+def residual_attention_block_from_flax(params: Mapping) -> StateDict:
+    """Flax ``ResidualAttentionBlock`` params -> the port's (the
+    reference's) keys. ``MultiHeadDotProductAttention``'s q, k and v
+    kernels, (D, H, D/H) with (H, D/H) biases, stack into
+    ``attn.in_proj_weight`` (3D, D) head-major; its out kernel, (H, D/H,
+    D), is ``attn.out_proj``'s (D, D) transposed; the LayerNorms' scale
+    and bias are ``ln_*.weight`` and ``.bias``."""
+    sd: StateDict = {}
+    attn = params["attn"]
+    qkv = [np.asarray(attn[n]["kernel"]) for n in ("query", "key", "value")]
+    d = qkv[0].shape[0]
+    sd["attn.in_proj_weight"] = _t(np.concatenate(
+        [k.reshape(d, -1).T for k in qkv]))
+    sd["attn.in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(attn[n]["bias"]).reshape(-1)
+         for n in ("query", "key", "value")]))
+    sd["attn.out_proj.weight"] = _t(
+        np.asarray(attn["out"]["kernel"]).reshape(-1, d).T)
+    sd["attn.out_proj.bias"] = _t(attn["out"]["bias"])
+    for ln in ("ln_1", "ln_2"):
+        p = params[ln]["LayerNorm_0"]
+        sd[f"{ln}.weight"] = _t(p["scale"])
+        sd[f"{ln}.bias"] = _t(p["bias"])
+    _dense(sd, "mlp.c_fc", params["c_fc"])
+    _dense(sd, "mlp.c_proj", params["c_proj"])
     return sd

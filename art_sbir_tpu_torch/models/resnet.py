@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from art_sbir_tpu_torch.core.device import resolve_device
-from art_sbir_tpu_torch.models.layers import BN_MOMENTUM
+from art_sbir_tpu_torch.models.layers import BN_MOMENTUM, flax_init
 from art_sbir_tpu_torch.parallel.tensor import whole
 
 
@@ -51,7 +51,8 @@ class Linear(nn.Linear):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d (momentum ``BN_MOMENTUM``, eps 1e-5) with float32 state.
+    """BatchNorm2d (momentum ``BN_MOMENTUM``, eps 1e-5 unless given) with
+    float32 state.
 
     Train mode normalizes by the batch's biased statistics in float32 (or
     the input's dtype where it is wider) and
@@ -76,8 +77,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     the input is whole, so the forward gathers them (one collective a
     call) and a running-statistics update writes the rank's slice."""
 
-    def __init__(self, c: int):
-        super().__init__(c, eps=1e-5, momentum=BN_MOMENTUM)
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__(c, eps=eps, momentum=BN_MOMENTUM)
         self.record = None
         self.sync = False
 
@@ -269,25 +270,18 @@ class ModifiedResNetWithClassification(ModifiedResNet):
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded fresh init from an explicit CPU ``torch.Generator`` (the same
-    weights on every device): conv and linear weights N(0, 1/fan_in)
-    (flax's lecun scale), zero biases, identity BatchNorm, positional
-    embedding N(0, 1)/sqrt(C)."""
+    weights on every device), in the JAX package's distributions
+    (:func:`~art_sbir_tpu_torch.models.layers.flax_init`): conv and linear
+    weights, the classifier heads included, flax's ``lecun_normal`` (a
+    normal truncated at +-2 of its stds, variance 1/fan_in), zero biases,
+    identity BatchNorm, and the positional embedding N(0, 1)/sqrt(C)
+    (JAX ``resnet.py:96-100``)."""
     gen = torch.Generator().manual_seed(seed)
-
-    def randn(shape):
-        return torch.randn(shape, generator=gen)
-
+    flax_init(model, gen=gen)
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
-            fan_in = mod.weight[0].numel()
-            mod.weight.copy_(randn(mod.weight.shape) / fan_in ** 0.5)
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.BatchNorm2d):
-            mod.reset_parameters()
-        elif isinstance(mod, AttentionPool2d):
+        if isinstance(mod, AttentionPool2d):
             pe = mod.positional_embedding
-            pe.copy_(randn(pe.shape) / pe.shape[1] ** 0.5)
+            pe.copy_(torch.randn(pe.shape, generator=gen) / pe.shape[1] ** 0.5)
     return model
 
 

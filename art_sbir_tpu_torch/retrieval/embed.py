@@ -107,9 +107,19 @@ def load_image_features(folder_name: str,
                         ) -> Tuple[List[Path], np.ndarray]:
     """(paths, features) from a ``.npy`` cache or a reference-style
     ``image_features.csv``."""
+    paths, feats = load_feature_cache(folder_name, root)
+    return [Path(p) for p in paths], feats
+
+
+def load_feature_cache(folder_name: str,
+                       root: Path | str = Path("data/image_features")
+                       ) -> Tuple[List[str], np.ndarray]:
+    """:func:`load_image_features` with the paths as strings, as the
+    engine and the ranking take them: a ``Path`` a row costs the host
+    seconds at 10^6 rows."""
     folder = Path(root) / folder_name
     with open(folder / "image_paths.csv") as f:
-        paths = [Path(row[0]) for row in csv.reader(f) if row]
+        paths = [row[0] for row in csv.reader(f) if row]
     npy = folder / "image_features.npy"
     if npy.is_file():
         feats = np.load(npy)

@@ -18,7 +18,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from art_sbir_tpu_torch.core.checkpoint import checkpoint_path, load_state_dict
+from art_sbir_tpu_torch.core.checkpoint import (checkpoint_path,
+                                                load_state_dict,
+                                                refuse_orbax_run)
 from art_sbir_tpu_torch.core.device import resolve_device
 from art_sbir_tpu_torch.core.metrics import Timer
 from art_sbir_tpu_torch.data import get_datasets
@@ -26,7 +28,7 @@ from art_sbir_tpu_torch.data.catalog import InferenceCatalog
 from art_sbir_tpu_torch.data.loader import GalleryLoader
 from art_sbir_tpu_torch.models.resnet import create_encoder
 from art_sbir_tpu_torch.retrieval.embed import (embed_batched,
-                                                load_image_features,
+                                                load_feature_cache,
                                                 save_image_features)
 from art_sbir_tpu_torch.retrieval.rank import evaluate_retrieval
 
@@ -54,7 +56,10 @@ def restore_encoder(folder: str, param_dict: Dict, models_root,
     """(the run's bf16 encoder in eval mode, whether it was restored):
     restored from ``<models_root>/<folder>.pt``, else a seed-0 fresh
     init. Runs trained with another tower geometry record it in
-    ``training_params.json`` (``param_dict``)."""
+    ``training_params.json`` (``param_dict``). A run the JAX package saved
+    (an orbax directory ``<models_root>/<folder>/``) without a ``.pt``
+    beside it raises ``SystemExit`` naming ``scripts/orbax_to_pt.py``."""
+    refuse_orbax_run(models_root, folder)
     model_type = param_dict.get("model_type") or folder.split("_")[0]
     model = create_encoder(
         with_classification=("with_classification" in model_type
@@ -133,8 +138,8 @@ def run_inference(forward_fn: Callable[[torch.Tensor], torch.Tensor],
     loaders: List[GalleryLoader] = []
 
     if feature_folder:
-        image_paths, gallery = load_image_features(feature_folder,
-                                                   feature_root)
+        image_paths, gallery = load_feature_cache(feature_folder,
+                                                  feature_root)
         feature_name, gallery_s = feature_folder, None
     else:
         # stays on the device for the ranking; only the cache goes to disk

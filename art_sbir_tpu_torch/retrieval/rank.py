@@ -17,6 +17,7 @@ with query chunks on the device and metric assembly on the host:
 
 from __future__ import annotations
 
+import os
 import random
 from pathlib import Path
 from typing import Dict, Optional, Sequence
@@ -55,6 +56,19 @@ def sketch_stem_to_name(sketch_path: Path | str,
     return None
 
 
+def path_stem(p: Path | str) -> str:
+    """``Path(p).stem`` without building a ``Path`` (seconds for 10^6
+    gallery paths): the last component less its last suffix, by pathlib's
+    rule; a last component that pathlib would normalise ("", ".") goes
+    through ``Path``."""
+    s = os.fspath(p)
+    name = s[s.rfind("/") + 1:]
+    if name in ("", "."):
+        return Path(s).stem
+    i = name.rfind(".")
+    return name[:i] if 0 < i < len(name) - 1 else name
+
+
 def positive_indices(sketch_paths: Sequence[Path | str],
                      image_paths: Sequence[Path | str]) -> np.ndarray:
     """First gallery index whose stem matches each sketch's parsed name;
@@ -63,7 +77,7 @@ def positive_indices(sketch_paths: Sequence[Path | str],
     artworks = len(image_paths) > 0 and "artworks" in str(image_paths[0])
     stem_to_idx: Dict[str, int] = {}
     for i, p in enumerate(image_paths):
-        stem_to_idx.setdefault(Path(p).stem, i)  # first match wins
+        stem_to_idx.setdefault(path_stem(p), i)  # first match wins
     names = [sketch_stem_to_name(p, artworks) for p in sketch_paths]
     return np.array([-1 if n is None else stem_to_idx.get(n, -1)
                      for n in names], dtype=np.int32)

@@ -77,7 +77,7 @@ from art_sbir_tpu_torch.ops.retrieval_fused import (K_MAX, gallery_norms,
 from art_sbir_tpu_torch.ops.sharded import gather_to, lexsort_topk_merge
 from art_sbir_tpu_torch.parallel.mesh import shard_rows
 from art_sbir_tpu_torch.retrieval import rank
-from art_sbir_tpu_torch.retrieval.embed import (load_image_features,
+from art_sbir_tpu_torch.retrieval.embed import (load_feature_cache,
                                                 save_image_features)
 
 
@@ -861,5 +861,6 @@ def engine_from_feature_cache(forward_fn: Callable, folder_name: str,
                               root: Path | str = Path("data/image_features"),
                               **kw) -> RetrievalEngine:
     """An engine over a saved gallery cache (``.npy`` or reference CSV)."""
-    paths, feats = load_image_features(folder_name, root)
-    return RetrievalEngine(forward_fn, feats.astype(np.float32), paths, **kw)
+    paths, feats = load_feature_cache(folder_name, root)
+    return RetrievalEngine(forward_fn, np.asarray(feats, np.float32), paths,
+                           **kw)

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from art_sbir_tpu_torch.core.device import resolve_device
+from art_sbir_tpu_torch.models.layers import flax_init
 from art_sbir_tpu_torch.models.photo2sketch import Photo2Sketch
 from art_sbir_tpu_torch.ops.gmm import (kl_divergence_to_standard_normal,
                                         sketch_reconstruction_loss)
@@ -128,18 +129,16 @@ def clip_by_global_norm(grads, max_norm: float,
 class VAETrainer:
     """The VAE and its Adam optimizer. Batches hold ``photo`` (B, 3, S, S),
     ImageNet-normalized, and ``sketch_vector`` (B, T, 5). The weights are
-    torch's default init under ``torch.manual_seed(seed)`` (the global
-    generator is restored afterwards); JAX's ``jax.random`` stream
-    differs."""
+    drawn in JAX's distributions by :func:`flax_init` from a
+    ``torch.Generator`` seeded with ``seed`` (JAX's ``jax.random`` stream
+    itself cannot be matched)."""
 
     def __init__(self, cfg: VAEConfig, seed: int = 0, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            model = Photo2Sketch(
-                cfg.z_size, cfg.dec_rnn_size, cfg.num_mixture,
-                dtype=torch.bfloat16 if cfg.bf16_encoder else None)
+        model = flax_init(Photo2Sketch(
+            cfg.z_size, cfg.dec_rnn_size, cfg.num_mixture,
+            dtype=torch.bfloat16 if cfg.bf16_encoder else None), seed)
         self.model = model.to(self.device)
         self.optimizer = torch_adam(self.model.parameters(),
                                     cfg.learning_rate, betas=(0.5, 0.999))
@@ -162,8 +161,11 @@ class VAETrainer:
 
     def _noise(self, noise: Union[int, torch.Tensor, torch.Generator],
                b: int = 0, rows: Optional[Tuple[int, int]] = None):
+        """A seed becomes a CPU generator's: the noise, drawn on the host
+        and moved to the model's device, is then the same on every
+        device, as the weights are."""
         if isinstance(noise, int):
-            noise = torch.Generator(self.device).manual_seed(noise)
+            noise = torch.Generator().manual_seed(noise)
         if isinstance(noise, torch.Generator) and rows is not None:
             off, total = rows
             noise = torch.randn(
@@ -177,7 +179,7 @@ class VAETrainer:
                ) -> Dict[str, torch.Tensor]:
         """The three losses at the current step count. ``noise`` is the
         reparameterization noise (B, z_size), a ``torch.Generator`` or a
-        seed for one on the trainer's device. ``rows`` = (offset, total):
+        seed for a CPU one (:meth:`_noise`). ``rows`` = (offset, total):
         ``batch`` is this rank's rows of a global batch of ``total``."""
         cfg = self.cfg
         sketch = self._in(batch["sketch_vector"])

@@ -29,7 +29,7 @@ from art_sbir_tpu_torch.data.synthetic import (make_synthetic_kaggle,
 from art_sbir_tpu_torch.data.unpaired import UnpairedImageCatalog
 from art_sbir_tpu_torch.models.adain_net import AdaINDecoder, AdaINEncoder
 from art_sbir_tpu_torch.models.drawing import DrawingGenerator
-from art_sbir_tpu_torch.models.layers import torch_default_init
+from art_sbir_tpu_torch.models.layers import flax_init
 
 SIZE = 64
 
@@ -65,7 +65,7 @@ def drawing_runs(tmp_path_factory):
     ``--bf16``."""
     base = tmp_path_factory.mktemp("drawings")
     pth = base / "contour.pth"
-    torch.save(torch_default_init(DrawingGenerator(), seed=0).state_dict(),
+    torch.save(flax_init(DrawingGenerator(), seed=0).state_dict(),
                pth)
     roots = _corpora(base)
     common = ["--image_size", str(SIZE), "-b", "4", "--model", str(pth)]
@@ -114,21 +114,22 @@ def test_drawings_cli_bf16_close_to_float32(drawing_runs):
 
 def test_drawings_model_flag(tmp_path):
     """A port ``.pt`` loads as a ``.pth`` does; an orbax directory is
-    refused, naming the queue item."""
+    refused, naming the converter."""
     from art_sbir_tpu_torch.core.checkpoint import save_state_dict
 
-    sd = torch_default_init(DrawingGenerator(), seed=4).state_dict()
+    sd = flax_init(DrawingGenerator(), seed=4).state_dict()
     save_state_dict(tmp_path / "g.pt", sd)
     gen = drawings.load_generator(str(tmp_path / "g.pt"), torch.device("cpu"))
     assert all(torch.equal(v, sd[k]) for k, v in gen.state_dict().items())
-    with pytest.raises(SystemExit, match="queue 1 item 8"):
+    with pytest.raises(SystemExit, match="scripts/orbax_to_pt.py"):
         drawings.load_generator(str(tmp_path), torch.device("cpu"))
 
 
 def _he_init(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Conv weights N(0, 2 / fan_in) and zero biases from numpy: through the
-    AdaIN networks' 18 convs without norms, torch's default init shrinks
-    the signal to the last bias, and every output would be one colour."""
+    AdaIN networks' 18 convs without norms, the fresh init (variance
+    1 / fan_in, halved by each ReLU) shrinks the signal to the last bias,
+    and every output would be one colour."""
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -196,7 +197,7 @@ def test_artwork_gen_cli_matches_jax(tmp_path, adain_pair):
 
 
 def test_artwork_gen_refuses_an_orbax_directory(tmp_path):
-    with pytest.raises(SystemExit, match="queue 1 item 8"):
+    with pytest.raises(SystemExit, match="scripts/orbax_to_pt.py"):
         artwork_gen.load_adain(str(tmp_path), torch.device("cpu"))
 
 
@@ -332,9 +333,9 @@ def test_cuda_generators_match_the_cpu(tmp_path):
     ieee_f32()
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.random((2, 3, SIZE, SIZE)).astype(np.float32))
-    gen = torch_default_init(DrawingGenerator(), seed=0).eval()
-    enc = torch_default_init(AdaINEncoder(), seed=0).eval()
-    dec = torch_default_init(AdaINDecoder(), seed=1).eval()
+    gen = flax_init(DrawingGenerator(), seed=0).eval()
+    enc = flax_init(AdaINEncoder(), seed=0).eval()
+    dec = flax_init(AdaINDecoder(), seed=1).eval()
     with torch.no_grad():
         cpu = [gen(x), style_transfer(enc, dec, x, x.flip(0))]
         card = [gen.cuda()(x.cuda()),

@@ -135,12 +135,15 @@ def test_conv_transpose_geometry_matches_jax(rng, k, s, p, op, size):
 
 
 def test_torch_default_init_is_seeded():
-    a = PL.torch_default_init(PD.DrawingGenerator(), seed=0).state_dict()
-    b = PL.torch_default_init(PD.DrawingGenerator(), seed=0).state_dict()
-    c = PL.torch_default_init(PD.DrawingGenerator(), seed=1).state_dict()
+    """The generators' fresh init (``flax_init``, the JAX package's
+    distributions) is a function of the seed alone."""
+    a = PL.flax_init(PD.DrawingGenerator(), seed=0).state_dict()
+    b = PL.flax_init(PD.DrawingGenerator(), seed=0).state_dict()
+    c = PL.flax_init(PD.DrawingGenerator(), seed=1).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["model0.1.weight"], c["model0.1.weight"])
-    bound = 1.0 / np.sqrt(3 * 49)  # kaiming uniform a=sqrt(5): 1/sqrt(fan_in)
+    # flax's truncated lecun normal: |w| <= 2 / 0.8796 / sqrt(fan_in)
+    bound = 2.0 / PL.TRUNC_NORMAL_STD / np.sqrt(3 * 49)
     assert float(a["model0.1.weight"].abs().max()) <= bound
 
 
@@ -460,7 +463,7 @@ def test_adain_loader_drops_keys_past_relu4_1(tmp_path, capsys):
     lacks raises."""
     vgg = _full_vgg_normalised()
     assert max(int(k.split(".")[0]) for k in vgg.state_dict()) == 51
-    dec = PL.torch_default_init(PA.AdaINDecoder(), seed=5)
+    dec = PL.flax_init(PA.AdaINDecoder(), seed=5)
     torch.save(vgg.state_dict(), tmp_path / "vgg_normalised.pth")
     torch.save(dec, tmp_path / "decoder.pth")  # a whole module
     enc_sd, dec_sd = PW.load_adain_pth(str(tmp_path))

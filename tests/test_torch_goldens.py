@@ -9,8 +9,9 @@ goldens.
   tables equal field for field.
 * **The corpus.** ``ensure_corpus`` writes JAX's files bit for bit and
   its marker skips a second build.
-* **The port's CPU goldens.** ``ci``, ``gan_ci`` and ``vae_ci`` on the
-  CPU reproduce ``goldens/torch_*_cpu.json``: metrics exactly, losses at
+* **The port's CPU goldens.** ``ci`` (in bf16, and in float32 under
+  ``--no-bf16``), ``gan_ci`` and ``vae_ci`` on the CPU reproduce
+  ``goldens/torch_*_cpu.json``: metrics exactly, losses at
   rtol 1e-6 (``tests/test_goldens.py``'s discipline), under
   ``pin_ci_environment`` (one torch thread: bf16 sums on the CPU move
   with the thread count).
@@ -155,9 +156,14 @@ def test_presets_match_jax():
 def test_default_out_never_names_a_jax_golden(tmp_path):
     assert port_goldens.default_out("ci", "cpu") == Path(
         "goldens/torch_ci_cpu.json")
+    assert port_goldens.default_out("ci", "cpu", bf16=False) == Path(
+        "goldens/torch_ci_f32_cpu.json")
     with pytest.raises(SystemExit):
         port_goldens.main(["--preset", "ci", "--device", "cpu", "--out",
                            str(tmp_path / "ci_cpu.json")])
+    with pytest.raises(SystemExit):  # the generative CLIs are float32
+        port_goldens.main(["--preset", "vae_ci", "--no-bf16", "--device",
+                           "cpu", "--out", str(tmp_path / "torch_v.json")])
 
 
 def test_ensure_corpus_matches_jax_and_skips_a_second_build(tmp_path,
@@ -198,6 +204,23 @@ def test_ci_preset_reproduces_golden(tmp_path, one_thread, monkeypatch):
                            seed=want["seed"], device="cpu")
     for key in ("n_gallery", "n_queries", "mrr", "topk_acc", "rank_mean",
                 "rank_std", "epoch_metrics", "config", "dataset"):
+        assert got[key] == want[key], key
+    for key in ("final_train_loss", "final_test_loss"):
+        assert got[key] == pytest.approx(want[key], rel=1e-6), key
+
+
+def test_ci_f32_preset_reproduces_golden(tmp_path, one_thread, monkeypatch):
+    """``--no-bf16``: the ``ci`` preset in IEEE float32 reproduces
+    ``goldens/torch_ci_f32_cpu.json``, which ``chip_smoke.py``'s
+    ``goldens`` phase holds the card's float32 run to."""
+    monkeypatch.chdir(tmp_path)
+    want = _want("ci_f32")
+    assert want["precision"] == "float32"
+    got = port_goldens.run("ci", tmp_path / "data", tmp_path / "results",
+                           seed=want["seed"], device="cpu", bf16=False)
+    for key in ("n_gallery", "n_queries", "mrr", "topk_acc", "rank_mean",
+                "rank_std", "epoch_metrics", "config", "dataset",
+                "precision"):
         assert got[key] == want[key], key
     for key in ("final_train_loss", "final_test_loss"):
         assert got[key] == pytest.approx(want[key], rel=1e-6), key

@@ -240,5 +240,5 @@ def test_entry_point_needs_a_card_or_cpu(corpus, weights, tmp_path,
     with pytest.raises(SystemExit, match="generate runs on one data index"):
         port_cli.main(["--tp_devices", "2", "--n_devices", "2", *base,
                        "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 8"):
+    with pytest.raises(SystemExit, match="scripts/orbax_to_pt.py"):
         port_cli.main(["--model", str(weights[1]), *base, "--device", "cpu"])

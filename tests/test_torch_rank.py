@@ -53,6 +53,17 @@ def test_positive_indices_match_jax(gallery):
     assert (got == -1).any() and (got >= 0).any()
 
 
+@pytest.mark.parametrize("path", [
+    "g/n01_2.jpg", "g/a.tar.gz", "g/.hidden", "g/foo.", "g/..", "..", ".",
+    "", "g/b/", "g/b/.", "g//c.png", "/abs/d.jpeg", "e", "g/f..", "g/.g.h",
+    "g/n01_2", "./x.jpg"])
+def test_path_stem_is_pathlibs(path):
+    """``path_stem`` (no ``Path`` a gallery row) gives ``Path.stem``."""
+    from pathlib import Path
+    assert port_rank.path_stem(path) == Path(path).stem
+    assert port_rank.path_stem(Path(path)) == Path(path).stem
+
+
 @pytest.mark.parametrize("n", [1, 2, 7, 40, 1001])
 def test_describe_matches_pandas(n):
     ranks = np.random.default_rng(n).integers(1, 500, n).astype(np.int64)

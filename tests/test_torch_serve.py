@@ -389,6 +389,11 @@ def test_feature_cache_byte_compatible(tmp_path, data, direction):
     got_paths, got = readers[dst](folder, tmp_path / src)
     assert [str(p) for p in got_paths] == paths
     np.testing.assert_array_equal(got, feats)
+    if dst == "port":  # the engine's reader: the same, paths as strings
+        str_paths, str_got = port_embed.load_feature_cache(folder,
+                                                           tmp_path / src)
+        assert str_paths == paths
+        np.testing.assert_array_equal(str_got, feats)
     other = writers[dst]("Model", "Set", paths, feats, root=tmp_path / dst,
                          timestamp="2026-01-01_00-00")
     assert other == folder
