@@ -132,6 +132,59 @@ class CudaKernel:
         return tuple(o.value for o in outs)
 
 
+_SCRATCH: dict = {}
+_SCRATCH_LOCK = threading.Lock()
+
+
+def scratch(device: torch.device, nbytes: int) -> torch.Tensor:
+    """A byte buffer of at least ``nbytes`` on ``device`` for a kernel's
+    scratch, kept from call to call for each (device, current stream).
+    Launches on one stream run in order, so a later launch on it cannot
+    touch the buffer while an earlier one uses it; hold the returned
+    tensor until the launch is queued (a larger request replaces the
+    buffer, and the old one is freed once no caller holds it)."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _SCRATCH_LOCK:
+        buf = _SCRATCH.get(key)
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(max(nbytes, 1 << 20), dtype=torch.uint8,
+                              device=device)
+            _SCRATCH[key] = buf
+    return buf
+
+
+class Plans:
+    """What a launch over a fixed gallery derives from its tensors once
+    (their checks, the host arrays of their pointers), kept by the
+    tensors' :func:`signature`: a gallery's shards do not change between
+    calls, so their checks are not repeated a call."""
+
+    def __init__(self, size: int = 64):
+        self._lock = threading.Lock()
+        self._plans = {}
+        self._size = size
+
+    def get(self, key, make):
+        """The plan of ``key``, made by ``make()`` (which raises on bad
+        tensors) the first time."""
+        with self._lock:
+            plan = self._plans.get(key)
+        if plan is None:
+            plan = make()
+            with self._lock:
+                if len(self._plans) >= self._size:
+                    self._plans.clear()
+                self._plans[key] = plan
+        return plan
+
+
+def signature(tensors) -> tuple:
+    """What a check of ``tensors`` depends on: address, shape, strides,
+    type and device of each."""
+    return tuple((t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
+                 for t in tensors)
+
+
 def grid_splits(q_tiles: int, n_tiles: int, device: torch.device,
                 per_sm: int = BLOCKS_PER_SM) -> int:
     """Gallery splits of a two-pass sweep: as many blocks as fill the card

@@ -30,12 +30,7 @@
 //     float32 form, k1_positive_bf16 (one warp for 8 queries, the same
 //     mma.sync steps) in the bf16 form. (The TPU kernel takes it from a
 //     separate elementwise sum of the float32 inputs, so a duplicate of
-//     the positive can miss the tie by an ulp.) A shard of a row-sharded
-//     gallery is given it instead (pos_given): the shard that owns the
-//     positive computes it alone (k1_positive_distance), with its own
-//     norms, and the result is given to every shard. The sweep's
-//     arithmetic does not depend on a row's place, so the shards' columns
-//     and the positive's distance have the bits of the unsharded sweep's.
+//     the positive can miss the tie by an ulp.)
 //  1. k1::sweep_partial<T, TQ, 3> (k1_sweep.cuh, shared with the ablation
 //     probe P1): a cp.async ring over the gallery, query tiles of 8 to 64
 //     rows chosen from Q, the cross term (float32 FMA, or bf16 mma.sync),
@@ -48,6 +43,30 @@
 //
 // The result is exact by construction, so `exact` is 1 on every row.
 // Sentinel: value 3e38 with index N, as on the TPU.
+//
+// The row-sharded gallery (sharded K1). Replaces the TPU kernel under
+// `shard_map` (retrieve_fused_sharded_core, retrieval_pallas.py:746, the
+// shard_map at :858): each device sweeps its shards, and the partials merge
+// by (value, global index) with the rank partials summed and the
+// certificates ANDed. Its bound is the bound of the sweep over the whole
+// gallery (N*D bytes, 2*Q*N*D operations), plus the merge's S*Q*k entries
+// read once. The design keeps the launches a call at what the unsharded
+// sweep takes:
+//  * the shards of one device are one launch of each kernel above, through
+//    a table of shard pointers and first rows passed by value (k1::Shards):
+//    k1_positive_shards, then k1_sweep_shards (the sweep over all of them,
+//    C * S runs of global indices, and k1_merge over those runs), so 4
+//    shards of one card cost about what the unsharded sweep costs;
+//  * the positive's distance is computed by the shard that holds the
+//    positive, with its own norms (0 on the devices that hold none of
+//    them, so the devices' vectors sum to it); the sweep's arithmetic does
+//    not depend on a row's place, so the shards' columns and the positive's
+//    distance have the bits of the unsharded sweep's;
+//  * over several devices, k1_merge_runs on the first device merges the
+//    devices' runs (any run and query strides: it also merges the int8
+//    route's per-shard runs, ops/quant.py), sums their rank partials and
+//    ANDs their certificates: one launch instead of the stacks, sorts and
+//    reductions of a library merge.
 
 #include "k1_sweep.cuh"
 
@@ -57,28 +76,37 @@ constexpr int K_MAX = 128;  // the TPU kernel's bound on k
 constexpr int MERGE_THREADS = 256;
 constexpr int MERGE_HEADS = 4;  // runs per merge thread: S <= 1024
 
-// Whether query qi's positive is taken: always (owned = 0, its column
-// clamped into the gallery), or only where it lies in this gallery (owned =
-// 1: a shard of a row-sharded gallery, whose other shards own the rest).
-__device__ __forceinline__ bool take_positive(const int* pos, int qi, int Q, int N, int owned) {
-  return qi < Q && (!owned || (pos[qi] >= 0 && pos[qi] < N));
+// The gallery of `sh` that holds global row p (N rows each), or -1: the
+// positive's own gallery, or none on a device that holds other shards.
+template <typename T>
+__device__ __forceinline__ int gallery_of(const k1::Shards<T>& sh, int p, int N) {
+  for (int c = 0; c < sh.count; ++c)
+    if (p >= sh.row0[c] && p - sh.row0[c] < N) return c;
+  return -1;
 }
 
 // The positive's own distance in the float32 form, with the same FMA chain
 // over D as the sweep gives its column, so a duplicate of the positive ties
-// with it exactly. One thread a query.
+// with it exactly. One thread a query; the positive's row is clamped into
+// [0, n_out), and a query whose positive lies in none of the galleries gets
+// 0.
 __global__ void k1_positive(const float* __restrict__ q, const float* __restrict__ qq,
-                            const int* __restrict__ pos, const float* __restrict__ g,
-                            const float* __restrict__ gg, int Q, int N, int D, int metric,
-                            int owned, float* __restrict__ d2pos) {
+                            const int* __restrict__ pos, const k1::Shards<float> sh, int Q,
+                            int N, int D, int metric, float* __restrict__ d2pos) {
   const int qi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (!take_positive(pos, qi, Q, N, owned)) return;
-  const int p = min(max(pos[qi], 0), N - 1);
+  if (qi >= Q) return;
+  const int p = min(max(pos[qi], 0), sh.n_out - 1);
+  const int c = gallery_of(sh, p, N);
+  if (c < 0) {
+    d2pos[qi] = 0.0f;
+    return;
+  }
+  const int row = p - sh.row0[c];
   const float* a = q + static_cast<size_t>(qi) * D;
-  const float* b = g + static_cast<size_t>(p) * D;
+  const float* b = sh.g[c] + static_cast<size_t>(row) * D;
   float acc = 0.0f;
   for (int d = 0; d < D; ++d) acc = fmaf(a[d], b[d], acc);
-  d2pos[qi] = k1::column_distance(metric, qq[qi], gg[p], acc);
+  d2pos[qi] = k1::column_distance(metric, qq[qi], sh.gg[c][row], acc);
 }
 
 // The positive's own distance in the bf16 form, from the sweep's own
@@ -90,85 +118,144 @@ __global__ void k1_positive(const float* __restrict__ q, const float* __restrict
 // taken (the whole warp runs the mma.sync steps).
 __global__ void k1_positive_bf16(const __nv_bfloat16* __restrict__ q,
                                  const float* __restrict__ qq, const int* __restrict__ pos,
-                                 const __nv_bfloat16* __restrict__ g,
-                                 const float* __restrict__ gg, int Q, int N, int D,
-                                 int metric, int owned, float* __restrict__ d2pos) {
+                                 const k1::Shards<__nv_bfloat16> sh, int Q, int N, int D,
+                                 int metric, float* __restrict__ d2pos) {
   const int lane = threadIdx.x, r = lane >> 2, t = lane & 3;
   const int qi = blockIdx.x * 8 + r;
-  const bool in = take_positive(pos, qi, Q, N, owned);
-  const int p = in ? min(max(pos[qi], 0), N - 1) : 0;
+  const int p = qi < Q ? min(max(pos[qi], 0), sh.n_out - 1) : 0;
+  const int c = qi < Q ? gallery_of(sh, p, N) : -1;
+  const bool in = c >= 0;
+  const int row = in ? p - sh.row0[c] : 0;
   // bf16 pairs as 32-bit words (D is a multiple of 8)
-  const unsigned* a = reinterpret_cast<const unsigned*>(g + static_cast<size_t>(p) * D);
+  const unsigned* a =
+      reinterpret_cast<const unsigned*>(sh.g[in ? c : 0] + static_cast<size_t>(row) * D);
   const unsigned* b = reinterpret_cast<const unsigned*>(q + static_cast<size_t>(in ? qi : 0) * D);
-  auto pair = [&](const unsigned* row, int d) { return in && d < D ? row[d >> 1] : 0u; };
-  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  auto pair = [&](const unsigned* v, int d) { return in && d < D ? v[d >> 1] : 0u; };
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   const int steps = (D + 63) / 64 * 4;
   for (int s = 0; s < steps; ++s) {
     const int d = 16 * s + 2 * t;
     const unsigned af[4] = {pair(a, d), 0u, pair(a, d + 8), 0u};
-    k1::mma_bf16(c, af, pair(b, d), pair(b, d + 8));
+    k1::mma_bf16(acc, af, pair(b, d), pair(b, d + 8));
   }
-  if (in && (r >> 1) == t) d2pos[qi] = k1::column_distance(metric, qq[qi], gg[p], c[r & 1]);
+  if (qi < Q && (r >> 1) == t)
+    d2pos[qi] = in ? k1::column_distance(metric, qq[qi], sh.gg[c][row], acc[r & 1]) : 0.0f;
 }
 
-cudaError_t launch_positive(const float* q, const float* qq, const int* pos, const float* g,
-                            const float* gg, int Q, int N, int D, int metric, int owned,
+cudaError_t launch_positive(const float* q, const float* qq, const int* pos,
+                            const k1::Shards<float>& sh, int Q, int N, int D, int metric,
                             float* d2pos, cudaStream_t st) {
-  k1_positive<<<(Q + 127) / 128, 128, 0, st>>>(q, qq, pos, g, gg, Q, N, D, metric, owned,
-                                               d2pos);
+  k1_positive<<<(Q + 127) / 128, 128, 0, st>>>(q, qq, pos, sh, Q, N, D, metric, d2pos);
   return cudaGetLastError();
 }
 cudaError_t launch_positive(const __nv_bfloat16* q, const float* qq, const int* pos,
-                            const __nv_bfloat16* g, const float* gg, int Q, int N, int D,
-                            int metric, int owned, float* d2pos, cudaStream_t st) {
-  k1_positive_bf16<<<(Q + 7) / 8, 32, 0, st>>>(q, qq, pos, g, gg, Q, N, D, metric, owned,
-                                               d2pos);
+                            const k1::Shards<__nv_bfloat16>& sh, int Q, int N, int D,
+                            int metric, float* d2pos, cudaStream_t st) {
+  k1_positive_bf16<<<(Q + 7) / 8, 32, 0, st>>>(q, qq, pos, sh, Q, N, D, metric, d2pos);
   return cudaGetLastError();
 }
 
+// A query's S sorted runs: run s of query q at v + q * vq + s * vs (values)
+// and i + q * vq + s * vs (global indices), `len` entries each; its rank
+// partial and certificate at r + q * rq + s * rs and e + q * rq + s * rs
+// (r or e may be null: no ranks, or certificates all 1).
+struct Runs {
+  const float* v;
+  const int* i;
+  const int* r;
+  const int* e;
+  long long vq, vs, rq, rs;
+  int count, len;
+};
+
+// One block a query: the k smallest (value, index) keys of its runs
+// (topk::merge_runs), the sum of its rank partials (into ranks, unless
+// null) and the AND of its certificates.
 __global__ void __launch_bounds__(MERGE_THREADS)
-k1_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
-         const int* __restrict__ part_r, int S, int k, int N,
-         int* __restrict__ ranks, float* __restrict__ vals,
+k1_merge(const Runs runs, int k, int N, int* __restrict__ ranks, float* __restrict__ vals,
          int* __restrict__ idx, int* __restrict__ exact) {
   __shared__ int wr[MERGE_THREADS / 32];
+  __shared__ int we[MERGE_THREADS / 32];
 
   const int qi = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
-  int r = 0;
-  for (int e = tid; e < S; e += MERGE_THREADS) r += part_r[static_cast<size_t>(qi) * S + e];
-  for (int off = 16; off > 0; off >>= 1) r += __shfl_down_sync(topk::FULL, r, off);
-  if (lane == 0) wr[warp] = r;
+  int r = 0, e = 1;
+  for (int s = tid; s < runs.count; s += MERGE_THREADS) {
+    const long long o = qi * runs.rq + s * runs.rs;
+    if (runs.r) r += runs.r[o];
+    if (runs.e) e &= runs.e[o] != 0;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    r += __shfl_down_sync(topk::FULL, r, off);
+    e &= __shfl_down_sync(topk::FULL, e, off);
+  }
+  if (lane == 0) { wr[warp] = r; we[warp] = e; }
   __syncthreads();
   if (tid == 0) {
-    int total = 0;
-    for (int w = 0; w < MERGE_THREADS / 32; ++w) total += wr[w];
-    ranks[qi] = total;
-    exact[qi] = 1;
+    int total = 0, all = 1;
+    for (int w = 0; w < MERGE_THREADS / 32; ++w) { total += wr[w]; all &= we[w]; }
+    if (ranks) ranks[qi] = total;
+    exact[qi] = all;
   }
-  const size_t M = static_cast<size_t>(S) * k;
-  topk::merge_runs<MERGE_THREADS, MERGE_HEADS>(part_v + qi * M, part_i + qi * M, S, k, k, N,
+  topk::merge_runs<MERGE_THREADS, MERGE_HEADS>(runs.v + qi * runs.vq, runs.i + qi * runs.vq,
+                                               runs.count, runs.vs, runs.len, k, N,
                                                vals + static_cast<size_t>(qi) * k,
                                                idx + static_cast<size_t>(qi) * k);
 }
 
+// The sweep's C * S runs of each query, laid out (Q, C * S, k) and (Q, C * S).
+Runs sweep_runs(const float* part_v, const int* part_i, const int* part_r, int runs, int k) {
+  return Runs{part_v, part_i, part_r, nullptr, static_cast<long long>(runs) * k, k, runs, 1,
+              runs, k};
+}
+
+// K1 over one gallery (single = 1: the positive's distance first, then the
+// sweep of kernel parameters) or over the shards of a device's table
+// (single = 0: the positive's distance given).
 template <typename T>
-int launch(const T* q, const float* qq, const int* pos, const T* g, const float* gg,
-           int Q, int N, int D, int k, int metric, int with_ranks, int splits, int pos_given,
-           float* d2pos, float* part_v, int* part_i, int* part_r, int* ranks,
-           float* vals, int* idx, int* exact, cudaStream_t st) {
-  if (with_ranks && !pos_given) {
-    const cudaError_t err = launch_positive(q, qq, pos, g, gg, Q, N, D, metric, 0, d2pos, st);
+int launch(const T* q, const float* qq, const int* pos, const k1::Shards<T>& sh, int Q, int N,
+           int D, int k, int metric, int with_ranks, int splits, int single, float* d2pos,
+           float* part_v, int* part_i, int* part_r, int* ranks, float* vals, int* idx,
+           int* exact, cudaStream_t st) {
+  if (with_ranks && single) {
+    const cudaError_t err = launch_positive(q, qq, pos, sh, Q, N, D, metric, d2pos, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const cudaError_t err = k1::sweep<T, 3, 8>(q, qq, pos, g, gg, d2pos, Q, N, D, k, metric,
-                                          with_ranks, splits, part_v, part_i, part_r,
-                                          nullptr, st);
+  const cudaError_t err =
+      single ? k1::sweep<T, 3, 8>(q, qq, pos, sh.g[0], sh.gg[0], d2pos, Q, N, D, k, metric,
+                                  with_ranks, splits, part_v, part_i, part_r, nullptr, st)
+             : k1::sweep_shards<T, 3, 8>(q, qq, pos, sh, d2pos, Q, N, D, k, metric,
+                                         with_ranks, splits, part_v, part_i, part_r,
+                                         nullptr, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  k1_merge<<<Q, MERGE_THREADS, 0, st>>>(part_v, part_i, part_r, splits, k, N, ranks, vals,
-                                        idx, exact);
+  k1_merge<<<Q, MERGE_THREADS, 0, st>>>(
+      sweep_runs(part_v, part_i, part_r, splits * sh.count, k), k, sh.n_out, ranks, vals, idx,
+      exact);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The table of `count` galleries of N rows: pointers g[c], gg[c] and first
+// rows row0[c] (host arrays), the global sentinel n_out.
+template <typename T>
+bool make_table(const void* const* g, const void* const* gg, const int* row0, int count, int N,
+                int n_out, k1::Shards<T>* sh) {
+  if (count < 1 || count > k1::MAX_SHARDS) return false;
+  *sh = k1::Shards<T>{};
+  for (int c = 0; c < count; ++c) {
+    sh->g[c] = static_cast<const T*>(g[c]);
+    sh->gg[c] = static_cast<const float*>(gg[c]);
+    sh->row0[c] = row0[c];
+    if (row0[c] < 0 || row0[c] > n_out - N) return false;
+  }
+  sh->count = count;
+  sh->n_out = n_out;
+  return true;
+}
+
+bool shapes_ok(int Q, int N, int D, int bf16) {
+  const int vec = bf16 ? 8 : 4;
+  return Q >= 1 && N >= 1 && D >= vec && D % vec == 0;
 }
 
 }  // namespace
@@ -189,50 +276,103 @@ extern "C" int k1_first_pass(int Q, int k, int bf16, int* tq, int* tn, int* bloc
 // float32 (bf16 = 0) or bf16 (bf16 = 1); qq (Q,), gg (N,) float32; pos (Q,)
 // int32; all contiguous, q and g 16-byte aligned, D a multiple of 4
 // (float32) or 8 (bf16), 1 <= k <= 128, 1 <= splits <= 1024. d2pos (Q,):
-// scratch for the positive's distance, or with pos_given = 1 that distance
-// given (a shard of a row-sharded gallery: computed by the shard that owns
-// the positive, k1_positive_distance); pos is then the positive's column in
-// this gallery, -1 when it lies before it and N after it, and only
-// compared. Scratch: part_v (Q, S, k), part_i (Q, S, k), part_r (Q, S).
-// Outputs: ranks (Q,), vals (Q, k), idx (Q, k), exact (Q,). Launches on
-// `stream`, does not synchronise, returns cudaGetLastError().
+// scratch for the positive's distance. Scratch: part_v (Q, S, k), part_i
+// (Q, S, k), part_r (Q, S). Outputs: ranks (Q,), vals (Q, k), idx (Q, k),
+// exact (Q,). Launches on `stream`, does not synchronise, returns
+// cudaGetLastError().
 extern "C" int k1_fused_retrieval(
     const void* q, const float* qq, const int* pos, const void* g,
     const float* gg, int Q, int N, int D, int k, int metric, int with_ranks,
-    int bf16, int splits, int pos_given, float* d2pos, float* part_v,
-    int* part_i, int* part_r, int* ranks, float* vals, int* idx, int* exact,
-    void* stream) {
-  const int vec = bf16 ? 8 : 4;
-  if (Q < 1 || N < 1 || D < vec || D % vec || k < 1 || k > K_MAX || splits < 1 ||
+    int bf16, int splits, float* d2pos, float* part_v, int* part_i, int* part_r,
+    int* ranks, float* vals, int* idx, int* exact, void* stream) {
+  if (!shapes_ok(Q, N, D, bf16) || k < 1 || k > K_MAX || splits < 1 ||
       splits > MERGE_HEADS * MERGE_THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch(static_cast<const __nv_bfloat16*>(q), qq, pos,
-                  static_cast<const __nv_bfloat16*>(g), gg, Q, N, D, k, metric, with_ranks,
-                  splits, pos_given, d2pos, part_v, part_i, part_r, ranks, vals, idx, exact,
-                  st);
-  return launch(static_cast<const float*>(q), qq, pos, static_cast<const float*>(g), gg, Q,
-                N, D, k, metric, with_ranks, splits, pos_given, d2pos, part_v, part_i, part_r,
-                ranks, vals, idx, exact, st);
+                  k1::one_gallery(static_cast<const __nv_bfloat16*>(g), gg, N), Q, N, D, k,
+                  metric, with_ranks, splits, 1, d2pos, part_v, part_i, part_r, ranks, vals,
+                  idx, exact, st);
+  return launch(static_cast<const float*>(q), qq, pos,
+                k1::one_gallery(static_cast<const float*>(g), gg, N), Q, N, D, k, metric,
+                with_ranks, splits, 1, d2pos, part_v, part_i, part_r, ranks, vals, idx, exact,
+                st);
 }
 
-// The positive's distance alone, as k1_fused_retrieval computes it before
-// its sweep, for the queries whose positive pos[qi] lies in this gallery
-// (0 <= pos < N); d2pos of the other queries is left as it was. Shapes and
-// forms as k1_fused_retrieval's. Launches on `stream`, does not
+// The positive's distance over the `count` shards of one device, N rows
+// each: g[c] (N, D) and gg[c] (N,) on the device, first global rows row0[c]
+// (host arrays), n_out the rows of the whole gallery. d2pos[qi] becomes
+// query qi's distance to its positive, the global row pos[qi] clamped into
+// [0, n_out), where one of these shards holds it, and 0 where none does.
+// Other shapes as k1_fused_retrieval's. Launches on `stream`, does not
 // synchronise, returns cudaGetLastError().
-extern "C" int k1_positive_distance(const void* q, const float* qq, const int* pos,
-                                    const void* g, const float* gg, int Q, int N, int D,
-                                    int metric, int bf16, float* d2pos, void* stream) {
-  const int vec = bf16 ? 8 : 4;
-  if (Q < 1 || N < 1 || D < vec || D % vec) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int k1_positive_shards(const void* q, const float* qq, const int* pos,
+                                  const void* const* g, const void* const* gg, const int* row0,
+                                  int count, int n_out, int Q, int N, int D, int metric,
+                                  int bf16, float* d2pos, void* stream) {
+  if (!shapes_ok(Q, N, D, bf16)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    k1::Shards<__nv_bfloat16> sh;
+    if (!make_table(g, gg, row0, count, N, n_out, &sh)) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_positive(static_cast<const __nv_bfloat16*>(q), qq, pos, sh,
+                                            Q, N, D, metric, d2pos, st));
+  }
+  k1::Shards<float> sh;
+  if (!make_table(g, gg, row0, count, N, n_out, &sh)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
-      bf16 ? launch_positive(static_cast<const __nv_bfloat16*>(q), qq, pos,
-                             static_cast<const __nv_bfloat16*>(g), gg, Q, N, D, metric, 1,
-                             d2pos, st)
-           : launch_positive(static_cast<const float*>(q), qq, pos,
-                             static_cast<const float*>(g), gg, Q, N, D, metric, 1, d2pos,
-                             st));
+      launch_positive(static_cast<const float*>(q), qq, pos, sh, Q, N, D, metric, d2pos, st));
+}
+
+// K1 over the `count` shards of one device (tables as k1_positive_shards'),
+// `splits` gallery splits each (count * splits <= 1024), given the
+// positive's distance d2pos (Q,) and the positive's global row pos (Q,):
+// the sweep of every shard in one launch, then the merge of all their runs
+// by (value, global index) with the rank partials summed. Scratch: part_v,
+// part_i (Q, count * splits, k), part_r (Q, count * splits). Outputs as
+// k1_fused_retrieval's, with global indices (sentinel n_out). Launches on
+// `stream`, does not synchronise, returns cudaGetLastError().
+extern "C" int k1_sweep_shards(const void* q, const float* qq, const int* pos,
+                               const void* const* g, const void* const* gg, const int* row0,
+                               int count, int n_out, int Q, int N, int D, int k, int metric,
+                               int with_ranks, int bf16, int splits, const float* d2pos,
+                               float* part_v, int* part_i, int* part_r, int* ranks,
+                               float* vals, int* idx, int* exact, void* stream) {
+  if (!shapes_ok(Q, N, D, bf16) || k < 1 || k > K_MAX || k > N || splits < 1 ||
+      count * splits > MERGE_HEADS * MERGE_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* d2 = const_cast<float*>(d2pos);  // read only: the positive is not launched
+  if (bf16) {
+    k1::Shards<__nv_bfloat16> sh;
+    if (!make_table(g, gg, row0, count, N, n_out, &sh)) return static_cast<int>(cudaErrorInvalidValue);
+    return launch(static_cast<const __nv_bfloat16*>(q), qq, pos, sh, Q, N, D, k, metric,
+                  with_ranks, splits, 0, d2, part_v, part_i, part_r, ranks, vals, idx, exact,
+                  st);
+  }
+  k1::Shards<float> sh;
+  if (!make_table(g, gg, row0, count, N, n_out, &sh)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(static_cast<const float*>(q), qq, pos, sh, Q, N, D, k, metric, with_ranks,
+                splits, 0, d2, part_v, part_i, part_r, ranks, vals, idx, exact, st);
+}
+
+// The cross-shard merge: for each of Q queries, the k smallest (value,
+// global index) keys of its `count` sorted runs of `len` entries (run s of
+// query q at v + q * vq + s * vs and i + q * vq + s * vs, in elements), the
+// sum of its rank partials at r + q * rq + s * rs into ranks (both may be
+// null) and the AND of its certificates at e + q * rq + s * rs into exact
+// (e null: all 1). 1 <= k <= count * len, count <= 1024; n_out fills slots
+// past every run. Outputs vals, idx (Q, k), exact (Q,). Launches on
+// `stream`, does not synchronise, returns cudaGetLastError().
+extern "C" int k1_merge_runs(const float* v, const int* i, const int* r, const int* e,
+                             long long vq, long long vs, long long rq, long long rs, int count,
+                             int len, int Q, int k, int n_out, int* ranks, float* vals,
+                             int* idx, int* exact, void* stream) {
+  if (Q < 1 || count < 1 || count > MERGE_HEADS * MERGE_THREADS || len < 1 || k < 1 ||
+      k > len * count)
+    return static_cast<int>(cudaErrorInvalidValue);
+  k1_merge<<<Q, MERGE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      Runs{v, i, r, e, vq, vs, rq, rs, count, len}, k, n_out, ranks, vals, idx, exact);
+  return static_cast<int>(cudaGetLastError());
 }

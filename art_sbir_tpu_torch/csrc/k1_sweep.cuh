@@ -2,8 +2,13 @@
 // P1 (fused_ablation.cu), so that each ablation level strips K1's own code
 // and nothing else.
 //
-// sweep_partial<T, TQ, LEVEL>, grid (ceil(Q / TQ), S), 4 or 8 warps. Split
-// s owns a contiguous range of 128-row gallery tiles (TN). TQ, the queries
+// sweep_partial<T, TQ, LEVEL>, grid (ceil(Q / TQ), C * S), 4 or 8 warps,
+// over a table of C galleries of N rows each (Shards: one for K1 and P1,
+// the shards of a row-sharded gallery that share a device for sharded K1),
+// S splits each. Split s of gallery c owns a contiguous range of its
+// 128-row tiles (TN); it writes run c * S + s of each query, with the
+// gallery's global indices (its first row plus the local one) and an
+// unfilled slot at the global sentinel. TQ, the queries
 // of a block, is 8, 16, 32 or 64, chosen from Q (choose_tq), so that a
 // block computes no more padded query rows than the smallest tile needs
 // (K1 builds all four tiles; P1 only 32 and 64, the probe's).
@@ -87,6 +92,30 @@ constexpr int UNITS = CHUNK / 16;      // 16-byte units of a staged row
 constexpr int BUF = 32;                // buffered keys a query: one word a lane
 constexpr int PREFETCH = 3;            // chunks past the copies that the L2 is asked for
 constexpr size_t SM_SMEM = 228 * 1024;  // shared memory of an SM
+
+constexpr int MAX_SHARDS = 16;          // galleries of one launch
+
+// The galleries a sweep reads: `count` of N rows each, gallery c holding
+// the global rows [row0[c], row0[c] + N) (one gallery at row 0 when the
+// gallery is not sharded). Passed by value as a kernel parameter.
+template <typename T>
+struct Shards {
+  const T* g[MAX_SHARDS];       // (N, D) rows
+  const float* gg[MAX_SHARDS];  // (N,) norms
+  int row0[MAX_SHARDS];         // each one's first global row
+  int count;
+  int n_out;                    // the global sentinel index: the rows of every shard
+};
+
+template <typename T>
+Shards<T> one_gallery(const T* g, const float* gg, int N) {
+  Shards<T> sh{};
+  sh.g[0] = g;
+  sh.gg[0] = gg;
+  sh.count = 1;
+  sh.n_out = N;
+  return sh;
+}
 
 // The queries of a block for Q queries: the smallest tile of at least
 // min_tq that holds them, 64 beyond 32.
@@ -408,14 +437,17 @@ __device__ void flush_query(const Block& b, int qr, int k) {
   __syncwarp();
 }
 
-template <typename T, int TQ, int LEVEL>
+// TABLE: whether the galleries come from the table (the shards of a
+// device); without it the one gallery at row 0 is read as plain kernel
+// parameters, which is K1's and P1's code as it was before the table.
+template <typename T, int TQ, int LEVEL, bool TABLE>
 __global__ void __launch_bounds__(32 * TileOf<T, TQ>::type::WARPS, 2)
 sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
-              const int* __restrict__ pos, const T* __restrict__ g,
-              const float* __restrict__ gg, const float* __restrict__ d2pos,
-              int Q, int N, int D, int k, int metric, int with_ranks, int stages,
-              float* __restrict__ part_v, int* __restrict__ part_i,
-              int* __restrict__ part_r, float* __restrict__ part_m) {
+              const int* __restrict__ pos, const Shards<T> sh,
+              const float* __restrict__ d2pos, int Q, int N, int D, int k, int metric,
+              int with_ranks, int stages, float* __restrict__ part_v,
+              int* __restrict__ part_i, int* __restrict__ part_r,
+              float* __restrict__ part_m) {
   using Tile = typename TileOf<T, TQ>::type;
   constexpr int WARPS = Tile::WARPS, THREADS = 32 * WARPS;
   constexpr int STAGE = (TQ + TN) * UNITS;  // uint4 of a stage
@@ -438,7 +470,30 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int q0 = blockIdx.x * TQ;
-  const int S = gridDim.y, s = blockIdx.y;
+  const int S = TABLE ? gridDim.y / sh.count : gridDim.y;  // splits a gallery
+  const int s = TABLE ? blockIdx.y % S : blockIdx.y;       // this block's split
+  // With the table, this block's gallery is read back from shared memory
+  // where it is used: a pointer picked by a register index would otherwise
+  // hold registers through the products (the FMA tile of 64 queries spills
+  // at its 128). Its first row is looked up where it is used.
+  __shared__ const T* block_g;
+  __shared__ const float* block_gg;
+  if (TABLE && tid == 0) {
+    block_g = sh.g[blockIdx.y / S];
+    block_gg = sh.gg[blockIdx.y / S];
+  }
+  auto gallery = [&]() -> const T* {
+    if constexpr (TABLE) return block_g;
+    return sh.g[0];
+  };
+  auto norms = [&]() -> const float* {
+    if constexpr (TABLE) return block_gg;
+    return sh.gg[0];
+  };
+  auto first_row = [&]() -> int {
+    if constexpr (TABLE) return sh.row0[blockIdx.y / S];
+    return 0;
+  };
   const int n_tiles = (N + TN - 1) / TN;
   const int t_begin = static_cast<int>(static_cast<long long>(n_tiles) * s / S);
   const int t_end = static_cast<int>(static_cast<long long>(n_tiles) * (s + 1) / S);
@@ -453,9 +508,12 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
     b.nk[e] = b.nb[e] = b.hits[e] = 0;
     b.qq[e] = qi < Q ? qq[qi] : 0.0f;
     b.d2p[e] = ranks && qi < Q ? d2pos[qi] : 0.0f;
-    b.pos[e] = ranks && qi < Q ? pos[qi] : -1;
+    // the positive's column in this gallery (with the table: -1 before
+    // it, N after it)
+    b.pos[e] = ranks && qi < Q ? (TABLE ? min(max(pos[qi] - first_row(), -1), N) : pos[qi]) : -1;
   }
   for (int e = tid; e < WARPS * TQ; e += THREADS) b.sums[e] = 0.0f;
+  if constexpr (TABLE) __syncthreads();  // block_g
 
   // the next chunk to copy and the next to prefetch, as (tile, value of D)
   int ld_t = t_begin, ld_d = 0, pf_t = t_begin, pf_d = 0;
@@ -464,7 +522,8 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
   };
   auto load = [&](int c) {
     if (ld_t < t_end) {
-      stage_chunk<T, TQ, THREADS>(q, q0, Q, g, ld_t * TN, N, D, ld_d, smem + (c % stages) * STAGE);
+      stage_chunk<T, TQ, THREADS>(q, q0, Q, gallery(), ld_t * TN, N, D, ld_d,
+                                  smem + (c % stages) * STAGE);
       advance(ld_t, ld_d);
     }
     cp_async_commit();  // an empty group keeps the count in step
@@ -486,7 +545,7 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
     if (pf_t < t_end) {  // each gallery row's line, PREFETCH chunks past the copies
       const int row = pf_t * TN + tid;
       if (tid < TN && row < N)
-        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(g + static_cast<size_t>(row) * D + pf_d));
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(gallery() + static_cast<size_t>(row) * D + pf_d));
       advance(pf_t, pf_d);
     }
     tile.multiply(smem + (c % stages) * STAGE);
@@ -513,7 +572,7 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
 #pragma unroll
       for (int j = 0; j < Tile::NC; ++j) {
         const int n = n0 + tile.col(j);
-        gv[j] = n < N ? __ldg(gg + n) : 0.0f;
+        gv[j] = n < N ? __ldg(norms() + n) : 0.0f;
       }
       // one pass: distances, rank hits and the filter; an admitted key
       // that finds its query's buffer full stays pending
@@ -590,19 +649,20 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
   }
   __syncthreads();
   if constexpr (LEVEL == 3) {
+    const int row0 = first_row();
     for (int e = tid; e < TQ * k; e += THREADS) {
       const int qr = e / k, j = e % k, qi = q0 + qr;
       if (qi < Q) {
-        const size_t o = (static_cast<size_t>(qi) * S + s) * k + j;
+        const size_t o = (static_cast<size_t>(qi) * gridDim.y + blockIdx.y) * k + j;
         const bool kept = j < b.nk[qr];
         part_v[o] = kept ? b.kv[e] : BIG;
-        part_i[o] = kept ? b.ki[e] : N;
+        part_i[o] = kept ? row0 + b.ki[e] : sh.n_out;
       }
     }
   }
   if constexpr (LEVEL >= 1)
     for (int qr = tid; qr < TQ; qr += THREADS)
-      if (q0 + qr < Q) part_r[static_cast<size_t>(q0 + qr) * S + s] = b.hits[qr];
+      if (q0 + qr < Q) part_r[static_cast<size_t>(q0 + qr) * gridDim.y + blockIdx.y] = b.hits[qr];
 }
 
 // Let sweep_partial<T, TQ, LEVEL> take the shared memory it needs for a
@@ -611,9 +671,9 @@ sweep_partial(const T* __restrict__ q, const float* __restrict__ qq,
 template <typename T, int TQ>
 constexpr int warps_of = TileOf<T, TQ>::type::WARPS;
 
-template <typename T, int TQ, int LEVEL>
+template <typename T, int TQ, int LEVEL, bool TABLE>
 cudaError_t prepare(int k, int stages, int* blocks_per_sm) {
-  const auto kernel = sweep_partial<T, TQ, LEVEL>;
+  const auto kernel = sweep_partial<T, TQ, LEVEL, TABLE>;
   const size_t smem = sweep_smem(TQ, warps_of<T, TQ>, k, stages, LEVEL == 3);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -622,20 +682,20 @@ cudaError_t prepare(int k, int stages, int* blocks_per_sm) {
                                                        32 * warps_of<T, TQ>, smem);
 }
 
-template <typename T, int TQ, int LEVEL>
-cudaError_t launch_sweep(const T* q, const float* qq, const int* pos, const T* g,
-                         const float* gg, const float* d2pos, int Q, int N, int D, int k,
-                         int metric, int with_ranks, int splits, float* part_v, int* part_i,
+template <typename T, int TQ, int LEVEL, bool TABLE>
+cudaError_t launch_sweep(const T* q, const float* qq, const int* pos, const Shards<T>& sh,
+                         const float* d2pos, int Q, int N, int D, int k, int metric,
+                         int with_ranks, int splits, float* part_v, int* part_i,
                          int* part_r, float* part_m, cudaStream_t st) {
   constexpr int WARPS = warps_of<T, TQ>;
   const int stages = choose_stages(TQ, WARPS, k, LEVEL == 3);
   if (!stages) return cudaErrorInvalidConfiguration;
-  const cudaError_t err = prepare<T, TQ, LEVEL>(k, stages, nullptr);
+  const cudaError_t err = prepare<T, TQ, LEVEL, TABLE>(k, stages, nullptr);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Q + TQ - 1) / TQ, splits);
+  const dim3 grid((Q + TQ - 1) / TQ, splits * sh.count);
   const size_t smem = sweep_smem(TQ, WARPS, k, stages, LEVEL == 3);
-  sweep_partial<T, TQ, LEVEL><<<grid, 32 * WARPS, smem, st>>>(
-      q, qq, pos, g, gg, d2pos, Q, N, D, k, metric, with_ranks, stages, part_v, part_i,
+  sweep_partial<T, TQ, LEVEL, TABLE><<<grid, 32 * WARPS, smem, st>>>(
+      q, qq, pos, sh, d2pos, Q, N, D, k, metric, with_ranks, stages, part_v, part_i,
       part_r, part_m);
   return cudaGetLastError();
 }
@@ -644,7 +704,7 @@ template <typename T, int TQ, int LEVEL>
 cudaError_t occupancy(int k, int* blocks_per_sm) {
   const int stages = choose_stages(TQ, warps_of<T, TQ>, k, LEVEL == 3);
   if (!stages) return cudaErrorInvalidConfiguration;
-  return prepare<T, TQ, LEVEL>(k, stages, blocks_per_sm);
+  return prepare<T, TQ, LEVEL, false>(k, stages, blocks_per_sm);
 }
 
 // The first pass's shape for Q queries and a top-k of k (0 below LEVEL 3)
@@ -663,15 +723,16 @@ cudaError_t first_pass(int Q, int k, int* tq, int* tn, int* blocks_per_sm) {
   return occupancy<T, 64, LEVEL>(k, blocks_per_sm);
 }
 
-// The first pass on the query tile chosen for Q (see first_pass).
-template <typename T, int LEVEL, int MIN_TQ>
-cudaError_t sweep(const T* q, const float* qq, const int* pos, const T* g, const float* gg,
-                  const float* d2pos, int Q, int N, int D, int k, int metric,
-                  int with_ranks, int splits, float* part_v, int* part_i, int* part_r,
-                  float* part_m, cudaStream_t st) {
-#define K1_SWEEP(TQ)                                                                     \
-  launch_sweep<T, TQ, LEVEL>(q, qq, pos, g, gg, d2pos, Q, N, D, k, metric, with_ranks, \
-                             splits, part_v, part_i, part_r, part_m, st)
+// The first pass on the query tile chosen for Q (see first_pass), over the
+// galleries of `sh` (from the table where TABLE), `splits` splits each.
+template <typename T, int LEVEL, int MIN_TQ, bool TABLE>
+cudaError_t sweep_tiles(const T* q, const float* qq, const int* pos, const Shards<T>& sh,
+                        const float* d2pos, int Q, int N, int D, int k, int metric,
+                        int with_ranks, int splits, float* part_v, int* part_i,
+                        int* part_r, float* part_m, cudaStream_t st) {
+#define K1_SWEEP(TQ)                                                                         \
+  launch_sweep<T, TQ, LEVEL, TABLE>(q, qq, pos, sh, d2pos, Q, N, D, k, metric, with_ranks, \
+                                    splits, part_v, part_i, part_r, part_m, st)
   const int tq = choose_tq(Q, MIN_TQ);
   if constexpr (MIN_TQ <= 8)
     if (tq == 8) return K1_SWEEP(8);
@@ -680,6 +741,28 @@ cudaError_t sweep(const T* q, const float* qq, const int* pos, const T* g, const
   if (tq == 32) return K1_SWEEP(32);
   return K1_SWEEP(64);
 #undef K1_SWEEP
+}
+
+// The first pass over the galleries of the table `sh`.
+template <typename T, int LEVEL, int MIN_TQ>
+cudaError_t sweep_shards(const T* q, const float* qq, const int* pos, const Shards<T>& sh,
+                         const float* d2pos, int Q, int N, int D, int k, int metric,
+                         int with_ranks, int splits, float* part_v, int* part_i,
+                         int* part_r, float* part_m, cudaStream_t st) {
+  return sweep_tiles<T, LEVEL, MIN_TQ, true>(q, qq, pos, sh, d2pos, Q, N, D, k, metric,
+                                             with_ranks, splits, part_v, part_i, part_r,
+                                             part_m, st);
+}
+
+// The first pass over one gallery of N rows.
+template <typename T, int LEVEL, int MIN_TQ>
+cudaError_t sweep(const T* q, const float* qq, const int* pos, const T* g, const float* gg,
+                  const float* d2pos, int Q, int N, int D, int k, int metric,
+                  int with_ranks, int splits, float* part_v, int* part_i, int* part_r,
+                  float* part_m, cudaStream_t st) {
+  return sweep_tiles<T, LEVEL, MIN_TQ, false>(q, qq, pos, one_gallery(g, gg, N), d2pos, Q, N,
+                                              D, k, metric, with_ranks, splits, part_v,
+                                              part_i, part_r, part_m, st);
 }
 
 }  // namespace k1

@@ -90,6 +90,18 @@
 // first wave and publishes.
 //
 // Sentinel: score 3e38 with index N.
+//
+// The row-sharded gallery (the int8 route's sharded form). Replaces K2
+// under `shard_map` (`_quant_sharded_jit`, art_sbir_tpu/ops/quant.py:348,
+// the shard_map at :380): each shard's own top r, then a local exact
+// rerank and a merge (ops/quant.py). k2_quant_candidates_shards takes the
+// C shards of one device in one launch, through a table of their pointers
+// and first rows passed by value (G8Shards): the first pass runs C * S
+// splits (split s of shard c keeps its own bounds), and the merge one block
+// a (query, shard). Given `by_index`, the merge emits each (query, shard)'s
+// r candidates in index order, as global rows (the shard's first row plus
+// the local one), which is the order the rerank wants, so no sort follows.
+// Its bound is the scan's over the whole gallery.
 
 #include "async_copy.cuh"
 #include "topk_select.cuh"
@@ -103,6 +115,7 @@ using topk::warp_sort;
 
 // The constants marked "must match" are repeated in ops/quant_fused.py.
 constexpr int R_MAX = 1024;      // must match
+constexpr int MAX_SHARDS = 16;   // shards of one launch; must match
 constexpr int TQ_WIDE = 512;     // the largest r with 32 queries per block
 constexpr int TN = 128;          // gallery rows per tile; must match
 constexpr int DK = 128;          // bytes of D in one staged chunk (four k32 steps)
@@ -138,6 +151,16 @@ __host__ __device__ inline int at(int e) { return e + (e >> 5); }
 
 // Words of one query's key list: r kept keys, then the buffer.
 __host__ __device__ inline int list_words(int r) { return at(r + buffer_len(r) - 1) + 1; }
+
+// The int8 galleries of one launch: `count` shards of N rows, shard c the
+// global rows [row0[c], row0[c] + N) (one shard at row 0 unsharded).
+struct G8Shards {
+  const int8_t* g8[MAX_SHARDS];
+  const float* scale[MAX_SHARDS];
+  const float* sq[MAX_SHARDS];
+  int row0[MAX_SHARDS];
+  int count;
+};
 
 template <int TQ, int ST>
 size_t partial_smem(int r) {
@@ -299,10 +322,9 @@ __device__ void publish(const float* v, const int* x, int m, unsigned long long*
 template <int TQ, int ST>
 __global__ void __launch_bounds__(THREADS)
 k2_partial(const int8_t* __restrict__ q8, const float* __restrict__ s_q,
-           const int8_t* __restrict__ g8, const float* __restrict__ g_scale,
-           const float* __restrict__ g_sq, int Q, int N, int D, int r,
-           int metric, float* __restrict__ part_v, int* __restrict__ part_i,
-           unsigned long long* __restrict__ bounds) {
+           const G8Shards sh, int Q, int N, int D, int r, int metric,
+           float* __restrict__ part_v, int* __restrict__ part_i,
+           unsigned long long* __restrict__ all_bounds) {
   constexpr int MT = TQ / 16;      // m16 tiles of a warp
   constexpr int NT = WN / 8;       // n8 tiles of a warp
   constexpr int QPW = TQ / WARPS;  // queries a warp selects for
@@ -319,9 +341,15 @@ k2_partial(const int8_t* __restrict__ q8, const float* __restrict__ s_q,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
   const int q0 = blockIdx.x * TQ;
-  const int S = gridDim.y, s = blockIdx.y;
+  const int runs = gridDim.y, run = blockIdx.y;  // a query's partial runs, this block's
+  const int S = runs / sh.count, c = run / S, s = run % S;  // splits a shard; shard, split
+  const int8_t* __restrict__ g8 = sh.g8[c];
+  const float* __restrict__ g_scale = sh.scale[c];
+  const float* __restrict__ g_sq = sh.sq[c];
   const int m = (r + S - 1) / S;  // the rank each split publishes
-  unsigned long long* slots = bounds + Q;  // bounds: Q shared bounds, then (Q, S) slots
+  // the shard's bounds: Q shared bounds, then (Q, S) slots
+  unsigned long long* bounds = all_bounds + static_cast<size_t>(c) * Q * (S + 1);
+  unsigned long long* slots = bounds + Q;
   const int n_tiles = (N + TN - 1) / TN;
   const int t_begin = static_cast<int>(static_cast<long long>(n_tiles) * s / S);
   const int t_end = static_cast<int>(static_cast<long long>(n_tiles) * (s + 1) / S);
@@ -494,7 +522,7 @@ k2_partial(const int8_t* __restrict__ q8, const float* __restrict__ s_q,
         publish(v, x, m, slot + qr, slots + static_cast<size_t>(qi) * S, s, S, bounds + qi,
                 t);
     }
-    const size_t o = (static_cast<size_t>(qi) * S + s) * r;
+    const size_t o = (static_cast<size_t>(qi) * runs + run) * r;
     for (int j = lane; j < r; j += 32) {
       part_v[o + j] = j < nk ? v[at(j)] : BIG;
       part_i[o + j] = j < nk ? x[at(j)] : N;
@@ -502,25 +530,49 @@ k2_partial(const int8_t* __restrict__ q8, const float* __restrict__ s_q,
   }
 }
 
-// The r best of a query's S sorted partial runs. The entries at or below
-// the shared bound hold the r best; where they fit in MERGE_CAP they are
-// sorted in shared memory, else the runs are merged by a tournament.
+// Sort P (a power of two) entries of shared memory ascending, by (value,
+// index) or by index alone (bitonic; the indices are distinct, padding
+// aside). Called by the whole block.
+__device__ void sort_shared(float* cv, int* cx, int P, bool by_index) {
+  for (int k = 2; k <= P; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < P / 2; t += MERGE_THREADS) {
+        const int i = 2 * t - (t & (j - 1)), p = i + j;
+        const float a = cv[i], b = cv[p];
+        const int xa = cx[i], xb = cx[p];
+        if ((by_index ? xb < xa : key_less(b, xb, a, xa)) == ((i & k) == 0)) {
+          cv[i] = b; cx[i] = xb;
+          cv[p] = a; cx[p] = xa;
+        }
+      }
+      __syncthreads();
+    }
+}
+
+// The r best of a (query, shard)'s S sorted partial runs, one block each
+// (grid Q x C). The entries at or below the shared bound hold the r best;
+// where they fit in MERGE_CAP they are sorted in shared memory, else the
+// runs are merged by a tournament. Ascending by (score, index), or with
+// `by_index` in index order as global rows (r <= N: every slot holds a
+// row). Outputs at (query * C + shard) * r; the certificate at shard * Q +
+// query.
 __global__ void __launch_bounds__(MERGE_THREADS)
 k2_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
-         int S, int r, int N, const unsigned long long* __restrict__ bounds,
+         int S, int r, int N, const G8Shards sh, int by_index,
+         const unsigned long long* __restrict__ all_bounds,
          float* __restrict__ vals, int* __restrict__ idx, int* __restrict__ exact) {
   __shared__ float cv[MERGE_CAP];
   __shared__ int cx[MERGE_CAP];
   __shared__ int count;
-  const int qi = blockIdx.x, tid = threadIdx.x;
+  const int qi = blockIdx.x, c = blockIdx.y, C = gridDim.y, Q = gridDim.x, tid = threadIdx.x;
   const size_t M = static_cast<size_t>(S) * r;
-  const float* pv = part_v + qi * M;
-  const int* pi = part_i + qi * M;
-  float* out_v = vals + static_cast<size_t>(qi) * r;
-  int* out_i = idx + static_cast<size_t>(qi) * r;
-  if (tid == 0) { exact[qi] = 1; count = 0; }
+  const float* pv = part_v + (static_cast<size_t>(qi) * C + c) * M;
+  const int* pi = part_i + (static_cast<size_t>(qi) * C + c) * M;
+  float* out_v = vals + (static_cast<size_t>(qi) * C + c) * r;
+  int* out_i = idx + (static_cast<size_t>(qi) * C + c) * r;
+  if (tid == 0) { exact[c * Q + qi] = 1; count = 0; }
   __syncthreads();
-  const unsigned long long bound = bounds[qi];
+  const unsigned long long bound = all_bounds[static_cast<size_t>(c) * Q * (S + 1) + qi];
   if (bound != NONE)
     for (int run = tid; run < S; run += MERGE_THREADS) {
       const size_t o = static_cast<size_t>(run) * r;
@@ -535,27 +587,29 @@ k2_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
   __syncthreads();
   const int n = count;
   if (bound == NONE || n > MERGE_CAP || n < r) {  // block-uniform
-    topk::merge_runs<MERGE_THREADS, MERGE_HEADS>(pv, pi, S, r, r, N, out_v, out_i);
-    return;
-  }
-  int P = 1;
-  while (P < n) P <<= 1;
-  for (int i = n + tid; i < P; i += MERGE_THREADS) { cv[i] = INFINITY; cx[i] = INT32_MAX; }
-  __syncthreads();
-  for (int k = 2; k <= P; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = tid; t < P / 2; t += MERGE_THREADS) {
-        const int i = 2 * t - (t & (j - 1)), p = i + j;
-        const float a = cv[i], b = cv[p];
-        const int xa = cx[i], xb = cx[p];
-        if (key_less(b, xb, a, xa) == ((i & k) == 0)) {
-          cv[i] = b; cx[i] = xb;
-          cv[p] = a; cx[p] = xa;
-        }
-      }
-      __syncthreads();
+    topk::merge_runs<MERGE_THREADS, MERGE_HEADS>(pv, pi, S, r, r, r, N, out_v, out_i);
+    if (!by_index) return;
+    __syncthreads();  // thread 0 wrote the r best
+    for (int j = tid; j < r; j += MERGE_THREADS) { cv[j] = out_v[j]; cx[j] = out_i[j]; }
+  } else {
+    int P = 1;
+    while (P < n) P <<= 1;
+    for (int i = n + tid; i < P; i += MERGE_THREADS) { cv[i] = INFINITY; cx[i] = INT32_MAX; }
+    __syncthreads();
+    sort_shared(cv, cx, P, false);
+    if (!by_index) {
+      for (int j = tid; j < r; j += MERGE_THREADS) { out_v[j] = cv[j]; out_i[j] = cx[j]; }
+      return;
     }
-  for (int j = tid; j < r; j += MERGE_THREADS) { out_v[j] = cv[j]; out_i[j] = cx[j]; }
+  }
+  // the r best (cv, cx)[0, r) in index order, as global rows
+  int P = 1;
+  while (P < r) P <<= 1;
+  for (int i = r + tid; i < P; i += MERGE_THREADS) { cv[i] = INFINITY; cx[i] = INT32_MAX; }
+  __syncthreads();
+  sort_shared(cv, cx, P, true);
+  const int first = sh.row0[c];
+  for (int j = tid; j < r; j += MERGE_THREADS) { out_v[j] = cv[j]; out_i[j] = first + cx[j]; }
 }
 
 // Whether the first pass for 32 queries a block and a budget of r takes
@@ -584,15 +638,41 @@ int occupancy(int r, int* blocks_per_sm) {
 }
 
 template <int TQ, int ST>
-int launch(const int8_t* q8, const float* s_q, const int8_t* g8, const float* g_scale,
-           const float* g_sq, int Q, int N, int D, int r, int metric, int splits,
-           float* part_v, int* part_i, unsigned long long* bounds, cudaStream_t st) {
+int launch_partial(const int8_t* q8, const float* s_q, const G8Shards& sh, int Q, int N, int D,
+                   int r, int metric, int splits, float* part_v, int* part_i,
+                   unsigned long long* bounds, cudaStream_t st) {
   const cudaError_t err = allow_smem<TQ, ST>(r);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Q + TQ - 1) / TQ, splits);
+  const dim3 grid((Q + TQ - 1) / TQ, splits * sh.count);
   k2_partial<TQ, ST><<<grid, THREADS, partial_smem<TQ, ST>(r), st>>>(
-      q8, s_q, g8, g_scale, g_sq, Q, N, D, r, metric, part_v, part_i, bounds);
+      q8, s_q, sh, Q, N, D, r, metric, part_v, part_i, bounds);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both passes over the shards of `sh`, `splits` splits each.
+int launch(const int8_t* q8, const float* s_q, const G8Shards& sh, int Q,
+           int N, int D, int r, int metric, int splits, int by_index, float* part_v,
+           int* part_i, unsigned long long* b, float* vals, int* idx, int* exact,
+           cudaStream_t st) {
+  const cudaError_t set = cudaMemsetAsync(
+      b, 0xff, sizeof(*b) * sh.count * Q * (static_cast<size_t>(splits) + 1), st);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  int err;
+  if (r > TQ_WIDE)
+    err = launch_partial<16, 3>(q8, s_q, sh, Q, N, D, r, metric, splits, part_v, part_i, b, st);
+  else if (three_stages(r))
+    err = launch_partial<32, 3>(q8, s_q, sh, Q, N, D, r, metric, splits, part_v, part_i, b, st);
+  else
+    err = launch_partial<32, 2>(q8, s_q, sh, Q, N, D, r, metric, splits, part_v, part_i, b, st);
+  if (err != cudaSuccess) return err;
+  k2_merge<<<dim3(Q, sh.count), MERGE_THREADS, 0, st>>>(part_v, part_i, splits, r, N, sh,
+                                                        by_index, b, vals, idx, exact);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool args_ok(int Q, int N, int D, int r, int splits) {
+  return Q >= 1 && N >= 1 && D >= VEC && D % VEC == 0 && r >= 1 && r <= R_MAX && r <= N &&
+         splits >= 1 && splits <= MERGE_HEADS * MERGE_THREADS;
 }
 
 }  // namespace
@@ -621,25 +701,43 @@ extern "C" int k2_quant_candidates(
     const float* g_sq, int Q, int N, int D, int r, int metric, int splits,
     float* part_v, int* part_i, void* bounds, float* vals, int* idx,
     int* exact, void* stream) {
-  if (Q < 1 || N < 1 || D < VEC || D % VEC || r < 1 || r > R_MAX || r > N || splits < 1 ||
-      splits > MERGE_HEADS * MERGE_THREADS)
+  if (!args_ok(Q, N, D, r, splits)) return static_cast<int>(cudaErrorInvalidValue);
+  G8Shards sh{};
+  sh.g8[0] = g8;
+  sh.scale[0] = g_scale;
+  sh.sq[0] = g_sq;
+  sh.count = 1;
+  return launch(q8, s_q, sh, Q, N, D, r, metric, splits, 0, part_v, part_i,
+                static_cast<unsigned long long*>(bounds), vals, idx, exact,
+                static_cast<cudaStream_t>(stream));
+}
+
+// K2 over the `count` shards of one device, N rows each, `splits` splits
+// each: g8[c] (N, D) int8, scale[c] and sq[c] (N,) float32 on the device
+// (host arrays of pointers), row0[c] the shards' first global rows (a host
+// array). Scratch: part_v, part_i (Q, count * splits, r), bounds
+// (count * Q * (splits + 1),) 64-bit. Outputs vals, idx (Q, count, r),
+// exact (count, Q): each shard's r best ascending by (score, index), or
+// with by_index = 1 in index order as global rows. Other shapes as
+// k2_quant_candidates'. Launches on `stream`, does not synchronise, returns
+// cudaGetLastError().
+extern "C" int k2_quant_candidates_shards(
+    const int8_t* q8, const float* s_q, const void* const* g8, const void* const* scale,
+    const void* const* sq, const int* row0, int count, int Q, int N, int D, int r, int metric,
+    int splits, int by_index, float* part_v, int* part_i, void* bounds, float* vals, int* idx,
+    int* exact, void* stream) {
+  if (!args_ok(Q, N, D, r, splits) || count < 1 || count > MAX_SHARDS ||
+      static_cast<long long>(count) * splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* b = static_cast<unsigned long long*>(bounds);
-  const cudaError_t set =
-      cudaMemsetAsync(b, 0xff, sizeof(*b) * Q * (static_cast<size_t>(splits) + 1), st);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  int err;
-  if (r > TQ_WIDE)
-    err = launch<16, 3>(q8, s_q, g8, g_scale, g_sq, Q, N, D, r, metric, splits, part_v,
-                        part_i, b, st);
-  else if (three_stages(r))
-    err = launch<32, 3>(q8, s_q, g8, g_scale, g_sq, Q, N, D, r, metric, splits, part_v,
-                        part_i, b, st);
-  else
-    err = launch<32, 2>(q8, s_q, g8, g_scale, g_sq, Q, N, D, r, metric, splits, part_v,
-                        part_i, b, st);
-  if (err != cudaSuccess) return err;
-  k2_merge<<<Q, MERGE_THREADS, 0, st>>>(part_v, part_i, splits, r, N, b, vals, idx, exact);
-  return static_cast<int>(cudaGetLastError());
+  G8Shards sh{};
+  for (int c = 0; c < count; ++c) {
+    sh.g8[c] = static_cast<const int8_t*>(g8[c]);
+    sh.scale[c] = static_cast<const float*>(scale[c]);
+    sh.sq[c] = static_cast<const float*>(sq[c]);
+    sh.row0[c] = row0[c];
+  }
+  sh.count = count;
+  return launch(q8, s_q, sh, Q, N, D, r, metric, splits, by_index, part_v, part_i,
+                static_cast<unsigned long long*>(bounds), vals, idx, exact,
+                static_cast<cudaStream_t>(stream));
 }

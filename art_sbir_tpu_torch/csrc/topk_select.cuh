@@ -59,14 +59,15 @@ __device__ __forceinline__ void warp_sort(float (&v)[U], int (&x)[U]) {
 }
 
 // The k smallest keys of S runs, each sorted ascending by key and `len`
-// long (run s at pv + s * len, pi + s * len), ascending, into vals/idx.
+// long (run s at pv + s * stride, pi + s * stride), ascending, into
+// vals/idx.
 // Called by all THREADS threads of the block; S <= HEADS * THREADS. Thread t
 // owns runs t, t + THREADS, ... and keeps each one's head and the entry
 // after it in registers, so a run that wins twice in a row does not wait on
 // memory. (BIG, N) fills the slots when fewer than k candidates remain.
 template <int THREADS, int HEADS>
-__device__ void merge_runs(const float* pv, const int* pi, int S, int len, int k,
-                           int N, float* vals, int* idx) {
+__device__ void merge_runs(const float* pv, const int* pi, int S, size_t stride, int len,
+                           int k, int N, float* vals, int* idx) {
   __shared__ float wv[2][THREADS / 32];
   __shared__ int wi[2][THREADS / 32];
   __shared__ int ws[2][THREADS / 32];
@@ -76,7 +77,7 @@ __device__ void merge_runs(const float* pv, const int* pi, int S, int len, int k
 #pragma unroll
   for (int h = 0; h < HEADS; ++h) {
     const int s = tid + h * THREADS;
-    const size_t o = static_cast<size_t>(s) * len;
+    const size_t o = static_cast<size_t>(s) * stride;
     at[h] = 0;
     hv[h] = nv[h] = INFINITY;
     hi[h] = ni[h] = INT32_MAX;
@@ -122,7 +123,7 @@ __device__ void merge_runs(const float* pv, const int* pi, int S, int len, int k
         nv[h] = INFINITY;
         ni[h] = INT32_MAX;
         if (at[h] + 1 < len) {
-          const size_t o = static_cast<size_t>(bs) * len + at[h] + 1;
+          const size_t o = static_cast<size_t>(bs) * stride + at[h] + 1;
           nv[h] = pv[o];
           ni[h] = pi[o];
         }

@@ -30,7 +30,10 @@ import torch
 
 from art_sbir_tpu_torch.ops import quant_fused
 from art_sbir_tpu_torch.ops.distance import cosine_distance, euclidean_distance
-from art_sbir_tpu_torch.ops.sharded import gather_to, lexsort_topk_merge
+from art_sbir_tpu_torch.ops.retrieval_fused import merge_shard_runs
+from art_sbir_tpu_torch.ops.sharded import (device_groups, pack,
+                                            record_views, record_words,
+                                            unpack)
 from art_sbir_tpu_torch.parallel.mesh import shard_rows
 
 _METRICS = ("euclidean", "cosine")
@@ -114,6 +117,44 @@ def _rerank(qf, cand, gallery_f32, metric, k):
         exact = cosine_distance(qx, rows)
     order = torch.argsort(exact, dim=1, stable=True)[:, :k]
     return torch.gather(exact, 1, order), torch.gather(cand, 1, order)
+
+
+def _row_span(rows, row0):
+    """One (rows, D) view from ``row0[0]`` over the shards ``rows`` (first
+    global rows ``row0``, ascending) where they lie in one storage at
+    their global distances, as shards cut from one gallery do; else
+    None."""
+    first, nl = rows[0], rows[0].shape[0]
+    step = first.stride(0) * first.element_size()
+    base = first.untyped_storage().data_ptr()
+    if not all(t.is_contiguous() and t.untyped_storage().data_ptr() == base
+               and t.data_ptr() - first.data_ptr() == (r - row0[0]) * step
+               for t, r in zip(rows, row0)):
+        return None
+    return torch.as_strided(first, (row0[-1] - row0[0] + nl, first.shape[1]),
+                            first.stride())
+
+
+def _rerank_shards(qf, cand, rows, row0, metric, k):
+    """:func:`_rerank` of each of C shards at once: ``cand`` (Q, C, r)
+    global rows, each shard's in index order; ``rows`` the shards' rerank
+    rows, first global rows ``row0``. Returns each shard's (Q, C, k) best
+    by exact distance, ties by index. The distances are ``_rerank``'s
+    row-wise reductions over D, with Q * C * r outputs in place of Q * r
+    (``chip_smoke.py`` holds the two to the bit on the card)."""
+    span = _row_span(rows, row0)
+    if span is not None:
+        sel = span[(cand - row0[0]).long() if row0[0] else cand.long()]
+    else:
+        sel = torch.stack([t[(cand[:, j] - first).long()]
+                           for j, (t, first) in enumerate(zip(rows, row0))],
+                          1)
+    sel = sel.float()
+    qx = qf[:, None, None, :]
+    exact = (euclidean_distance(qx, sel) if metric == "euclidean"
+             else cosine_distance(qx, sel))
+    order = torch.argsort(exact, dim=2, stable=True)[..., :k]
+    return torch.gather(exact, 2, order), torch.gather(cand, 2, order)
 
 
 def retrieve_quantized(queries: torch.Tensor, qg: QuantGallery,
@@ -221,14 +262,22 @@ def retrieve_quantized_sharded(queries: torch.Tensor, qg, gallery_f32, mesh,
     int8 route over a row-sharded gallery. ``qg`` and ``gallery_f32`` as
     :func:`shard_quant_gallery` takes them.
 
-    The queries are quantized once. Each shard scans ITS rows for its own
-    top-``r``, ``r = min(max(rerank_factor * k, k), N / S)``, on its own
-    device: K2 where ``use_kernel`` (default: where
-    :func:`~art_sbir_tpu_torch.ops.quant_fused.kernel_takes` the shard's
-    device, ``r`` and D), else the plain int8 scan; then it reranks those
-    candidates exactly on its own rows. The (Q, k) partials, with global
-    indices, merge by (value, index) on the first device
-    (:func:`~art_sbir_tpu_torch.ops.sharded.lexsort_topk_merge`).
+    The queries are quantized once and sent once to each device. Each
+    shard scans ITS rows for its own top-``r``, ``r = min(max(rerank_factor
+    * k, k), N / S)``, on its own device, and reranks those candidates
+    exactly on its own rows. Where ``use_kernel`` (default: where
+    :func:`~art_sbir_tpu_torch.ops.quant_fused.kernel_takes` every shard's
+    device, ``r`` and D), the shards that share a device are one K2 launch
+    (:func:`~art_sbir_tpu_torch.ops.quant_fused.quant_candidates_shards`,
+    the candidates in index order as global rows) and one rerank
+    (:func:`_rerank_shards`); else each shard takes the plain int8 scan and
+    :func:`_rerank` (the per-shard plain route). The shards' (Q, k) runs
+    merge by (value, index), the certificates ANDed
+    (:func:`~art_sbir_tpu_torch.ops.retrieval_fused.merge_shard_runs`: K1's
+    merge kernel on the card): once on a one-device mesh; over several
+    devices, each device's on the device into a record that one copy
+    takes to the first device, where the records merge. The certificates
+    are read once.
 
     Contract: "per-shard top-r + local exact rerank + merge", a superset
     of the single-device candidate set (each global top-r candidate is in
@@ -253,31 +302,65 @@ def retrieve_quantized_sharded(queries: torch.Tensor, qg, gallery_f32, mesh,
     r = min(max(rerank_factor * k, k), nl)
     metric = qg[0].metric
     dev0 = mesh.devices[0]
-    kernel = [quant_fused.kernel_takes(d, r, int(s.q8.shape[1]))
-              if use_kernel is None else bool(use_kernel)
-              for d, s in zip(mesh.devices, qg)]
+    kernel = (all(quant_fused.kernel_takes(d, r, int(s.q8.shape[1]))
+                  for d, s in zip(mesh.devices, qg))
+              if use_kernel is None else bool(use_kernel))
     with torch.no_grad():
         qf = queries.to(dev0).float()
         q8, s_q = _quantize_queries(qf, metric)
-        # the queries reach every card before any shard's kernel is queued
-        # (a copy between cards runs behind the source card's queued work)
-        sent = [(q8.to(d), s_q.to(d), qf.to(d)) for d in mesh.devices]
-        vals, idx, cert = [], [], []
-        for i, (s, rows, (q8_d, s_q_d, qf_d)) in enumerate(
-                zip(qg, gallery_f32, sent)):
-            scan = (quant_fused.quant_candidates_fused if kernel[i]
-                    else quant_fused.quant_candidates_reference)
-            _, cand, c = scan(q8_d, s_q_d, s.q8, s.scale, s.sq_norm, r=r,
-                              metric=metric)
-            cand = torch.sort(cand, dim=1).values
-            v, il = _rerank(qf_d, cand, rows, metric, k)
-            vals.append(v)
-            idx.append(il + i * nl)
-            cert.append(c)
-        vals, idx = lexsort_topk_merge(gather_to(vals, dev0),
-                                       gather_to(idx, dev0), k)
-        cert_h = gather_to(cert, dev0).amin(0).cpu().numpy()
-    if cert_h.all() or not any(kernel):
+        groups = device_groups(mesh)
+        # the queries reach every card, in one copy, before any shard's
+        # kernel is queued (a copy between cards runs behind the source
+        # card's queued work)
+        inputs = [qf, q8, s_q]
+        blob = pack(inputs) if len(groups) > 1 else None
+        sent = [unpack(blob.to(d), inputs) if blob is not None else inputs
+                for d, _ in groups]
+        nq, words = qf.shape[0], record_words(qf.shape[0], k)
+        records = (torch.empty((len(groups), words), dtype=torch.int32,
+                               device=dev0) if len(groups) > 1 else None)
+        local = []
+        for j, ((d, members), (qf_d, q8_d, s_q_d)) in enumerate(
+                zip(groups, sent)):
+            row0 = [i * nl for i in members]
+            if kernel:
+                _, cand, c = quant_fused.quant_candidates_shards(
+                    q8_d, s_q_d, [qg[i] for i in members], row0, r=r,
+                    metric=metric)
+                v, il = _rerank_shards(qf_d, cand,
+                                       [gallery_f32[i] for i in members],
+                                       row0, metric, k)
+            else:
+                parts = []
+                for i, first in zip(members, row0):
+                    _, cand, _ = quant_fused.quant_candidates_reference(
+                        q8_d, s_q_d, qg[i].q8, qg[i].scale, qg[i].sq_norm,
+                        r=r, metric=metric)
+                    cand = torch.sort(cand, dim=1).values
+                    parts.append(_rerank(qf_d, cand, gallery_f32[i], metric,
+                                         k))
+                v = torch.stack([pv for pv, _ in parts], 1)
+                il = torch.stack([pi + first for (_, pi), first
+                                  in zip(parts, row0)], 1)
+                c = torch.ones((len(members), qf_d.shape[0]),
+                               dtype=torch.int32, device=d)
+            # the device's (Q, C, k) runs as (C, Q, k): one run a shard
+            out = None
+            if records is not None:
+                rec = records[0] if j == 0 else torch.empty(
+                    words, dtype=torch.int32, device=d)
+                local.append(rec)
+                out = record_views(rec, nq, k)
+            _, vals, idx, cert = merge_shard_runs(
+                v.transpose(0, 1), il.transpose(0, 1), k, n, exact=c,
+                out=out)
+        if records is not None:  # the devices' records, merged on the first
+            for j in range(1, len(groups)):
+                records[j].copy_(local[j])
+            _, v, il, c = record_views(records, nq, k)
+            _, vals, idx, cert = merge_shard_runs(v, il, k, n, exact=c)
+        cert_h = cert.cpu().numpy()
+    if cert_h.all() or not kernel:
         return vals, idx
     bad = np.nonzero(cert_h == 0)[0]
     nbad = len(bad)

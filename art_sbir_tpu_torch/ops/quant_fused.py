@@ -28,7 +28,8 @@ import functools
 import torch
 
 from art_sbir_tpu_torch.core.cuda_build import (CudaKernel, LaunchCounters,
-                                                grid_splits)
+                                                Plans, grid_splits, scratch,
+                                                signature)
 
 R_MAX = 1024  # the CUDA kernel's candidate budget, the JAX default's 8 * 128
 # The largest r for which the serving engine takes K2. The JAX engine stops
@@ -41,10 +42,14 @@ _TN = 128  # gallery rows per tile; csrc/quant_candidates.cu TN
 _VEC = 16  # bytes per staging load; D % 16 == 0
 _METRICS = {"euclidean": 0, "cosine": 1}
 
+MAX_SHARDS = 16  # shards of one device in one launch; csrc MAX_SHARDS
+
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("quant_candidates", "k2_quant_candidates",
                     [_ptr] * 5 + [_i32] * 6 + [_ptr] * 6 + [_ptr], label="K2")
-counters = LaunchCounters()
+SHARDS_ARGTYPES = [_ptr] * 6 + [_i32] * 8 + [_ptr] * 7
+counters = LaunchCounters()  # K2 launches: one a call, or one a device's shards
+_PLANS = Plans()  # the shards' checks and pointer arrays, by signature
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,3 +183,112 @@ def quant_candidates_fused(q8, s_q, g8, g_scale, g_sq, r: int,
         return quant_candidates_cuda(q8, s_q, g8, g_scale, g_sq, r=r,
                                      metric=metric)
     raise ValueError(f"K2 has no route for device {g8.device}")
+
+
+# ------------------------------------------- the shards of one device
+
+def quant_candidates_shards_reference(q8, s_q, shards, row0, *, r: int,
+                                      metric: str):
+    """Plain version of :func:`quant_candidates_shards_cuda`: each shard's
+    :func:`quant_candidates_reference`, its r candidates put in index order
+    as global rows (the scores moved with them)."""
+    vals, idx = [], []
+    for s, first in zip(shards, row0):
+        v, i, _ = quant_candidates_reference(q8, s_q, s.q8, s.scale,
+                                             s.sq_norm, r=r, metric=metric)
+        i, order = torch.sort(i, dim=1)
+        vals.append(torch.gather(v, 1, order))
+        idx.append(i + first)
+    ones = torch.ones((len(shards), q8.shape[0]), dtype=torch.int32,
+                      device=q8.device)
+    return torch.stack(vals, 1), torch.stack(idx, 1), ones
+
+
+def quant_candidates_shards_cuda(q8, s_q, shards, row0, *, r: int,
+                                 metric: str):
+    """Launch K2 once over the C shards of one card: ``shards`` C
+    ``QuantGallery``s of N / C rows (their ``q8``, ``scale``, ``sq_norm``
+    as :func:`quant_candidates_cuda` takes them), ``row0`` their first
+    global rows; 1 <= r <= min(1024, N / C). Returns (scores (Q, C, r),
+    indices (Q, C, r) int32, certificates (C, Q) int32): each shard's r
+    best by (score, index), in index order as global rows."""
+    dev = q8.device
+    nq, d = q8.shape
+    f32, i32, i8 = torch.float32, torch.int32, torch.int8
+    tensors = [t for x in shards for t in (x.q8, x.scale, x.sq_norm)]
+
+    def make():  # the shards' checks, once a signature
+        c, nl = len(shards), int(shards[0].q8.shape[0])
+        if not 1 <= c <= MAX_SHARDS or len(row0) != c:
+            raise ValueError(f"K2 takes 1 to {MAX_SHARDS} shards a launch "
+                             f"with their first rows, got {c} and "
+                             f"{len(row0)}")
+        for x in shards:
+            for t, dtype, shape in ((x.q8, i8, (nl, d)), (x.scale, f32, (nl,)),
+                                    (x.sq_norm, f32, (nl,))):
+                if (t.device != dev or t.dtype != dtype
+                        or tuple(t.shape) != shape or not t.is_contiguous()):
+                    raise ValueError(
+                        f"K2 shard: want contiguous {dtype} {shape} on "
+                        f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                        f"{t.device}")
+            if x.q8.data_ptr() % _VEC:
+                raise ValueError("K2 reads 16-byte rows: shards 16-byte "
+                                 "aligned")
+
+        def ptrs(name):
+            return (_ptr * c)(*[getattr(x, name).data_ptr() for x in shards])
+
+        return (c, nl, ptrs("q8"), ptrs("scale"), ptrs("sq_norm"),
+                (_i32 * c)(*row0))
+
+    c, nl, g8_arr, scale_arr, sq_arr, row0_arr = _PLANS.get(
+        (tuple(row0), dev, d) + signature(tensors), make)
+    for name, t, dtype, shape in (("q8", q8, i8, (nq, d)),
+                                  ("s_q", s_q, f32, (nq,))):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"K2 input {name}: want contiguous {dtype} "
+                             f"{shape} on {dev}")
+    if d % _VEC or q8.data_ptr() % _VEC:
+        raise ValueError(f"K2 reads 16-byte rows: D={d} must be a multiple "
+                         "of 16 and q8 16-byte aligned")
+    if not 1 <= r <= min(nl, R_MAX):
+        raise ValueError(f"K2 takes 1 <= r <= min(N={nl}, {R_MAX}), got {r}")
+    vals = torch.empty((nq, c, r), dtype=f32, device=dev)
+    idx = torch.empty((nq, c, r), dtype=i32, device=dev)
+    exact = torch.empty((c, nq), dtype=i32, device=dev)
+    if nq == 0:
+        return vals, idx, exact
+    tq, per_sm = _first_pass(r, dev.index)
+    n_tiles = -(-nl // _TN)
+    total = grid_splits(-(-nq // tq), c * n_tiles, dev, per_sm=per_sm)
+    s = max(1, min(n_tiles, total // c))
+    # part_v, part_i (Q, C * s, r) and the bounds (C * Q * (s + 1),) 64-bit
+    step = 4 * nq * c * s * r
+    buf = scratch(dev, 2 * step + 8 * c * nq * (s + 1))
+    base = buf.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        KERNEL.call("k2_quant_candidates_shards", SHARDS_ARGTYPES,
+                    q8.data_ptr(), s_q.data_ptr(), g8_arr, scale_arr, sq_arr,
+                    row0_arr, c, nq, nl, d, r,
+                    _METRICS[metric], s, 1, base, base + step,
+                    base + 2 * step, vals.data_ptr(), idx.data_ptr(),
+                    exact.data_ptr(), stream)
+    counters.add(launches=1)
+    return vals, idx, exact
+
+
+def quant_candidates_shards(q8, s_q, shards, row0, *, r: int,
+                            metric: str = "euclidean"):
+    """The plain version for CPU tensors, the CUDA kernel for CUDA ones."""
+    if metric not in _METRICS:
+        raise ValueError(f"unknown metric {metric!r} (euclidean|cosine)")
+    if q8.device.type == "cpu":
+        return quant_candidates_shards_reference(q8, s_q, shards, row0, r=r,
+                                                 metric=metric)
+    if q8.device.type == "cuda":
+        return quant_candidates_shards_cuda(q8, s_q, shards, row0, r=r,
+                                            metric=metric)
+    raise ValueError(f"K2 has no route for device {q8.device}")

@@ -127,8 +127,8 @@ def evaluate_retrieval(query_features, gallery_features,
     runs, the mesh's S > 1 devices divide N and k is at most N / S, the
     gallery is sharded by rows over them and each query chunk runs the
     sharded sweep (:func:`~art_sbir_tpu_torch.ops.retrieval_fused.
-    retrieve_fused_sharded`: one K1 launch a shard, an O(Q k) merge on
-    ``mesh.devices[0]``); otherwise the unsharded route runs, as in the
+    retrieve_fused_sharded`: one K1 launch a card for its shards, an
+    O(Q k) merge on ``mesh.devices[0]`` over several cards); otherwise the unsharded route runs, as in the
     JAX package (which raises where k > N / S instead). ``device``
     defaults to ``mesh.devices[0]`` then.
 

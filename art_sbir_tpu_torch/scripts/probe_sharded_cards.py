@@ -17,7 +17,9 @@ D = 1024, k = 10):
   after): K1 unsharded and sharded at Q = 32 without ranks and Q = 1,024
   with ranks, float32 form; the int8 route unsharded and sharded at
   Q = 32. Each time is the better of two runs of 10 calls (5 at
-  Q = 1,024).
+  Q = 1,024). Beside each sharded call: its kernel launches (K1's sweep,
+  its positive pass, K2, the cross-shard merge; the launch counters over
+  one call) and its device time by card (torch.profiler, one call).
 
 One JSON line per N, then each card's name and power limit from
 ``nvidia-smi``. Any failed check exits non-zero. ``--device cpu`` runs the
@@ -41,6 +43,8 @@ from art_sbir_tpu_torch.ops import retrieval_fused as rf
 from art_sbir_tpu_torch.parallel.mesh import data_mesh
 
 K, R = 10, 40
+COUNTERS = {"K1": rf.counters, "positive": rf.positive_counters,
+            "merge": rf.merge_counters, "K2": qf.counters}
 
 
 def _sync(mesh) -> None:
@@ -82,6 +86,14 @@ def _device_ms_by_card(fn, mesh) -> dict:
             key = f"cuda:{ev.device_index}"
             by[key] = by.get(key, 0.0) + ev.self_device_time_total / 1e3
     return by
+
+
+def _launches(fn) -> dict:
+    """The kernel launches of one call of ``fn``, by counter."""
+    for c in COUNTERS.values():
+        c.reset()
+    fn()
+    return {name: c.launches for name, c in COUNTERS.items()}
 
 
 def _check(cond: bool, what: str) -> None:
@@ -127,29 +139,21 @@ def probe(n: int, d: int, mesh) -> dict:
     for q, with_ranks, reps in ((32, False, 10), (1024, True, 5)):
         x, pos = queries(q)
         kw = dict(k=K, with_ranks=with_ranks)
-        # each shard's sweep alone on its card, and all of them launched
-        # together without the positive's distance or the merge
-        qq = rf.query_norms(x, "euclidean")
-        args = [(x.to(dv), qq.to(dv), torch.clamp(
-            pos.to(torch.int32) - i * nl, -1, nl).reshape(-1, 1).to(dv),
-            s, gs) for i, (dv, s, gs) in enumerate(
-                zip(mesh.devices, shards, ggs))]
-        d2 = [torch.zeros(q, device=dv) for dv in mesh.devices]
+
+        def sharded():
+            return rf.retrieve_fused_sharded_core(x, shards, pos, mesh,
+                                                  gg=ggs, **kw)
+
         times.append({
             "q": q, "with_ranks": with_ranks,
             "unsharded_ms": _ms(lambda: rf.retrieve_fused_core(
                 x, g, pos, gg=gg, **kw), mesh, reps),
-            "sharded_ms": _ms(lambda: rf.retrieve_fused_sharded_core(
-                x, shards, pos, mesh, gg=ggs, **kw), mesh, reps),
-            "sweep_of_last_shard_alone_ms": _ms(lambda: rf.fused_sweep(
-                *args[-1], d2pos=d2[-1], metric="euclidean", **kw), mesh,
-                reps),
-            "sweeps_of_all_shards_ms": _ms(lambda: [rf.fused_sweep(
-                *a, d2pos=dp, metric="euclidean", **kw)
-                for a, dp in zip(args, d2)], mesh, reps),
-            "device_ms_by_card": _device_ms_by_card(
-                lambda: rf.retrieve_fused_sharded_core(
-                    x, shards, pos, mesh, gg=ggs, **kw), mesh)})
+            "sharded_ms": _ms(sharded, mesh, reps),
+            "launches": _launches(sharded),
+            "device_ms_by_card": _device_ms_by_card(sharded, mesh),
+            "unsharded_device_ms": _device_ms_by_card(
+                lambda: rf.retrieve_fused_core(x, g, pos, gg=gg, **kw),
+                mesh)})
     out["k1_times"] = times
     del shards, ggs
 
@@ -160,7 +164,7 @@ def probe(n: int, d: int, mesh) -> dict:
     kw = dict(k=K, rerank_factor=R // K)
     qf.counters.reset()
     v1, i1 = quant.retrieve_quantized_sharded(x, qgs, gs, mesh, **kw)
-    on_card = sum(dev.type == "cuda" for dev in mesh.devices)
+    on_card = sum(dev.type == "cuda" for dev in mesh.distinct_devices())
     _check(qf.counters.launches == on_card and qf.counters.fallback_rows == 0,
            f"K2 once a card, no fallback ({n})")
     v0, i0 = quant.retrieve_quantized_sharded(x, qgs, gs, mesh,
@@ -175,6 +179,11 @@ def probe(n: int, d: int, mesh) -> dict:
             else quant.retrieve_quantized(x, qg, g, **kw), mesh, 10),
         "sharded_ms": _ms(lambda: quant.retrieve_quantized_sharded(
             x, qgs, gs, mesh, **kw), mesh, 10)}
+    out["int8_launches"] = _launches(
+        lambda: quant.retrieve_quantized_sharded(x, qgs, gs, mesh, **kw))
+    out["int8_device_ms_by_card"] = _device_ms_by_card(
+        lambda: quant.retrieve_quantized_sharded(x, qgs, gs, mesh, **kw),
+        mesh)
     return out
 
 

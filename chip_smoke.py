@@ -59,13 +59,15 @@ Phases, each printing one JSON line:
                   Then ``serve_sharded``: the same cache served by an
                   engine over 4 shards of the one card
                   (``build_engine(args, mesh=...)``), the same counted run,
-                  K1 launched 4 times a dispatch.
+                  K1 launched once a dispatch for the card's 4 shards, the
+                  cross-shard merge never.
 8. serve_quant -- the same with ``--quantize`` over a 1,000,000 x 1024
                   cache (500,000 rows only where the temporary directory
                   cannot hold the larger one): the
                   engine must take the K2 route, K2 must have been launched
                   and never fallen back; then ``serve_quant_sharded`` over
-                  4 shards, K2 launched 4 times a dispatch.
+                  4 shards, K2 and the cross-shard merge launched once a
+                  dispatch.
 9. ivf         -- the IVF and IVF-PQ library (ops/ivf.py, ops/pq.py; plain
                   PyTorch, no kernel of the port) at D = 1024 on the
                   JAX probe's clustered geometry (sqrt(N) blob centres
@@ -147,11 +149,17 @@ Phases, each printing one JSON line:
                   sharded plain version as ``kernels`` holds K1; the
                   copies tie in index order. Then sharded K1 timed beside
                   unsharded K1, its plain version and the library call at
-                  Q = 32 and Q = 1,024 with ranks. The sharded int8 route
-                  at N = 10^6, Q = 32, r = 40 a shard, both metrics: K2 once
-                  a shard, bit for bit its per-shard plain route, timed.
+                  Q = 32 and Q = 1,024 with ranks, each call's launches and
+                  profiled device time beside the unsharded call's (one
+                  launch of each kernel). K1's cross-shard merge kernel
+                  bit for bit its plain version on runs with ties within
+                  and across shards and unfilled slots, timed. The sharded
+                  int8 route at N = 10^6, Q = 32, r = 40 a shard, both
+                  metrics: K2 once for the 4 shards (bit for bit its plain
+                  version) and one merge, bit for bit its per-shard plain
+                  route, timed beside the whole route's library call.
                   ``run_inference`` over the mesh at 100,004 rows: K1 and
-                  its positive kernel 4 times a query chunk, the unsharded
+                  its positive kernel once a query chunk, the unsharded
                   run's queries, ranks, top-k and dict exactly; at 100,003
                   rows the unsharded route; ``cli/inference.py
                   --n_devices`` past the cards present exits. One engine
@@ -325,7 +333,8 @@ the kernels line are the sums over those runs: K1's float32 form's from
 rows (``inference`` ranks its small gallery on the exact route), K2's
 from ``serve_quant``, K1's bf16 form's and P1's from the probe, the
 sharded K1's from ``serve_sharded`` and ``sharded``'s ``run_inference``
-over the mesh, the sharded K2's from ``serve_quant_sharded``, and K1's
+over the mesh, the sharded K2's and the cross-shard merge's from
+``serve_quant_sharded``, and K1's
 and K2's from ``goldens``' run of the IVF probe; the IVF
 serve runs, train_dp, train_tp, the generator phases, pix2pix,
 photo2sketch and inventory launch none. Any
@@ -1494,6 +1503,7 @@ def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
     rounds = 20  # closed loop: 8 clients, each sends again on its answer
     counters = _counters()
     shards = 1 if mesh is None else mesh.size
+    cards = 1 if mesh is None else len(mesh.distinct_devices())
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine, batcher = serve.build_engine(args, mesh=mesh)
@@ -1526,7 +1536,8 @@ def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
     port = httpd.server_address[1]
     lat, tops, round_s = [], [], []
     try:
-        for c in list(counters.values()) + [rf.positive_counters]:
+        for c in list(counters.values()) + [rf.positive_counters,
+                                            rf.merge_counters]:
             c.reset()  # this path's run starts here
         with urllib.request.urlopen(
                 f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
@@ -1589,6 +1600,7 @@ def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
             transport = "search_arrays from 8 threads (no PIL)"
         torch.cuda.synchronize()
         launches = {name: c.launches for name, c in counters.items()}
+        merges = rf.merge_counters.launches
         fallback = (counters[route].fallback_rows if route in counters
                     else 0)
         n_dispatch = len(dispatches)
@@ -1602,11 +1614,19 @@ def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
     want = [paths[s] for s in slots] * (rounds + 1)
     check(tops == want, "each top-1 is its planted row")
     if route in counters:
-        check(launches[route] == shards * n_dispatch,
-              f"{route} launched {shards} times a dispatch on the main path")
+        check(launches[route] == cards * n_dispatch,
+              f"{route} launched once a card ({cards}) a dispatch over "
+              f"{shards} shard(s) on the main path")
         key = route if mesh is None else route + "_sharded"
         state["launches"][key] = (state["launches"].get(key, 0)
                                   + launches[route])
+    # the sharded int8 route merges its shards' runs in K1's merge kernel
+    # once a dispatch; sharded K1 on one card merges inside its own launch
+    want_merges = n_dispatch if mesh is not None and route == "K2" else 0
+    check(merges == want_merges, f"the cross-shard merge launched "
+          f"{want_merges} times on this path, got {merges}")
+    state["launches"]["K1_merge_shards"] = (
+        state["launches"].get("K1_merge_shards", 0) + merges)
     check(all(v == 0 for name, v in launches.items() if name != route),
           f"no other kernel than {route} launched on this path")
     check(fallback == 0, f"{route} never fell back")
@@ -1622,7 +1642,8 @@ def _serve_engine(state, phase, args, mesh, n_rows, route, sketches, paths,
           "max_ms": 1e3 * max(lat),
           "mean_batch": float(np.mean([b for b, _ in timed])),
           "batches": len(timed), "dispatches": n_dispatch,
-          "launches": launches, "fallback_rows": fallback,
+          "launches": launches, "merge_launches": merges,
+          "fallback_rows": fallback,
           "round_ms_first5": [1e3 * r for r in round_s[:5]],
           "round_ms_max": 1e3 * max(round_s),
           "dispatch_ms_p50": float(np.median(dispatch_ms)),
@@ -2914,6 +2935,20 @@ def _shard_inputs(gen, q: int):
     return x.contiguous(), pos, g
 
 
+def _call_launches(fn) -> dict:
+    """The port's kernel launches of one call of ``fn``, by counter."""
+    from art_sbir_tpu_torch.ops import quant_fused as qf
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
+
+    counters = {"K1": rf.counters, "K1_bf16": rf.bf16_counters,
+                "positive": rf.positive_counters, "merge": rf.merge_counters,
+                "K2": qf.counters}
+    for c in counters.values():
+        c.reset()
+    fn()
+    return {name: c.launches for name, c in counters.items()}
+
+
 def _sharded_k1(state, mesh, gen) -> dict:
     """Sharded K1 against unsharded K1 (bit for bit) and against its
     sharded plain version, then both timed beside the library call."""
@@ -2999,6 +3034,17 @@ def _sharded_k1(state, mesh, gen) -> dict:
             x, shards, pos, mesh, gg=ggs, **kw))
         row["unsharded_device_ms"] = device_ms(
             lambda: rf.retrieve_fused_core(x, g, pos, gg=gg, **kw))
+        row["launches"] = _call_launches(
+            lambda: rf.retrieve_fused_sharded_core(x, shards, pos, mesh,
+                                                   gg=ggs, **kw))
+        row["unsharded_launches"] = _call_launches(
+            lambda: rf.retrieve_fused_core(x, g, pos, gg=gg, **kw))
+        torch.cuda.synchronize()
+        # one device: a positive pass (with ranks), one sweep and its merge
+        check(row["launches"] == {"K1": 1, "K1_bf16": 0,
+                                  "positive": int(with_ranks), "merge": 0,
+                                  "K2": 0},
+              f"sharded K1 on one card (Q {q}): one launch of each kernel")
         row["bound_ms"], row["bound_by"] = bound(
             4 * (n * D + q * D + n + 2 * q) + q * K * 8 + q * 8,
             2 * q * n * D, H100_F32_FLOP_PER_S)
@@ -3008,26 +3054,97 @@ def _sharded_k1(state, mesh, gen) -> dict:
     state["k1_sharded"] = {
         "name": "K1_sharded", "route": "cuda",
         "source": "art_sbir_tpu_torch/ops/retrieval_fused.py "
-                  "(retrieve_fused_sharded) + "
-                  "art_sbir_tpu_torch/csrc/fused_retrieval.cu",
+                  "(retrieve_fused_sharded, sweep_shards) + "
+                  "art_sbir_tpu_torch/csrc/fused_retrieval.cu "
+                  "(k1_positive_shards, k1_sweep_shards) + "
+                  "art_sbir_tpu_torch/csrc/k1_sweep.cuh",
         "replaces": "art_sbir_tpu/ops/retrieval_pallas.py:746",
         "max_abs_err": max_err, "ms": serving["ms"],
         "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"],
         "library_ms": serving["library_ms"], "shards": SHARDS,
+        "device_ms": serving["device_ms"],
         "shape": "Q 32, N 100,000, no ranks, 4 shards of one card"}
     return {"shard_norms_bit_equal": norms_equal,
             "k1_cases": len(cases), "k1_case_rows": cases,
             "k1_bf16_max_err_over_bound": max_over, "k1_times": times}
 
 
+def _merge_inputs(gen, s: int, q: int, length: int, n: int):
+    """(S, Q, L) runs as the sharded routes give them (views of (Q, S, L)
+    tensors), each ascending by (value, global index): small-integer values
+    (ties within and across runs), shard i's indices in [i * n / S, (i + 1)
+    * n / S), the last slots of a few runs unfilled (3e38 at n); (S, Q)
+    rank partials and certificates with one 0."""
+    import torch
+
+    nl = n // s
+    vals = torch.randint(0, 6, (q, s, length), generator=gen,
+                         device="cuda").float()
+    idx = (torch.rand((q, s, nl), generator=gen, device="cuda")
+           .argsort(2)[..., :length].int()
+           + nl * torch.arange(s, device="cuda", dtype=torch.int32)[:, None])
+    order = torch.argsort(vals.double() * n + idx.double(), dim=2)
+    vals, idx = torch.gather(vals, 2, order), torch.gather(idx, 2, order)
+    vals[:3, 0, -2:], idx[:3, 0, -2:] = 3.0e38, n
+    ranks = torch.randint(0, 1000, (s, q), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    exact = torch.ones((s, q), dtype=torch.int32, device="cuda")
+    exact[s - 1, q - 1] = 0
+    return vals.transpose(0, 1), idx.transpose(0, 1), ranks, exact
+
+
+def _sharded_merge(state, gen) -> dict:
+    """K1's cross-shard merge kernel against its plain version, bit for
+    bit, at the int8 route's shape on 4 shards (Q 32, k 10) and at 16
+    shards of 1,024 queries, then timed at the int8 route's shape."""
+    import torch
+
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
+
+    cases = []
+    for s, q in ((SHARDS, 32), (16, 1024)):
+        v, i, r, e = _merge_inputs(gen, s, q, K, SERVE_N)
+        got = rf.merge_shard_runs_cuda(v, i, K, SERVE_N, ranks=r, exact=e)
+        want = rf.merge_shard_runs_reference(v, i, K, SERVE_N, ranks=r,
+                                             exact=e)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"the cross-shard merge ({s} runs, {q} queries): bit for bit "
+              "its plain version")
+        check(int(got[3][-1]) == 0 and int(got[3][0]) == 1,
+              "the cross-shard merge ANDs the certificates")
+        cases.append([s, q])
+    v, i, r, e = _merge_inputs(gen, SHARDS, 32, K, SERVE_N)
+    ms = time_ms(lambda: rf.merge_shard_runs_cuda(v, i, K, SERVE_N,
+                                                  exact=e))
+    plain_ms = time_ms(lambda: rf.merge_shard_runs_reference(
+        v, i, K, SERVE_N, exact=e))
+    # the runs and certificates read once, the top-k and certificates written
+    nbytes = SHARDS * 32 * (8 * K + 4) + 32 * (8 * K + 4)
+    bound_ms, bound_by = bound(nbytes, SHARDS * 32 * K, H100_F32_FLOP_PER_S)
+    state["k1_merge_shards"] = {
+        "name": "K1_merge_shards", "route": "cuda",
+        "source": "art_sbir_tpu_torch/ops/retrieval_fused.py "
+                  "(merge_shard_runs) + art_sbir_tpu_torch/csrc/"
+                  "fused_retrieval.cu (k1_merge_runs)",
+        "replaces": "art_sbir_tpu/ops/retrieval_pallas.py:866",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "shape": "4 runs a query (the int8 route's shards), Q 32, k 10, "
+                 "certificates ANDed"}
+    return {"merge_cases": cases, "merge_ms": ms, "merge_plain_ms": plain_ms}
+
+
 def _sharded_k2(state, mesh, gen) -> dict:
-    """The sharded int8 route (K2 per shard, a local exact rerank, the
-    merge) against its per-shard plain route, bit for bit, then timed."""
+    """The sharded int8 route (K2 once for the card's shards, their exact
+    rerank at once, K1's merge kernel) against its per-shard plain route,
+    bit for bit, then timed."""
     import torch
 
     from art_sbir_tpu_torch.ops import quant
     from art_sbir_tpu_torch.ops import quant_fused as qf
+    from art_sbir_tpu_torch.ops import retrieval_fused as rf
 
     n, q = QUANT_N, 32
     g = torch.randn((n, D), generator=gen, device="cuda")
@@ -3038,21 +3155,36 @@ def _sharded_k2(state, mesh, gen) -> dict:
         qgs, gs = quant.shard_quant_gallery(quant.quantize_gallery(g, metric),
                                             g, mesh)
         qf.counters.reset()
+        rf.merge_counters.reset()
         v1, i1 = quant.retrieve_quantized_sharded(x, qgs, gs, mesh, k=K,
                                                   rerank_factor=4)
         torch.cuda.synchronize()
         launches, fallback = qf.counters.launches, qf.counters.fallback_rows
+        merges = rf.merge_counters.launches
         v0, i0 = quant.retrieve_quantized_sharded(x, qgs, gs, mesh, k=K,
                                                   rerank_factor=4,
                                                   use_kernel=False)
-        check(launches == SHARDS and fallback == 0,
-              f"sharded K2 route ({metric}): K2 once a shard, no fallback")
+        check(launches == 1 and merges == 1 and fallback == 0,
+              f"sharded K2 route ({metric}): K2 once for the card's "
+              f"{SHARDS} shards, one merge, no fallback")
+        # K2 over the shards against its plain version, bit for bit
+        q8, s_q = quant._quantize_queries(x, metric)
+        row0 = [i * (n // SHARDS) for i in range(SHARDS)]
+        got = qf.quant_candidates_shards_cuda(q8, s_q, qgs, row0, r=R,
+                                              metric=metric)
+        want = qf.quant_candidates_shards_reference(q8, s_q, qgs, row0, r=R,
+                                                    metric=metric)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"K2 over {SHARDS} shards ({metric}): bit for bit its plain "
+              "version (candidates in index order, global rows)")
         check(torch.equal(i1, i0) and torch.equal(v1, v0),
               f"sharded K2 route ({metric}): bit for bit the per-shard "
               "plain route")
         check(torch.equal(i1[:, 0], rows.to(i1.dtype)),
               f"sharded K2 route ({metric}): top-1 is the query's row")
-        out[metric] = {"launches": launches, "fallback_rows": fallback}
+        out[metric] = {"launches": launches, "merges": merges,
+                       "fallback_rows": fallback}
         del qgs, gs
     qg = quant.quantize_gallery(g, "euclidean")
     qgs, gs = quant.shard_quant_gallery(qg, g, mesh)
@@ -3070,9 +3202,27 @@ def _sharded_k2(state, mesh, gen) -> dict:
         dot = cross.float() * (s_q[:, None] * qg.scale[None, :])
         return torch.topk(qg.sq_norm[None, :] - 2.0 * dot, R, largest=False)
 
+    def library_route():  # the whole route's library composition
+        cross = torch._int_mm(q8, qg.q8.t())
+        dot = cross.float() * (s_q[:, None] * qg.scale[None, :])
+        cand = torch.topk(qg.sq_norm[None, :] - 2.0 * dot, R,
+                          largest=False).indices
+        exact = torch.linalg.vector_norm(x[:, None, :] - g[cand] + 1e-6,
+                                         dim=2)
+        return torch.topk(exact, K, largest=False)
+
     library_ms = time_ms(library)
+    library_route_ms = time_ms(library_route)
     ms.append(time_ms(lambda: quant.retrieve_quantized_sharded(
         x, qgs, gs, mesh, **kw)))
+    dev_ms = device_ms(lambda: quant.retrieve_quantized_sharded(
+        x, qgs, gs, mesh, **kw))
+    unsharded_dev_ms = device_ms(lambda: quant.retrieve_quantized_fused(
+        x, qg, g, **kw))
+    launches = _call_launches(lambda: quant.retrieve_quantized_sharded(
+        x, qgs, gs, mesh, **kw))
+    unsharded_launches = _call_launches(
+        lambda: quant.retrieve_quantized_fused(x, qg, g, **kw))
     # the scan reads the int8 rows, their scales and norms once; the rerank
     # the S * r candidate rows of each query in float32
     cand = q * SHARDS * R
@@ -3084,17 +3234,25 @@ def _sharded_k2(state, mesh, gen) -> dict:
         "name": "K2_sharded", "route": "cuda",
         "source": "art_sbir_tpu_torch/ops/quant.py "
                   "(retrieve_quantized_sharded) + "
-                  "art_sbir_tpu_torch/csrc/quant_candidates.cu",
+                  "art_sbir_tpu_torch/csrc/quant_candidates.cu "
+                  "(k2_quant_candidates_shards)",
         "replaces": "art_sbir_tpu/ops/quant.py:348",
         "max_abs_err": 0.0, "ms": min(ms), "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "shards": SHARDS,
+        "library_ms": library_route_ms, "library_scan_ms": library_ms,
+        "device_ms": dev_ms, "shards": SHARDS,
         "shape": "Q 32, N 10^6, r 40 a shard, k 10, 4 shards of one card"}
     return {"k2_route": out, "k2_ms_runs": ms,
             "k2_unsharded_route_ms": unsharded_ms,
-            "k2_library": "torch._int_mm over the whole gallery, the score, "
-                          "torch.topk (the scan alone)"}
+            "k2_device_ms": dev_ms, "k2_unsharded_device_ms": unsharded_dev_ms,
+            "k2_launches": launches,
+            "k2_unsharded_launches": unsharded_launches,
+            "k2_library_route_ms": library_route_ms,
+            "k2_library": "library_ms: torch._int_mm over the whole gallery, "
+                          "the score, torch.topk, the gathered rows' exact "
+                          "distances, torch.topk (the whole route); "
+                          "library_scan_ms: the scan alone"}
 
 
 def _dispatch_ab(mesh) -> dict:
@@ -3163,6 +3321,7 @@ def phase_sharded(state) -> None:
     line = {"phase": "sharded", "ok": True, "shards": SHARDS}
     line.update(_sharded_k1(state, mesh, gen))
     torch.cuda.empty_cache()
+    line.update(_sharded_merge(state, gen))
     line.update(_sharded_k2(state, mesh, gen))
     torch.cuda.empty_cache()
     line["dispatch_8_alternating"] = _dispatch_ab(mesh)
@@ -3213,10 +3372,11 @@ def phase_sharded(state) -> None:
                       "fallback": rf.counters.fallback_rows}
     k1, k1_bf16, k2, p1, positive = runs["sharded"]["launches"]
     check(runs["sharded"]["trace"]["route"] == "K1_sharded"
-          and k1 == SHARDS * chunks and positive == SHARDS * chunks
+          and k1 == chunks and positive == chunks
           and k1_bf16 == k2 == p1 == 0 and runs["sharded"]["fallback"] == 0,
           f"run_inference over the mesh: K1 and its positive launched "
-          f"{SHARDS} times a query chunk ({chunks}), alone, no fallback")
+          f"once a query chunk ({chunks}) for the card's {SHARDS} shards, "
+          "alone, no fallback")
     state["launches"]["K1_sharded"] = (state["launches"].get("K1_sharded", 0)
                                        + k1)
     one, sh = runs["one"], runs["sharded"]
@@ -5443,7 +5603,7 @@ def main(argv=None) -> int:
     emit({"kernels": [{**state[name.lower()],
                        "launches": state["launches"][name]}
                       for name in ("K1", "K1_bf16", "K2", "P1", "K1_sharded",
-                                   "K2_sharded")]})
+                                   "K2_sharded", "K1_merge_shards")]})
     print(state["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -222,14 +222,14 @@ def test_fused_sharded_guards_match_jax(rng):
 
 @pytest.mark.parametrize("device_get", [False, True])
 def test_fused_sharded_certificate_fallback(rng, monkeypatch, device_get):
-    """Rows a shard flags are recomputed over the whole gallery and counted
-    in the form's fallback_rows."""
+    """Rows a device's sweep over its shards flags are recomputed over the
+    whole gallery and counted in the form's fallback_rows."""
     n, q, d = 64, 6, 16
     gal = rng.standard_normal((n, d)).astype(np.float32)
     queries = rng.standard_normal((q, d)).astype(np.float32)
     pos = rng.integers(0, n, size=q).astype(np.int32)
     want = rf.retrieve_fused(_t(queries), _t(gal), _t(pos), k=5)
-    sweep = rf.fused_sweep
+    sweep = rf.sweep_shards
 
     def flag_rows_1_4(*a, **kw):
         r, v, i, e = sweep(*a, **kw)
@@ -237,7 +237,7 @@ def test_fused_sharded_certificate_fallback(rng, monkeypatch, device_get):
         e[[1, 4]] = 0
         return r, v, i, e
 
-    monkeypatch.setattr(rf, "fused_sweep", flag_rows_1_4)
+    monkeypatch.setattr(rf, "sweep_shards", flag_rows_1_4)
     before = rf.counters.fallback_rows
     got = rf.retrieve_fused_sharded(_t(queries), _t(gal), _t(pos),
                                     _mesh(4), k=5, device_get=device_get)
