@@ -94,7 +94,12 @@ def chance_mrr(n: int) -> float:
 
 def ensure_corpus(root: Path, preset: dict) -> Path:
     """The preset's seeded synthetic Sketchy corpus under ``root/sketchy``,
-    generated unless its marker file records the same corpus fields."""
+    generated unless its marker file records the same corpus fields.
+    Another preset's corpus there is removed first: generating over it
+    would leave its extra classes and photos behind (``scale_learn``'s 25
+    classes under ``learn``'s 10-class head)."""
+    import shutil
+
     from art_sbir_tpu_torch.data.synthetic import make_synthetic_sketchy
 
     sk = root / "sketchy"
@@ -104,6 +109,8 @@ def ensure_corpus(root: Path, preset: dict) -> Path:
              "learnable", "gen_size")}
     if marker.is_file() and json.loads(marker.read_text()) == want:
         return sk
+    if sk.exists():
+        shutil.rmtree(sk)
     make_synthetic_sketchy(sk, n_classes=preset["n_classes"],
                            photos_per_class=preset["photos_per_class"],
                            sketches_per_photo=preset["sketches_per_photo"],

@@ -10,9 +10,12 @@ documented seeds, as in the JAX package.
 The mix is SplitMix64's finalizer (Steele, Lea and Flood, "Fast
 splittable pseudorandom number generators", OOPSLA 2014) chained over
 the three words: ``h = f(f(f(seed) ^ name_id) ^ step)`` in 64-bit
-arithmetic. The streams cannot equal ``jax.random``'s; what carries over
-is the discipline: the generator for ``(name, step)`` is a function of
-the seed, the name and the step alone.
+arithmetic. These torch streams do not equal ``jax.random``'s; what
+carries over is the discipline: the generator for ``(name, step)`` is a
+function of the seed, the name and the step alone. Where the port must
+draw JAX's own numbers (the triplet encoder's fresh init,
+``models/flax_draw.py``), :mod:`art_sbir_tpu_torch.core.jax_random`
+computes ``jax.random``'s threefry draws in numpy instead.
 """
 
 from __future__ import annotations

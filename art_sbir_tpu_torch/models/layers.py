@@ -2,7 +2,8 @@
 
 Counterpart of ``art_sbir_tpu/models/layers.py``: the BatchNorm momentum,
 reflection padding, instance norm with torch's defaults, and a seeded
-form of the JAX package's default inits (:func:`flax_init`). The JAX
+form of the JAX package's default inits (:func:`flax_init`, for every
+family but the triplet encoder). The JAX
 package hand-builds torch's transposed-convolution geometry,
 ``(in-1)*s - 2p + k + op`` (``layers.py:69-97``); here
 ``nn.ConvTranspose2d(..., output_padding=...)`` is that geometry
@@ -86,7 +87,12 @@ def flax_init(model: nn.Module, seed: int = 0,
               gen: torch.Generator | None = None) -> nn.Module:
     """The JAX package's fresh-init distributions, module by module, drawn
     from an explicit CPU ``torch.Generator`` (``gen``, else one seeded with
-    ``seed``), so the weights are the same on every device:
+    ``seed``), so the weights are the same on every device. The model
+    families other than the triplet encoder take it (pix2pix's kernels
+    aside: ``models/pix2pix.py::init_weights``): the VAE, the drawing
+    generator, AdaIN, InceptionV3 and the CLIP block; the encoder draws
+    JAX's own values instead
+    (``models/resnet.py::init_weights``, ``models/flax_draw.py``).
 
     * ``Conv2d`` and ``Linear``: :func:`lecun_normal_` with zero bias
       (flax's ``nn.Conv`` and ``nn.Dense`` defaults);
@@ -96,8 +102,8 @@ def flax_init(model: nn.Module, seed: int = 0,
       (JAX ``layers.py::TorchLSTMCell``, torch's own LSTM init);
     * ``BatchNorm2d``: identity (scale 1, bias 0, statistics 0 and 1).
 
-    The draws cannot equal ``jax.random``'s; the family, scale and
-    truncation bound of each tensor do."""
+    These torch draws do not equal ``jax.random``'s; the family, scale
+    and truncation bound of each tensor do."""
     if gen is None:
         gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from art_sbir_tpu_torch.core.device import resolve_device
-from art_sbir_tpu_torch.models.layers import BN_MOMENTUM, flax_init
+from art_sbir_tpu_torch.models.flax_draw import encoder_state
+from art_sbir_tpu_torch.models.layers import BN_MOMENTUM
 from art_sbir_tpu_torch.parallel.tensor import whole
 
 
@@ -269,19 +270,24 @@ class ModifiedResNetWithClassification(ModifiedResNet):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded fresh init from an explicit CPU ``torch.Generator`` (the same
-    weights on every device), in the JAX package's distributions
-    (:func:`~art_sbir_tpu_torch.models.layers.flax_init`): conv and linear
-    weights, the classifier heads included, flax's ``lecun_normal`` (a
-    normal truncated at +-2 of its stds, variance 1/fan_in), zero biases,
-    identity BatchNorm, and the positional embedding N(0, 1)/sqrt(C)
-    (JAX ``resnet.py:96-100``)."""
-    gen = torch.Generator().manual_seed(seed)
-    flax_init(model, gen=gen)
-    for mod in model.modules():
-        if isinstance(mod, AttentionPool2d):
-            pe = mod.positional_embedding
-            pe.copy_(torch.randn(pe.shape, generator=gen) / pe.shape[1] ** 0.5)
+    """The JAX package's fresh init for ``seed``: the weights of
+    ``model.init(jax.random.key(seed), ...)`` (JAX ``train/triplet.py``'s
+    ``create_train_state``), drawn on the host without JAX by
+    :func:`~art_sbir_tpu_torch.models.flax_draw.encoder_state` (flax's
+    key paths and ``lecun_normal`` kernels, zero biases, identity
+    BatchNorm, the positional embedding N(0, 1)/sqrt(C), JAX
+    ``resnet.py:96-100``), so ``--seed s`` gives JAX's ``--seed s`` init
+    on every device. The configuration is read off ``model``."""
+    heads = ()
+    if isinstance(model, ModifiedResNetWithClassification):
+        heads = (("classifier", model.classifier.out_features),)
+        if model.classifier2 is not None:
+            heads += (("classifier2", model.classifier2.out_features),)
+    pool = model.attnpool
+    state = encoder_state(seed, model.layers, model.conv3.out_channels,
+                          pool.positional_embedding.shape[0],
+                          pool.c_proj.out_features, heads)
+    model.load_state_dict(state)
     return model
 
 
@@ -291,9 +297,9 @@ def create_encoder(with_classification: bool = False, num_classes: int = 125,
                    device: str | torch.device | None = None, seed: int = 0,
                    **kw) -> nn.Module:
     """Factory mirroring the reference model choices (``utils.py:132-206``):
-    a seeded fresh init on ``device`` (the card unless ``device='cpu'``),
-    in eval mode. ``kw``: layers, output_dim, heads, input_resolution,
-    width."""
+    JAX's fresh init for ``seed`` (:func:`init_weights`) on ``device``
+    (the card unless ``device='cpu'``), in eval mode. ``kw``: layers,
+    output_dim, heads, input_resolution, width."""
     dev = resolve_device(device)
     if with_classification:
         model = ModifiedResNetWithClassification(

@@ -16,7 +16,9 @@ functions, which make the model tensor parallel inside a grid):
   full-width VAE at 256 px (global batch 8, two steps), by
   :func:`failures`' rules: the triplet's losses and every pix2pix and VAE
   loss no farther from a float64 step than twice the one process's
-  float32 distance plus rtol 1e-5, the triplet's flat gradient no farther
+  float32 distance plus rtol 1e-5 (for the triplet, the widest of three
+  float32 runs, its rows in three orders:
+  ``probe_dp_cards.row_orders``), the triplet's flat gradient no farther
   from float64's (relative L2) than twice the one process's plus 1e-4,
   augmented rows equal to the one process's, gathered statistics,
   parameters and pix2pix state equal on every rank bit for bit; each
@@ -70,6 +72,11 @@ def reference(inputs: dict, geo: dict, device, path: Path) -> None:
             kw = {"steps": 1} if name == "triplet" else {}
             P._empty(device)
             ref[key] = fn(arg, geo, device, dtype, **kw)
+    ref["triplet_orders"] = []
+    for order in P.row_orders(len(inputs["u8"]["label"])):
+        P._empty(device)
+        ref["triplet_orders"].append(P.triplet_steps(
+            inputs["u8"], geo, device, steps=1, order=order)["losses"])
     torch.save(ref, path)
     P._empty(device)
 
@@ -140,12 +147,15 @@ def timed_steps(u8: dict, geo: dict, device, timed=TIMED) -> Dict:
                                        "bytes": last[k][1]} for k in KINDS}}
 
 
-def _loss_errors(got: List[dict], one: List[dict], f64: List[dict]
-                 ) -> List[dict]:
+def _loss_errors(got: List[dict], one: List[dict], f64: List[dict],
+                 others: List[List[dict]] = ()) -> List[dict]:
+    """Each loss of each step; ``rel_one_vs_f64`` is the widest of the one
+    process's float32 runs (``one`` and the ``others``, the triplet's in
+    other row orders) from float64."""
     return [{"step": s + 1, "loss": k, "ranks": got[s][k], "one": v,
              "f64": f64[s][k], "rel_ranks_vs_f64": P._rel(got[s][k],
                                                           f64[s][k]),
-             "rel_one_vs_f64": P._rel(v, f64[s][k])}
+             "rel_one_vs_f64": P.widest_rel([one, *others], f64, s, k)}
             for s in range(len(one)) for k, v in one[s].items()]
 
 
@@ -172,7 +182,7 @@ def rank_checks(device, inputs: dict, geo: dict, ref_path: str,
     one, f64 = ref["triplet"], ref["triplet_f64"]
     out["triplet"] = {
         "loss_errors": _loss_errors(got["losses"], one["losses"],
-                                    f64["losses"]),
+                                    f64["losses"], ref["triplet_orders"]),
         "gradient": P._gradient_errors(one["grads"][0], got["grads"][0],
                                        f64["grads"][0], one["grad_names"]),
         "sketch_rows_equal": all(

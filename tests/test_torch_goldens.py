@@ -7,8 +7,9 @@ goldens.
   argv equal but for the port's ``--device``, the golden dicts equal but
   for ``backend``, the card's fields and wall times, and the preset
   tables equal field for field.
-* **The corpus.** ``ensure_corpus`` writes JAX's files bit for bit and
-  its marker skips a second build.
+* **The corpus.** ``ensure_corpus`` writes JAX's files bit for bit, its
+  marker skips a second build, and another preset's corpus in the same
+  root is replaced, not written over.
 * **The port's CPU goldens.** ``ci`` (in bf16, and in float32 under
   ``--no-bf16``), ``gan_ci`` and ``vae_ci`` on the CPU reproduce
   ``goldens/torch_*_cpu.json``: metrics exactly, losses at
@@ -191,6 +192,25 @@ def test_ensure_corpus_matches_jax_and_skips_a_second_build(tmp_path,
         tmp_path / "port" / "sketchy")
 
 
+def test_ensure_corpus_replaces_another_presets_corpus(tmp_path):
+    """A smaller preset's corpus built where a larger one lay holds only
+    its own classes and files, those of a fresh build (``scale_learn``'s
+    25 classes once stayed under ``learn``'s 10-class head and failed its
+    classification loss on the card)."""
+    big = dict(port_goldens.PRESETS["ci"], n_classes=4, photos_per_class=3)
+    small = port_goldens.PRESETS["ci"]  # 3 classes x 4 photos
+    port_goldens.ensure_corpus(tmp_path / "shared", big)
+    port_goldens.ensure_corpus(tmp_path / "shared", small)
+    port_goldens.ensure_corpus(tmp_path / "fresh", small)
+
+    def files(root):
+        return {p.relative_to(root): p.read_bytes()
+                for p in sorted((root / "sketchy").rglob("*"))
+                if p.is_file()}
+
+    assert files(tmp_path / "shared") == files(tmp_path / "fresh")
+
+
 def _want(name):
     want = json.loads((GOLDENS / f"torch_{name}_cpu.json").read_text())
     assert want["backend"] == "cpu"
@@ -274,7 +294,23 @@ def test_learn_cuda_golden_contract():
     """``tests/test_goldens.py::test_learn_tpu_golden_contract``: the
     flagship recipe on the learnable corpus ends >= 10x above chance with
     a rising curve."""
-    g = _card_golden("learn")
+    _learn_contract(_card_golden("learn"))
+
+
+def test_learn_f32_cuda_golden_contract():
+    """The same recipe in IEEE float32 on the card (``--no-bf16``, TF32
+    off), recorded to tell bf16 from the rest: the same contract."""
+    g = json.loads((GOLDENS / "torch_learn_f32_cuda.json").read_text())
+    assert g["backend"] == "cuda" and "H100" in g["device_name"]
+    assert g["power_limit"].endswith("W") and g["precision"] == "float32"
+    tpu = json.loads((GOLDENS / "learn_tpu.json").read_text())
+    assert (g["n_gallery"], g["n_queries"]) == (tpu["n_gallery"],
+                                                tpu["n_queries"])
+    assert g["config"] == tpu["config"]
+    _learn_contract(g)
+
+
+def _learn_contract(g):
     assert g["backend"] != "cpu"
     assert g["config"]["learnable"] is True
     chance = g["chance_mrr"]

@@ -1,12 +1,22 @@
 """The port's fresh inits against the JAX package's, tensor by tensor, on
 the CPU.
 
-The draws cannot match (torch generators against ``jax.random``'s
-threefry), so each tensor is held to JAX's by its distribution: JAX's
-``model.init(jax.random.key(0))`` is carried into the port's layout by
-``models/port_weights.py``'s ``*_from_flax`` (so the LSTM's stored
-``kernel - k`` is compared as the effective weight), and beside the
-port's seeded fresh init of the same model each tensor must have
+JAX's ``model.init(jax.random.key(0))`` is carried into the port's layout
+by ``models/port_weights.py``'s ``*_from_flax`` (so the LSTM's stored
+``kernel - k`` is compared as the effective weight).
+
+The triplet encoder (``ModifiedResNet``, with and without its heads)
+draws JAX's own init (``models/flax_draw.py``): each tensor equals JAX's,
+constants exactly and drawn tensors within ``flax_draw.DRAW_ULP`` float32
+ulp (the inverse error function's rounding;
+``tests/test_torch_jax_init.py`` holds more shapes and seeds).
+
+The other families (the VAE, the drawing generator, AdaIN, InceptionV3,
+the CLIP block) draw from a CPU ``torch.Generator``
+(``models/layers.py::flax_init``), which cannot match ``jax.random``'s
+threefry, so each of their tensors is held to JAX's by its distribution:
+beside the port's seeded fresh init of the same model each tensor must
+have
 
 * the same family: constant, uniform, normal truncated at two of its
   stds (flax's ``lecun_normal``) or normal, told apart by their kurtosis
@@ -111,26 +121,44 @@ def _jax_resnet_with_heads():
 
 @pytest.mark.parametrize("with_classification", [False, True])
 def test_modified_resnet_init(with_classification):
-    """JAX's ``ModifiedResNetWithClassification`` init once: its
-    ``backbone`` subtree is the ``ModifiedResNet`` init."""
+    """JAX's ``ModifiedResNetWithClassification`` init once: the port's
+    encoder with its heads is that init, and the port's bare
+    ``ModifiedResNet`` is JAX's bare init (its own key paths, without
+    ``backbone``), tensor by tensor."""
+    from art_sbir_tpu.models.resnet import create_encoder as jax_encoder
+    from art_sbir_tpu_torch.core import jax_random
+    from art_sbir_tpu_torch.models import flax_draw
     from art_sbir_tpu_torch.models.resnet import create_encoder
 
-    v = _jax_resnet_with_heads()
     if with_classification:
+        v = _jax_resnet_with_heads()
         jsd = PW.modified_resnet_with_classification_from_flax(
             v["params"], v["batch_stats"], GEO["layers"])
     else:
-        jsd = PW.modified_resnet_from_flax(v["params"]["backbone"],
-                                           v["batch_stats"]["backbone"],
+        v = _init(jax_encoder(dtype=jnp.float32, **GEO),
+                  jnp.zeros((1, 64, 64, 3)), train=False)
+        jsd = PW.modified_resnet_from_flax(v["params"], v["batch_stats"],
                                            GEO["layers"])
     port = create_encoder(with_classification=with_classification,
                           num_classes=300, device="cpu",
-                          compute_dtype=torch.float32, seed=0, **GEO)
-    n_family, n_bound = compare(jsd, port.state_dict())
-    assert n_family >= 10 and n_bound >= 20
+                          compute_dtype=torch.float32, seed=0,
+                          **GEO).state_dict()
+    assert sorted(jsd) == sorted(port)
+    drawn = 0
+    for key, jw in jsd.items():
+        jw = np.asarray(jw)
+        pw = port[key].detach().numpy()
+        assert jw.shape == pw.shape, key
+        if (not np.issubdtype(jw.dtype, np.floating)
+                or np.all(jw == jw.flat[0])):
+            np.testing.assert_array_equal(pw, jw, err_msg=key)
+            continue
+        ulps = jax_random.ulp_distance(pw, jw)
+        assert ulps.max() <= flax_draw.DRAW_ULP, (key, int(ulps.max()))
+        drawn += 1
+    assert drawn >= 20
     # the positional embedding keeps N(0, 1) / sqrt(C), untruncated
-    assert family(port.attnpool.positional_embedding.detach().numpy()) == \
-        "normal"
+    assert family(port["attnpool.positional_embedding"].numpy()) == "normal"
 
 
 def test_photo2sketch_init():
