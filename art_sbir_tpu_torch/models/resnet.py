@@ -11,10 +11,15 @@ producing the ``output_dim`` (1024) embedding.
   ``channels_last`` layout the convolutions run in.
 * ``compute_dtype`` plays flax's ``dtype``: convolutions, projections and
   the attention run in it (bf16 when serving); parameters and BN running
-  statistics stay float32. BN in eval mode applies its float32
-  scale/shift folded into the compute dtype; in train mode it normalizes
-  in float32 and updates its running statistics as flax does (biased
-  batch variance).
+  statistics stay float32. BN normalizes in float32 (or the input's
+  dtype where it is wider) and casts its output to the compute dtype
+  once, as flax's ``nn.BatchNorm(dtype=bfloat16)`` does: in eval mode a
+  bf16 input goes through ``F.batch_norm`` with the float32 statistics
+  (one kernel that computes in float32), a float32 one through the
+  float32 scale/shift fold; in train mode it updates its running
+  statistics as flax does (biased batch variance). In eval mode
+  :func:`conv_bn` hands BN the bf16 convolution's float32 accumulator,
+  as XLA's fusion of the two does.
 * State-dict keys keep the reference torch layout (``conv1.weight``,
   ``layer1.0.downsample.0.weight``, ``attnpool.q_proj.weight``, ...), so a
   reference ``.pth`` loads natively.
@@ -36,14 +41,31 @@ from art_sbir_tpu_torch.parallel.tensor import whole
 
 
 class Conv2d(nn.Conv2d):
-    """Bias-free conv whose float32 weight is cast to the input's dtype."""
+    """Bias-free conv whose float32 weight is cast to the input's dtype.
+
+    In eval mode a bf16 input gives the float32 accumulator, for the BN
+    that always follows it (:func:`conv_bn`): the operands keep their bf16
+    values, the products and the sums run in float32 and nothing is
+    rounded after them. cuDNN runs that conv in TF32, which holds every
+    bf16 operand exactly, whatever the process set for its float32 work
+    (``core/device.py::ieee_f32``). Train mode, and a float32 input, give
+    the input's dtype."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
         super().__init__(cin, cout, kernel, stride=stride,
                          padding=kernel // 2, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
+        w = self.weight.to(x.dtype)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        if self.training or acc == x.dtype:
+            return self._conv_forward(x, w, None)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return self._conv_forward(x.to(acc), w.to(acc), None)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
 
 
 class Linear(nn.Linear):
@@ -132,10 +154,24 @@ class BatchNorm2d(nn.BatchNorm2d):
             return out.to(x.dtype)
         weight, bias, running_mean, running_var = whole(
             self, "weight", "bias", "running_mean", "running_var")
+        if x.dtype != torch.promote_types(x.dtype, torch.float32):
+            # flax's dtype=bfloat16: normalize in float32, cast once
+            return F.batch_norm(x, running_mean, running_var, weight, bias,
+                                False, 0.0, self.eps)
         scale = weight * torch.rsqrt(running_var + self.eps)
         shift = bias - running_mean * scale
         return torch.addcmul(shift.to(x.dtype)[None, :, None, None], x,
                              scale.to(x.dtype)[None, :, None, None])
+
+
+def conv_bn(conv: Conv2d, bn: BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """``bn(conv(x))`` in ``x``'s dtype, as XLA compiles flax's pair. In
+    eval mode BN, a per-channel affine map there, is fused into the
+    convolution and normalizes its float32 accumulator, so a bf16 pair
+    rounds once: rounding the conv's output first would lose the low bits
+    that BN's subtraction of the running mean keeps. In train mode the
+    conv's output is rounded before the batch statistics, as there."""
+    return bn(conv(x)).to(x.dtype)
 
 
 class Bottleneck(nn.Module):
@@ -163,10 +199,13 @@ class Bottleneck(nn.Module):
             ]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(self.avgpool(out)))
-        identity = x if self.downsample is None else self.downsample(x)
+        out = F.relu(conv_bn(self.conv1, self.bn1, x))
+        out = F.relu(conv_bn(self.conv2, self.bn2, out))
+        out = conv_bn(self.conv3, self.bn3, self.avgpool(out))
+        identity = x
+        if self.downsample is not None:
+            pool, conv, bn = self.downsample
+            identity = conv_bn(conv, bn, pool(x))
         return F.relu(out + identity)
 
 
@@ -239,9 +278,9 @@ class ModifiedResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)  # channels_last
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
-        x = F.relu(self.bn3(self.conv3(x)))
+        x = F.relu(conv_bn(self.conv1, self.bn1, x))
+        x = F.relu(conv_bn(self.conv2, self.bn2, x))
+        x = F.relu(conv_bn(self.conv3, self.bn3, x))
         x = self.avgpool(x)
         for stage in range(1, len(self.layers) + 1):
             x = getattr(self, f"layer{stage}")(x)

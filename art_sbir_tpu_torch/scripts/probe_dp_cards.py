@@ -22,8 +22,13 @@ On a machine with several cards, one rank a card over every card present
   (relative L2) than twice the one process's plus 1e-4 (the second
   step's gradient is reported), augmented rows, running statistics and
   reduced gradients equal bit for bit; pix2pix's and the VAE's losses at
-  rel 1e-5 (absolute 1e-6), pix2pix's parameters at rtol 1e-3, atol
-  5e-5.
+  rel 1e-5 (absolute 1e-6); pix2pix's whole state (parameters and
+  running statistics, one flat vector) no farther from a float64 run's
+  (relative L2) than twice the one process's plus 1e-4
+  (:func:`state_errors`), every pix2pix run under cuDNN's deterministic
+  algorithms (an element rule between the ranks and one process, rtol
+  1e-3 and atol 5e-5, failed on a deep running mean, where one float32
+  process lies 1.2e-4 from float64: ``probe_pix2pix_dp_noise.py``).
   JAX's own rule between two float32 gradients (relative L2 below
   1e-2, cosine above 0.9999, ``tests/test_sharding.py:62-71``), which
   the CPU tests hold, cannot hold here: at B = 32 and 224 px one
@@ -244,12 +249,27 @@ def triplet_steps(u8: dict, geo: dict, device,
     return out
 
 
+@contextlib.contextmanager
+def cudnn_deterministic(on: bool = True):
+    """``torch.backends.cudnn.deterministic`` set to ``on`` for the block."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
 def pix2pix_steps(batch: dict, geo: dict, device,
-                  dtype_name: str = "float32") -> Dict:
+                  dtype_name: str = "float32",
+                  deterministic: bool = True) -> Dict:
     """STEPS G+D steps (float32, or ``dtype_name``) of the U-Net (dropout
     on) and the basic D on this rank's rows: the losses and both nets'
     state on the CPU (in one device's layout; tensor parallel in a
-    grid)."""
+    grid). The steps run under cuDNN's deterministic algorithms unless
+    ``deterministic`` is off, so that a check reads the same bits in
+    every run: under its default ones two runs of one float32 process
+    differ by up to 8.6e-5 (``probe_pix2pix_dp_noise.py``)."""
     from art_sbir_tpu_torch.core.device import ieee_f32
     from art_sbir_tpu_torch.parallel.mesh import shard_or_replicate
     from art_sbir_tpu_torch.parallel.tensor import (gather_state,
@@ -266,9 +286,10 @@ def pix2pix_steps(batch: dict, geo: dict, device,
     m.tensor_parallel(model_shard())
     local, rows = shard_or_replicate({k: torch.from_numpy(v).to(device)
                                       for k, v in batch.items()})
-    losses = [{k: float(v) for k, v in
-               m.train_step(local, seed, rows=rows).items()}
-              for seed in range(1, STEPS + 1)]
+    with cudnn_deterministic(deterministic):
+        losses = [{k: float(v) for k, v in
+                   m.train_step(local, seed, rows=rows).items()}
+                  for seed in range(1, STEPS + 1)]
     return {"losses": losses, "state": {
         f"{n}.{k}": v.detach().cpu() for n, net in (("g", m.net_g),
                                                     ("d", m.net_d))
@@ -411,9 +432,41 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
+def state_errors(ranks: Dict[str, torch.Tensor], one: Dict[str, torch.Tensor],
+                 exact: Dict[str, torch.Tensor]) -> Dict:
+    """The ranks' and the one process's state, every floating tensor in one
+    flat vector, against float64's (relative L2) and by how much the
+    ranks' distance exceeds twice the one process's plus 1e-4 (negative:
+    within), as :func:`_gradient_errors` holds the triplet's update; the
+    tensor farthest from float64 (each relative to its float64 norm) and
+    the largest element distance between the ranks and the one process.
+    One tensor alone is no yardstick: Adam's sign-like first step leaves a
+    BN bias whose gradient is float noise up to 12% from float64 in a
+    float32 run."""
+    sq_r = sq_o = sq_e = apart = 0.0
+    worst = (-1.0, "", 0.0)
+    for k, e in exact.items():
+        if not e.is_floating_point():
+            continue
+        a, b, e = ranks[k].double(), one[k].double(), e.double()
+        dr, do, ne = (float((a - e).square().sum()),
+                      float((b - e).square().sum()), float(e.square().sum()))
+        sq_r, sq_o, sq_e = sq_r + dr, sq_o + do, sq_e + ne
+        scale = max(ne, 1e-60) ** 0.5
+        worst = max(worst, (dr ** 0.5 / scale, k, do ** 0.5 / scale))
+        apart = max(apart, float((a - b).abs().max()))
+    r, o = (sq_r / sq_e) ** 0.5, (sq_o / sq_e) ** 0.5
+    return {"excess": r - 2 * o - 1e-4, "rel_l2_ranks_vs_f64": r,
+            "rel_l2_one_vs_f64": o,
+            "worst": {"tensor": worst[1], "ranks_vs_f64": worst[0],
+                      "one_vs_f64": worst[2]},
+            "max_abs_ranks_vs_one": apart}
+
+
 def reference(inputs: dict, geo: dict, device, path: Path) -> Dict:
     """The one-process results of every step into ``path`` (float32, and
-    the triplet in float64 too); returns the one-process bf16 timing."""
+    the triplet and pix2pix's state in float64 too); returns the
+    one-process bf16 timing."""
     ref = {"triplet_f64": triplet_steps(inputs["u8"], geo, device,
                                         "float64")}
     _empty(device)
@@ -428,6 +481,8 @@ def reference(inputs: dict, geo: dict, device, path: Path) -> Dict:
             inputs["u8"], geo, device, restart=restart)),
                     ("pix2pix", lambda: pix2pix_steps(inputs["pix"], geo,
                                                       device)),
+                    ("pix2pix_f64", lambda: {"state": pix2pix_steps(
+                        inputs["pix"], geo, device, "float64")["state"]}),
                     ("vae", lambda: vae_steps(inputs["vae"], geo, device))):
         _empty(device)
         ref[key] = fn()
@@ -485,13 +540,10 @@ def rank_checks(device, inputs: dict, geo: dict, ref_path: str,
 
     t0 = time.perf_counter()
     got = pix2pix_steps(inputs["pix"], geo, device)
-    excess, worst = max(
-        (float(((got["state"][k].double() - v.double()).abs() - 5e-5
-                - 1e-3 * v.double().abs()).max()), k)
-        for k, v in ref["pix2pix"]["state"].items() if v.is_floating_point())
     out["pix2pix"] = {
         "losses": got["losses"], "losses_one": ref["pix2pix"]["losses"],
-        "param_excess_over_bound": excess, "worst_tensor": worst,
+        "state_vs_f64": state_errors(got["state"], ref["pix2pix"]["state"],
+                                     ref["pix2pix_f64"]["state"]),
         "state_equal_on_ranks": all([same_on_ranks(v, device)
                                      for v in got["state"].values()]),
         "s": time.perf_counter() - t0}
@@ -541,9 +593,9 @@ def failures(d: Dict) -> List[str]:
                 bad.append(f"{what} step {s + 1}: losses (rel 1e-5, abs "
                            f"1e-6): {off}")
     pix = d["pix2pix"]
-    if pix["param_excess_over_bound"] > 0:
-        bad.append(f"pix2pix parameters past rtol 1e-3, atol 5e-5: "
-                   f"{pix['worst_tensor']} by {pix['param_excess_over_bound']}")
+    if pix["state_vs_f64"]["excess"] > 0:
+        bad.append(f"pix2pix state farther from float64 than twice the one "
+                   f"process plus 1e-4 (relative L2): {pix['state_vs_f64']}")
     if not pix["state_equal_on_ranks"]:
         bad.append("pix2pix: state differs between ranks")
     return bad

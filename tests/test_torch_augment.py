@@ -26,6 +26,8 @@ from art_sbir_tpu.train.prepare import finish_triplet_batch as jax_finish
 from art_sbir_tpu_torch.ops import augment as PA
 from art_sbir_tpu_torch.train.prepare import finish_triplet_batch
 from tests.test_ops_augment import _N, _erase_oracle
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 S = 32
 

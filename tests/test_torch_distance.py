@@ -12,6 +12,8 @@ import torch
 
 from art_sbir_tpu.ops import distance as J
 from art_sbir_tpu_torch.ops import distance as T
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 RTOL, ATOL = 1e-6, 1e-6
 

@@ -29,6 +29,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from art_sbir_tpu_torch.ops import fused_ablation as fa
 from art_sbir_tpu_torch.scripts import probe_fused_overhead as probe
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -30,6 +30,8 @@ from art_sbir_tpu_torch.data.unpaired import UnpairedImageCatalog
 from art_sbir_tpu_torch.models.adain_net import AdaINDecoder, AdaINEncoder
 from art_sbir_tpu_torch.models.drawing import DrawingGenerator
 from art_sbir_tpu_torch.models.layers import flax_init
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 SIZE = 64
 

@@ -32,6 +32,7 @@ from art_sbir_tpu_torch.models import port_weights as PW
 from art_sbir_tpu_torch.models.resnet import BatchNorm2d
 from art_sbir_tpu_torch.ops import adain as POA
 from art_sbir_tpu_torch.ops import dilate as PDL
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 
 def nchw(x: np.ndarray) -> torch.Tensor:

@@ -41,6 +41,8 @@ from art_sbir_tpu_torch.retrieval.engine import restore_encoder, run_inference
 from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
 from tests.test_torch_rank import assert_same_inference_dict
 from tests.test_torch_resnet import GEOM, LAYERS, RES, _flax, _port, _sd
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 FEATURE_TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -43,16 +43,8 @@ import torch
 
 from art_sbir_tpu_torch.models import layers as PL
 from art_sbir_tpu_torch.models import port_weights as PW
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """Two intra-op threads for this module, restored after it: the tier-1
-    suite runs six workers on the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 BOUND = 2.0 / PL.TRUNC_NORMAL_STD  # 2.2737: flax's truncation, in stds
 BIG = 4096

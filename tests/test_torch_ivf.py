@@ -38,6 +38,8 @@ from art_sbir_tpu_torch.ops.distance import (cosine_distance,
                                              top_k)
 from art_sbir_tpu_torch.ops.quant import topk_overlap
 from art_sbir_tpu_torch.parallel import mesh as port_mesh
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 CPU = torch.device("cpu")
 RTOL, ATOL = 1e-5, 1e-6

@@ -35,6 +35,8 @@ from art_sbir_tpu_torch.retrieval.server import RetrievalEngine as PortEngine
 from tests.test_torch_serve import (S, _assert_same_distances, _call,
                                     _jax_forward, _png, _port_forward,
                                     _served_run, data)  # noqa: F401
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 CPU = torch.device("cpu")
 

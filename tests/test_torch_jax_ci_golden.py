@@ -8,7 +8,7 @@ between the two packages is the pipeline's arithmetic: bf16 on the CPU
 ``pin_ci_environment``, against XLA's. The tolerances:
 
 * the final train and test losses within rel ``LOSS_RTOL`` = 3e-2 (from
-  JAX's init the port lies 1.85% and 0.98% off; from its earlier torch
+  JAX's init the port lies 1.85% and 0.80% off; from its earlier torch
   draw it lay 37% and 2.5% off);
 * the ranks of the 12 queries over the 9-photo gallery: the port's rank
   histogram (read off ``topk_acc``, which covers every rank here) is

@@ -33,21 +33,12 @@ import torch
 from art_sbir_tpu_torch.core import jax_random as jr
 from art_sbir_tpu_torch.models import flax_draw as FD
 from art_sbir_tpu_torch.models import port_weights as PW
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 DIGEST = ROOT / "goldens" / "torch_jax_init_seed0.json"
 THIN = dict(width=8, layers=(2, 1, 1, 1))  # at 64 px
 FLAGSHIP = dict(width=64, layers=(3, 4, 6, 3))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """Two intra-op threads for this module, restored after it: the tier-1
-    suite runs six workers on the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,12 +111,18 @@ def test_thin_encoder_is_jax_init(seed, heads):
     assert got["share"] < 0.03, got
 
 
+@functools.lru_cache(maxsize=None)
+def flagship_states() -> tuple:
+    """JAX's and the port's seed-0 flagship inits (224 px, 125 classes),
+    drawn once for this module's flagship tests."""
+    return (jax_state(0, (125,), 224, **FLAGSHIP),
+            port_state(0, (125,), 224, **FLAGSHIP))
+
+
 def test_flagship_encoder_is_jax_init():
-    """The full-width, full-depth tower with its 125-class head, at 64 px
-    (the positional embedding's rows follow the resolution; every other
-    tensor is the 224 px flagship's)."""
-    got = compare(jax_state(0, (125,), 64, **FLAGSHIP),
-                  port_state(0, (125,), 64, **FLAGSHIP))
+    """The full-width, full-depth tower with its 125-class head, at its
+    224 px."""
+    got = compare(*flagship_states())
     assert got["share"] < 0.03, got
 
 
@@ -148,7 +145,7 @@ def test_init_weights_reads_the_configuration_off_the_model():
 def flagship_digest() -> dict:
     """The digest of JAX's seed-0 flagship init (224 px, 125 classes)."""
     return FD.digest({k: torch.as_tensor(np.array(v)) for k, v in
-                      jax_state(0, (125,), 224, **FLAGSHIP).items()})
+                      flagship_states()[0].items()})
 
 
 def test_committed_digest_is_jax_init():
@@ -156,8 +153,7 @@ def test_committed_digest_is_jax_init():
     and the port's draw meets it by ``digest_mismatches``' rule."""
     want = json.loads(DIGEST.read_text())
     assert want == json.loads(json.dumps(flagship_digest()))
-    assert FD.digest_mismatches(port_state(0, (125,), 224, **FLAGSHIP),
-                                want) == []
+    assert FD.digest_mismatches(flagship_states()[1], want) == []
 
 
 def test_digest_mismatches_catch_a_moved_value():

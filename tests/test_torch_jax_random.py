@@ -20,21 +20,12 @@ import pytest
 import torch
 
 from art_sbir_tpu_torch.core import jax_random as jr
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 ERFINV_ULP = 2
 DRAW_ULP = 3
 SEEDS = (0, 1, 7, -1, 2 ** 31 - 1)
 SHAPES = ((7,), (3, 5, 2), (70001,))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """Two intra-op threads for this module, restored after it: the tier-1
-    suite runs six workers on the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 ulp_distance = jr.ulp_distance

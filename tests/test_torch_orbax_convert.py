@@ -25,16 +25,7 @@ import pytest
 import torch
 
 from art_sbir_tpu.core.checkpoint import save_pytree
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """Two intra-op threads for this module, restored after it: the tier-1
-    suite runs six workers on the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -55,6 +55,7 @@ from art_sbir_tpu_torch.train.gan import Pix2Pix, Pix2PixConfig
 from art_sbir_tpu_torch.train.losses import TripletLossConfig
 from art_sbir_tpu_torch.train.prepare import finish_triplet_batch
 from art_sbir_tpu_torch.train.vae import VAEConfig, VAETrainer
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 WORLD = 2
 TIMEOUT = datetime.timedelta(seconds=120)
@@ -131,14 +132,6 @@ def pool():
     p = RankPool()
     yield p
     p.close()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 class one_rank_group:

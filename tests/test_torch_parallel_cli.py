@@ -40,20 +40,13 @@ from art_sbir_tpu_torch.cli import photo2sketch as port_p2s
 from art_sbir_tpu_torch.cli import pix2pix as port_pix
 from art_sbir_tpu_torch.cli import train as port_train
 from art_sbir_tpu_torch.data.synthetic import make_synthetic_sketchy
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 THIN = ["--image_size", "64", "--width", "8", "--layers", "1", "1", "1",
         "1", "--no-bf16", "--model_type", "ModifiedResNet", "-d",
         "SketchyV1", "-e", "1", "--inference", "--seed", "3",
         "--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -47,6 +47,7 @@ from art_sbir_tpu_torch.models.vgg import VGGFeatures
 from art_sbir_tpu_torch.ops import gmm as PG
 from art_sbir_tpu_torch.train import vae as PV
 from tests.test_torch_port_photo2sketch import _fake_p2s_state_dict
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-6)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-7)
@@ -55,17 +56,6 @@ ADAM_TOL = dict(rtol=1e-6, atol=1e-8)
 Z, HID, M, T, S, B = 8, 16, 3, 10, 64, 2
 CFG = dict(z_size=Z, dec_rnn_size=HID, num_mixture=M, max_seq_len=T,
            image_size=S)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """Two intra-op threads for this module: the tier-1 suite runs six
-    workers on the host's cores, and torch's default of a thread a core
-    oversubscribes them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def nchw(x: np.ndarray) -> torch.Tensor:

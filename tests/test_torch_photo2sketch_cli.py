@@ -44,20 +44,13 @@ from art_sbir_tpu_torch.data import get_datasets
 from art_sbir_tpu_torch.data.synthetic import (make_synthetic_quickdraw,
                                                make_synthetic_sketchy)
 from art_sbir_tpu_torch.train.vae import LOSS_KEYS, VAEConfig, VAETrainer
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 SIZE = 64
 THIN = ["--image_size", str(SIZE), "--z_size", "8", "--dec_rnn_size", "16",
         "--num_mixture", "3", "--batchsize", "4", "--size", "1.0",
         "--save_rate", "1"]
 PHOTO_TOL = dict(rtol=1e-6, atol=1e-6)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

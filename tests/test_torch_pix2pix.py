@@ -43,23 +43,13 @@ from art_sbir_tpu_torch.models import pix2pix as PP
 from art_sbir_tpu_torch.models import port_weights as PW
 from art_sbir_tpu_torch.train import gan as PG
 from tests.test_torch_port_generators import _unet_sd
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-7)
 STATS_TOL = dict(rtol=1e-4, atol=1e-6)
 MOMENT_RTOL = 1e-4
 NGF, BLOCKS, DOWNS = 8, 2, 6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """Two intra-op threads for this module: the tier-1 suite runs six
-    workers on the host's cores, and torch's default of a thread a core
-    oversubscribes them (the CLI runs here took 30 times longer so)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def nchw(x: np.ndarray) -> torch.Tensor:

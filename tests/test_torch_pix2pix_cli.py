@@ -38,22 +38,12 @@ from art_sbir_tpu_torch.cli import pix2pix as port_cli
 from art_sbir_tpu_torch.data import get_datasets
 from art_sbir_tpu_torch.data.synthetic import make_synthetic_sketchy
 from art_sbir_tpu_torch.train.gan import LOSS_KEYS, Pix2Pix, Pix2PixConfig
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 SIZE = 32
 THIN = ["--image_size", str(SIZE), "--ngf", "8", "--ndf", "8", "-b", "4",
         "--dataset", "SketchyPix2Pix"]
 LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """Two intra-op threads for this module: the tier-1 suite runs six
-    workers on the host's cores, and torch's default of a thread a core
-    oversubscribes them (the CLI runs here took 30 times longer so)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _u8(path: Path) -> np.ndarray:

@@ -39,6 +39,8 @@ from art_sbir_tpu_torch.ops.distance import (cosine_distance,
                                              euclidean_distance, retrieve)
 from art_sbir_tpu_torch.ops.quant import topk_overlap
 from art_sbir_tpu_torch.parallel import mesh as port_mesh
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 CPU = torch.device("cpu")
 

@@ -30,16 +30,9 @@ from art_sbir_tpu_torch.ops.pq import _pq_score
 from art_sbir_tpu_torch.scripts import probe_ann_learned as ann
 from art_sbir_tpu_torch.scripts import probe_ivf, probe_pq
 from art_sbir_tpu_torch.scripts import probe_pq_scoring as scoring
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("b,c,m", [(3, 40, 8), (2, 17, 64)])

@@ -28,6 +28,7 @@ from art_sbir_tpu.ops import quant as jq
 from art_sbir_tpu_torch.ops import quant as pq
 from art_sbir_tpu_torch.ops import quant_fused
 from art_sbir_tpu_torch.parallel.mesh import MeshSpec
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 
 def _t(x):

@@ -23,6 +23,7 @@ from art_sbir_tpu.ops.retrieval_pallas import (
     quant_candidates_fused as jax_candidates)
 from art_sbir_tpu_torch.ops import quant as pq
 from art_sbir_tpu_torch.ops import quant_fused as qf
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 
 def _t(x):

@@ -27,6 +27,8 @@ import art_sbir_tpu.retrieval.rank as jax_rank
 import art_sbir_tpu_torch.retrieval.rank as port_rank
 from art_sbir_tpu_torch.ops import retrieval_fused as rf
 from art_sbir_tpu_torch.parallel.mesh import MeshSpec
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 STEM_CASES = [
     "s/n01_2-1.png", "s/n01_2-13.png", "s/123.png", "s/3-1003-37.png",

@@ -5,8 +5,11 @@ tamed as in ``tests/test_encoder_parity.py``) goes through ``torch_port``
 into flax; the flax trees come back through ``modified_resnet_from_flax``
 into the port. Eval mode. float32 at rtol 1e-4 (the bound
 ``test_encoder_parity.py`` uses). bf16 at a relative L2 error of 2e-2 and
-a cosine of 0.999: bf16 keeps 8 significant bits (0.4% per rounding), and
-flax runs BN in bf16 where the port folds its float32 scale/shift.
+a cosine of 0.999: bf16 keeps 8 significant bits (0.4% per rounding).
+Both normalize BN in float32 and cast once to bf16 (flax's
+``_normalize`` promotes a bf16 input against the float32 statistics);
+``tests/test_torch_bf16_parity.py`` holds that against statistics far
+from 0 and 1.
 """
 
 import jax
@@ -26,6 +29,8 @@ from art_sbir_tpu_torch.models import resnet as R
 from art_sbir_tpu_torch.models.layers import BN_MOMENTUM
 from tests.test_encoder_parity import _tame
 from tests.test_torch_port import _fake_resnet_state_dict
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 LAYERS = (2, 1, 1, 1)
 WIDTH, HEADS, OUT_DIM, RES = 8, 4, 32, 64

@@ -25,6 +25,8 @@ import torch
 
 from art_sbir_tpu.ops.retrieval_pallas import retrieve_fused as jax_fused
 from art_sbir_tpu_torch.ops import retrieval_fused as rf
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 RTOL = 1e-5
 SPREAD = 2.0  # query noise: ranks of up to some tens of rows

@@ -19,6 +19,8 @@ from art_sbir_tpu.ops.retrieval_pallas import retrieve_fused as jax_fused
 from art_sbir_tpu_torch.ops import retrieval_fused as rf
 from art_sbir_tpu_torch.ops.distance import retrieve_chunked
 from art_sbir_tpu_torch.parallel.mesh import MeshSpec
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -55,6 +55,8 @@ from art_sbir_tpu_torch.retrieval import embed as port_embed
 from art_sbir_tpu_torch.retrieval.server import MicroBatcher
 from art_sbir_tpu_torch.retrieval.server import RetrievalEngine as PortEngine
 from art_sbir_tpu_torch.train.prepare import finish_gallery_batch
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 S = 16  # image side of the engine tests
 

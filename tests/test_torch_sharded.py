@@ -49,6 +49,8 @@ from art_sbir_tpu.data.synthetic import make_synthetic_sketchy
 from tests.test_torch_inference import RUN, _results_folder
 from tests.test_torch_rank import _features, assert_same_inference_dict
 from tests.test_torch_serve import S, _png, _port_forward, data  # noqa: F401
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 CPU = torch.device("cpu")
 RTOL = 1e-5

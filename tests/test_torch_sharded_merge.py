@@ -35,6 +35,8 @@ from art_sbir_tpu_torch.ops import retrieval_fused as rf
 from art_sbir_tpu_torch.ops.sharded import (device_groups,
                                             merge_shard_runs_reference)
 from art_sbir_tpu_torch.parallel import mesh as port_mesh
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 CPU = torch.device("cpu")
 RTOL = 1e-5

@@ -39,16 +39,9 @@ from art_sbir_tpu_torch.data.synthetic import (make_synthetic_quickdraw,
 from art_sbir_tpu_torch.ops import raster_native as PN
 from art_sbir_tpu_torch.ops import rasterize as PR
 from art_sbir_tpu_torch.ops import svg as PSV
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 T = 40
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _stroke5(rng, n_valid, t=T, scale=12.0):

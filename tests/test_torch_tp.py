@@ -46,6 +46,7 @@ from art_sbir_tpu_torch.train.gan import Pix2Pix, Pix2PixConfig
 from art_sbir_tpu_torch.train.losses import TripletLossConfig
 from art_sbir_tpu_torch.train.vae import VAEConfig, VAETrainer
 from tests.test_torch_parallel import RankPool
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 GEOM = dict(layers=(1, 1, 1, 1), width=8, heads=4, output_dim=16,
             input_resolution=32)
@@ -67,14 +68,6 @@ def pool4():
     p = RankPool(4)
     yield p
     p.close()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------ the ranks

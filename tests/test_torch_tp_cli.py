@@ -37,19 +37,12 @@ from art_sbir_tpu_torch.parallel import multihost as MH
 from art_sbir_tpu_torch.parallel import tensor as T
 from art_sbir_tpu_torch.train import triplet as PT
 from tests.test_torch_parallel import RankPool
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 THIN = ["--image_size", "64", "--width", "8", "--layers", "1", "1", "1",
         "1", "--no-bf16", "--model_type", "ModifiedResNet", "-d",
         "SketchyV1", "--inference", "--seed", "3", "-b", "4", "-l", "0",
         "--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

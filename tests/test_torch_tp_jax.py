@@ -32,6 +32,7 @@ from art_sbir_tpu_torch.train.gan import Pix2Pix, Pix2PixConfig
 from art_sbir_tpu_torch.train.losses import TripletLossConfig
 from art_sbir_tpu_torch.train.vae import VAEConfig, VAETrainer
 from tests.test_torch_parallel import RankPool
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 # tests/test_torch_resnet.py's geometry; tests/test_torch_pix2pix.py's
 # thin G; tests/test_torch_photo2sketch.py's VAE at 32 px
@@ -48,14 +49,6 @@ def pool():
     p = RankPool(2)
     yield p
     p.close()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _gradients(model: torch.nn.Module) -> dict:

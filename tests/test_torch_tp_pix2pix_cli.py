@@ -21,17 +21,10 @@ from PIL import Image
 
 from art_sbir_tpu_torch.cli import pix2pix as port_pix
 from art_sbir_tpu_torch.data.synthetic import make_synthetic_sketchy
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 PIX = ["--ngf", "8", "--ndf", "8", "--image_size", "256", "-b", "4",
        "--netG", "unet_256", "--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _in(tmp: Path, fn, argv):

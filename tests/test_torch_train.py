@@ -40,6 +40,8 @@ from art_sbir_tpu_torch.models import resnet as R
 from art_sbir_tpu_torch.train import losses as PL
 from art_sbir_tpu_torch.train import triplet as PT
 from tests.test_torch_resnet import LAYERS, RES, _flax, _sd
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 B = 3
 EMBED_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -49,6 +49,8 @@ from art_sbir_tpu_torch.cli import train as port_cli
 from art_sbir_tpu_torch.core.checkpoint import save_state_dict
 from art_sbir_tpu_torch.models import port_weights as PW
 from art_sbir_tpu_torch.models.resnet import create_encoder
+from tests.torch_threads import two_torch_threads  # noqa: F401
+
 
 LAYERS, WIDTH, RES = (1, 1, 1, 1), 8, 64
 THIN = ["--image_size", str(RES), "--width", str(WIDTH), "--layers",
