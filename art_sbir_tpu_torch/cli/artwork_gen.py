@@ -15,11 +15,10 @@ and 'adain_sketches', `artwork_gen.py:95-115`). Batched on the card;
 
 ``--model``: a directory holding the published ``vgg_normalised.pth`` and
 ``decoder.pth``, or the comma-joined pair. Without it the encoder and the
-decoder take JAX's init distributions (``models/layers.py::flax_init``)
-from ``torch.Generator``s seeded with 0 and 1, where the JAX package
-takes ``jax.random.key(0)`` and ``key(1)``. An orbax directory is
-refused, naming ``scripts/orbax_to_pt.py``, which converts it into the
-directory form.
+decoder take JAX's own fresh inits, under ``jax.random.key(0)`` and
+``key(1)``, drawn on the host without JAX (``models/flax_families.py``).
+An orbax directory is refused, naming ``scripts/orbax_to_pt.py``, which
+converts it into the directory form.
 """
 
 from __future__ import annotations
@@ -36,9 +35,9 @@ import torch
 from art_sbir_tpu_torch.core.checkpoint import ORBAX_DIR
 from art_sbir_tpu_torch.core.device import ieee_f32, resolve_device
 from art_sbir_tpu_torch.data.loader import decode_image
+from art_sbir_tpu_torch.models import flax_families
 from art_sbir_tpu_torch.models.adain_net import (AdaINDecoder, AdaINEncoder,
                                                  style_transfer)
-from art_sbir_tpu_torch.models.layers import flax_init
 from art_sbir_tpu_torch.models.port_weights import load_adain_pth, load_into
 
 NOT_A_MODEL = (f"{ORBAX_DIR}; or pass a directory holding "
@@ -47,10 +46,12 @@ NOT_A_MODEL = (f"{ORBAX_DIR}; or pass a directory holding "
 
 def load_adain(model: Optional[str], device: torch.device
                ) -> Tuple[AdaINEncoder, AdaINDecoder]:
-    """(encoder, decoder) of ``--model`` on ``device``, in eval mode; a
-    seeded fresh init without it."""
-    enc = flax_init(AdaINEncoder(), seed=0)
-    dec = flax_init(AdaINDecoder(), seed=1)
+    """(encoder, decoder) of ``--model`` on ``device``, in eval mode;
+    JAX's fresh inits (``key(0)`` and ``key(1)``) without it."""
+    enc, dec = AdaINEncoder(), AdaINDecoder()
+    enc_sd, dec_sd = flax_families.adain(0, 1)
+    enc.load_state_dict(enc_sd)
+    dec.load_state_dict(dec_sd)
     if model is not None:
         if not ((Path(model) / "vgg_normalised.pth").exists()
                 or model.endswith(".pth")):

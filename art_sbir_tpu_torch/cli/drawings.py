@@ -12,12 +12,10 @@ under ``<data_root>/<name>_drawings/``. It runs on the card; ``--device
 cpu`` runs it on the CPU.
 
 * ``--model``: a reference ``.pth`` or a port ``.pt`` (both the reference
-  layout). Without it the generator takes JAX's init distributions
-  (``models/layers.py::flax_init``) drawn from a ``torch.Generator``
-  seeded with 0, where the JAX package takes
-  ``model.init(jax.random.key(0))``: the two streams differ. An orbax
-  directory is refused, naming ``scripts/orbax_to_pt.py``, which converts
-  it.
+  layout). Without it the generator takes JAX's own fresh init,
+  ``model.init(jax.random.key(0))``, drawn on the host without JAX
+  (``models/flax_families.py``). An orbax directory is refused, naming
+  ``scripts/orbax_to_pt.py``, which converts it.
 * ``--bf16``: weights and input in bf16, the output back in float32 (JAX
   ``drawings.py:61-66``). Float32 runs IEEE on the card (no TF32).
 * A drawing is ``uint8(img * 255)``, truncating, as JAX writes it.
@@ -48,8 +46,8 @@ import torch
 from art_sbir_tpu_torch.core.checkpoint import ORBAX_DIR, load_state_dict
 from art_sbir_tpu_torch.core.device import ieee_f32, resolve_device
 from art_sbir_tpu_torch.data.loader import decode_paths
+from art_sbir_tpu_torch.models import flax_families
 from art_sbir_tpu_torch.models.drawing import DrawingGenerator
-from art_sbir_tpu_torch.models.layers import flax_init
 from art_sbir_tpu_torch.models.port_weights import (load_into,
                                                     load_reference_pth)
 
@@ -59,9 +57,10 @@ NOT_A_MODEL = f"{ORBAX_DIR}; or pass a reference .pth or a port .pt"
 def load_generator(model: Optional[str], device: torch.device,
                    bf16: bool = False) -> DrawingGenerator:
     """The generator of ``--model`` (a reference ``.pth`` or a port
-    ``.pt``; a seeded fresh init without one) on ``device``, in eval mode,
-    bf16 with ``bf16``."""
-    gen = flax_init(DrawingGenerator(), seed=0)
+    ``.pt``; JAX's fresh init for ``key(0)`` without one) on ``device``,
+    in eval mode, bf16 with ``bf16``."""
+    gen = DrawingGenerator()
+    gen.load_state_dict(flax_families.drawing_generator(0))
     if model is not None:
         if Path(model).is_dir():
             raise SystemExit(f"--model {model}: {NOT_A_MODEL}")

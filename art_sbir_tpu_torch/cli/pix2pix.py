@@ -32,8 +32,8 @@ Float32 runs IEEE on the card (no TF32).
   fresh init, as the reference skips it), a G ``.pth`` alone, or a port
   ``.pt`` written by train mode. An orbax directory is refused, naming
   ``scripts/orbax_to_pt.py``, which converts it. Without it both nets
-  take the seeded normal(0.02) init (``models/pix2pix.py::init_weights``);
-  JAX's ``jax.random`` stream differs.
+  take JAX's own fresh init for ``--seed`` (``train/gan.py::Pix2Pix``,
+  drawn without JAX by ``models/flax_families.py``).
 * ``--n_devices N`` (train mode; N > 1, -1: every card) trains data
   parallel with the results of one device: one rank a device
   (``parallel/multihost.py``; ``main(argv, mesh=...)`` takes a mesh that

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -22,6 +24,27 @@ def ieee_f32() -> None:
     decimal digits), so both switches are set off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def native_ieee_f32(x: torch.Tensor):
+    """cuDNN off for the ops inside where ``x`` is a float32 CUDA tensor
+    and TF32 is off (:func:`ieee_f32`): ATen's own CUDA convolutions
+    (im2col and cuBLAS's IEEE SGEMM) and BatchNorm kernels run them, and
+    the backward an op records follows its forward. On JAX's fresh inits
+    cuDNN's float32 convolutions and BatchNorm left a pix2pix and a VAE
+    step's gradients 2.5-4.3x the CPU's distance from float64, ATen's
+    within it (PERF.md §6, PR 21). bf16 and TF32 work keeps cuDNN."""
+    if (not x.is_cuda or x.dtype != torch.float32
+            or torch.backends.cudnn.allow_tf32):
+        yield
+        return
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = enabled
 
 
 def card_fields(device: str | torch.device) -> dict:

@@ -233,43 +233,50 @@ def host_library() -> Optional[ctypes.CDLL]:
             f32 = ctypes.c_float
             lib.jr_inverse_cdf.argtypes = [
                 ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
-                ctypes.c_int64, f32, f32, f32, f32, ctypes.POINTER(f32)]
+                ctypes.c_int64, f32, f32, f32, f32, f32,
+                ctypes.POINTER(f32)]
             lib.jr_inverse_cdf.restype = None
             _host = lib
         return _host
 
 
-def inverse_cdf_numpy(k: np.ndarray, shape: Sequence[int], a, b, lo, hi
-                      ) -> np.ndarray:
-    """``sqrt(2) * erfinv(u)``, u uniform in [a, b), clipped to [lo, hi],
-    in numpy: the reference form of :func:`inverse_cdf`."""
+def inverse_cdf_numpy(k: np.ndarray, shape: Sequence[int], a, b, lo, hi,
+                      scale=SQRT2) -> np.ndarray:
+    """``scale * erfinv(u)`` (``scale`` sqrt(2)), u uniform in [a, b),
+    clipped to [lo, hi], in numpy: the reference form of
+    :func:`inverse_cdf`."""
+    scale = np.float32(scale)
     return _blocks(k, shape, np.float32, lambda bits: np.clip(
-        SQRT2 * _erfinv_block(_to_range(bits, a, b)), lo, hi))
+        scale * _erfinv_block(_to_range(bits, a, b)), lo, hi))
 
 
-def inverse_cdf(k: np.ndarray, shape: Sequence[int], a, b, lo, hi
-                ) -> np.ndarray:
+def inverse_cdf(k: np.ndarray, shape: Sequence[int], a, b, lo, hi,
+                scale=SQRT2) -> np.ndarray:
     """:func:`inverse_cdf_numpy`'s values, by the host library where it
     builds (it releases the interpreter lock, so threads draw side by
     side)."""
     lib = host_library()
     if lib is None:
-        return inverse_cdf_numpy(k, shape, a, b, lo, hi)
+        return inverse_cdf_numpy(k, shape, a, b, lo, hi, scale)
     n = math.prod(shape)
     if n >= 2 ** 32:
         raise ValueError("over 2^32 words need the high count word")
     out = np.empty(n, np.float32)
     lib.jr_inverse_cdf(int(k[0]), int(k[1]), 0, n, a, b, lo, hi,
+                       np.float32(scale),
                        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return out.reshape(shape)
 
 
-def normal(k: np.ndarray, shape: Sequence[int]) -> np.ndarray:
+def normal(k: np.ndarray, shape: Sequence[int], scale=None) -> np.ndarray:
     """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)``, u uniform
-    in (-1, 1)."""
+    in (-1, 1). With ``scale``, ``normal * scale`` as XLA compiles it: the
+    two constants folded into one, ``erfinv(u) * (sqrt(2) * scale)`` (the
+    product of float32s), a rounding fewer."""
     return inverse_cdf(k, shape, np.nextafter(np.float32(-1), np.float32(0)),
                        np.float32(1), np.float32(-np.inf),
-                       np.float32(np.inf))
+                       np.float32(np.inf),
+                       SQRT2 if scale is None else SQRT2 * np.float32(scale))
 
 
 def _erf32(x: np.float32) -> np.float32:

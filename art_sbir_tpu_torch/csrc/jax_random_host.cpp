@@ -5,7 +5,8 @@
 // of (0, i)), 23 random mantissa bits mapped to [a, b) by one rounding of
 // the float64 form of the multiply-add, Giles' float32 erfinv polynomial
 // over log1p taken in float64 with each Horner step rounded once to
-// float32, then sqrt(2) times it, clipped to [lo, hi].
+// float32, then `scale` (sqrt(2), or sqrt(2) times a constant the draw is
+// multiplied by) times it, clipped to [lo, hi].
 //
 // Built with g++ at first use (data/native_loader.py::build_library). The
 // products that feed an add are exact in float64, so contracting them
@@ -61,8 +62,7 @@ inline float to_range(uint32_t bits, float a, float b) {
 // vectorize.
 extern "C" void jr_inverse_cdf(uint32_t k0, uint32_t k1, int64_t start,
                                int64_t n, float a, float b, float lo, float hi,
-                               float* out) {
-  const float sqrt2 = 1.41421356237309504880f;
+                               float scale, float* out) {
   constexpr int64_t kBlock = 512;
   uint32_t words[kBlock];
   float x[kBlock], w[kBlock];
@@ -84,7 +84,7 @@ extern "C" void jr_inverse_cdf(uint32_t k0, uint32_t k1, int64_t start,
         p = static_cast<float>(static_cast<double>(p) * t +
                                (small ? kSmall[k] : kLarge[k]));
       float v = std::fabs(x[i]) == 1.0f ? x[i] * INFINITY : p * x[i];
-      v *= sqrt2;
+      v *= scale;
       out[s0 + i] = v < lo ? lo : (v > hi ? hi : v);
     }
   }

@@ -11,7 +11,9 @@ Counterpart of ``art_sbir_tpu/models/drawing.py`` (reference
   downs zero-pad (``padding=1``): only the stem, the residual convs and
   the head reflect-pad (JAX ``drawing.py:44-46``).
 * :class:`GlobalGenerator2`: the pix2pixHD-style generator of the same
-  utilities, which no entry point calls; eval-mode BatchNorm only.
+  utilities, which no entry point calls; eval-mode BatchNorm only. Each
+  conv or transposed conv before a BatchNorm hands it its float32
+  accumulator in eval mode (``resnet.py::conv_bn``).
 
 Both keep the reference's ``nn.Sequential`` indices, so the published
 ``{contour, anime, opensketch}.pth`` load with ``load_state_dict``:
@@ -27,7 +29,8 @@ import torch
 from torch import nn
 
 from art_sbir_tpu_torch.models.layers import InstanceNorm
-from art_sbir_tpu_torch.models.resnet import BatchNorm2d
+from art_sbir_tpu_torch.models.pix2pix import ConvTranspose2d
+from art_sbir_tpu_torch.models.resnet import BatchNorm2d, Conv2d, Sequential
 
 
 class _ResBlock(nn.Module):
@@ -37,10 +40,12 @@ class _ResBlock(nn.Module):
     def __init__(self, features: int,
                  norm: Callable[[int], nn.Module] = lambda c: InstanceNorm()):
         super().__init__()
-        self.conv_block = nn.Sequential(
-            nn.ReflectionPad2d(1), nn.Conv2d(features, features, 3),
+        self.conv_block = Sequential(
+            nn.ReflectionPad2d(1),
+            Conv2d(features, features, 3, padding=0, bias=True),
             norm(features), nn.ReLU(),
-            nn.ReflectionPad2d(1), nn.Conv2d(features, features, 3),
+            nn.ReflectionPad2d(1),
+            Conv2d(features, features, 3, padding=0, bias=True),
             norm(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -93,24 +98,26 @@ class GlobalGenerator2(nn.Module):
                  n_upsampling: int = 0, use_sig: bool = False):
         super().__init__()
         mult = 8
-        layers = [nn.ReflectionPad2d(4), nn.Conv2d(input_nc, ngf * mult, 7),
+        layers = [nn.ReflectionPad2d(4),
+                  Conv2d(input_nc, ngf * mult, 7, padding=0, bias=True),
                   BatchNorm2d(ngf * mult), nn.ReLU()]
         for _ in range(n_downsampling):
-            layers += [nn.ConvTranspose2d(ngf * mult, ngf * mult // 2, 4,
-                                          stride=2, padding=1),
+            layers += [ConvTranspose2d(ngf * mult, ngf * mult // 2, 4,
+                                       stride=2, padding=1),
                        BatchNorm2d(ngf * mult // 2), nn.ReLU()]
             mult //= 2
         layers += [_ResBlock(ngf * mult, norm=BatchNorm2d)
                    for _ in range(n_blocks)]
         for _ in range(n_upsampling if n_upsampling > 0 else n_downsampling):
             nxt = mult // 2 or 1
-            layers += [nn.ConvTranspose2d(ngf * mult, ngf * nxt, 3, stride=2,
-                                          padding=1, output_padding=1),
+            layers += [ConvTranspose2d(ngf * mult, ngf * nxt, 3, stride=2,
+                                       padding=1, output_padding=1),
                        BatchNorm2d(ngf * nxt), nn.ReLU()]
             mult = nxt
-        layers += [nn.ReflectionPad2d(3), nn.Conv2d(ngf * mult, output_nc, 7),
+        layers += [nn.ReflectionPad2d(3),
+                   Conv2d(ngf * mult, output_nc, 7, padding=0, bias=True),
                    nn.Sigmoid() if use_sig else nn.Tanh()]
-        self.model = nn.Sequential(*layers)
+        self.model = Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x)

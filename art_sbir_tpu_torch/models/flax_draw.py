@@ -1,4 +1,6 @@
-"""The JAX package's fresh init of the triplet encoder, drawn without JAX.
+"""The JAX package's fresh init of the triplet encoder, drawn without JAX,
+and the machinery every other family's draw shares
+(``models/flax_families.py``: a spec a family over :func:`flax_tree`).
 
 ``create_train_state(model, jax.random.key(seed), ...)`` in the JAX
 package (``train/triplet.py:65-72``) runs flax's ``model.init``, whose
@@ -21,7 +23,10 @@ and carries the tree into the port's layout with
   stds, times ``sqrt(1 / fan_in) / 0.8796`` (the truncated normal's
   std), in flax's HWIO and (in, out) shapes;
 * biases zero, BatchNorm the identity (scale 1, bias 0, mean 0, var 1);
-* the positional embedding ``normal / sqrt(C)`` (JAX ``resnet.py:96-100``).
+* the positional embedding ``normal / sqrt(C)`` (JAX ``resnet.py:96-100``);
+* for the other families, ``normal * 0.02`` as jitted XLA computes it
+  (``core/jax_random.py::normal``'s ``scale``), pix2pix's BatchNorm
+  scale ``1 + 0.02 * normal`` and the LSTM's ``uniform * 2k``.
 
 Tensors through the inverse error function (every kernel, the embedding)
 lie within ``DRAW_ULP`` float32 ulp of JAX's (``core/jax_random.py``;
@@ -45,9 +50,11 @@ import numpy as np
 import torch
 
 from art_sbir_tpu_torch.core import jax_random as jr
-from art_sbir_tpu_torch.models.layers import TRUNC_NORMAL_STD
 
 DRAW_ULP = 4  # the widest distance from JAX's of a drawn weight, in ulp
+# std of a standard normal truncated to [-2, 2]: flax's ``lecun_normal``
+# divides by it so that the truncated draw keeps variance 1 / fan_in
+TRUNC_NORMAL_STD = 0.87962566103423978
 Path = Tuple[str, ...]
 
 
@@ -69,83 +76,128 @@ def lecun_normal(k: np.ndarray, shape: Sequence[int]) -> np.ndarray:
     return jr.truncated_normal(k, -2.0, 2.0, shape) * std
 
 
-def _spec(layers: Sequence[int], width: int, pos_rows: int,
-          output_dim: int, heads: Sequence[Tuple[str, int]]):
-    """(path, leaf, kind, shape) of every parameter of the flax encoder,
-    ``kind`` one of kernel, pos, zeros, ones (batch_stats under
-    ``stats/``). ``heads``: the classifier heads (name, classes); with
-    heads the backbone lives under ``backbone``."""
-    pre: Path = ("backbone",) if heads else ()
-    out: List[Tuple[Path, str, str, Tuple[int, ...]]] = []
+# A spec lists a flax tree's leaves in the order their scopes make them:
+# (scope path, leaf, kind, shape), a batch statistic's leaf under
+# ``stats/``. The kinds:
+#   lecun     flax's default kernel init (:func:`lecun_normal`)
+#   normal    ``jax.random.normal * 0.02`` (``nn.initializers.normal(
+#             0.02)``: pix2pix's kernels, ``ConvTranspose``'s default)
+#   bn_scale  ``1 + 0.02 * normal`` (pix2pix's BatchNorm scale)
+#   lstm      ``uniform * 2k``, ``k = 1 / sqrt(H)`` for a (., 4H) gate
+#             leaf (``TorchLSTMCell``: its forward subtracts k)
+#   pos       ``normal / sqrt(C)`` (the attention pool's embedding)
+#   zeros, ones
+Leaf = Tuple[Path, str, str, Tuple[int, ...]]
+INIT_STD = np.float32(0.02)
 
-    def conv(path, k, cin, cout):
-        out.append((pre + path, "kernel", "kernel", (k, k, cin, cout)))
 
-    def bn(path, c):
-        out.append((pre + path, "scale", "ones", (c,)))
-        out.append((pre + path, "bias", "zeros", (c,)))
-        out.append((pre + path, "stats/mean", "zeros", (c,)))
-        out.append((pre + path, "stats/var", "ones", (c,)))
-
-    def dense(path, cin, cout):
-        out.append((path, "kernel", "kernel", (cin, cout)))
+def conv(out: List[Leaf], path: Path, kh: int, kw: int, cin: int,
+         cout: int, bias: bool = True, kind: str = "lecun") -> None:
+    """An ``nn.Conv``: HWIO kernel, then its bias."""
+    out.append((path, "kernel", kind, (kh, kw, cin, cout)))
+    if bias:
         out.append((path, "bias", "zeros", (cout,)))
 
+
+def conv_transpose(out: List[Leaf], path: Path, k: int, cin: int,
+                   cout: int, bias: bool = True, kind: str = "normal"
+                   ) -> None:
+    """JAX ``layers.py::ConvTranspose``: a (k, k, out, in) kernel."""
+    out.append((path, "kernel", kind, (k, k, cout, cin)))
+    if bias:
+        out.append((path, "bias", "zeros", (cout,)))
+
+
+def dense(out: List[Leaf], path: Path, cin: int, cout: int) -> None:
+    out.append((path, "kernel", "lecun", (cin, cout)))
+    out.append((path, "bias", "zeros", (cout,)))
+
+
+def batch_norm(out: List[Leaf], path: Path, c: int, scale: str = "ones"
+               ) -> None:
+    out.append((path, "scale", scale, (c,)))
+    out.append((path, "bias", "zeros", (c,)))
+    out.append((path, "stats/mean", "zeros", (c,)))
+    out.append((path, "stats/var", "ones", (c,)))
+
+
+def _spec(layers: Sequence[int], width: int, pos_rows: int,
+          output_dim: int, heads: Sequence[Tuple[str, int]]
+          ) -> List[Leaf]:
+    """The flax encoder's spec. ``heads``: the classifier heads (name,
+    classes); with heads the backbone lives under ``backbone``."""
+    pre: Path = ("backbone",) if heads else ()
+    out: List[Leaf] = []
     half = width // 2
     for i, (cin, cout) in enumerate(((3, half), (half, half), (half, width)),
                                     start=1):
-        conv((f"conv{i}",), 3, cin, cout)
-        bn((f"bn{i}",), cout)
+        conv(out, pre + (f"conv{i}",), 3, 3, cin, cout, bias=False)
+        batch_norm(out, pre + (f"bn{i}",), cout)
     inplanes = width
     for stage, blocks in enumerate(layers, start=1):
         planes = width * 2 ** (stage - 1)
         for b in range(blocks):
-            name = f"layer{stage}_{b}"
-            conv((name, "conv1"), 1, inplanes, planes)
-            bn((name, "bn1"), planes)
-            conv((name, "conv2"), 3, planes, planes)
-            bn((name, "bn2"), planes)
-            conv((name, "conv3"), 1, planes, planes * 4)
-            bn((name, "bn3"), planes * 4)
+            name = pre + (f"layer{stage}_{b}",)
+            conv(out, name + ("conv1",), 1, 1, inplanes, planes, bias=False)
+            batch_norm(out, name + ("bn1",), planes)
+            conv(out, name + ("conv2",), 3, 3, planes, planes, bias=False)
+            batch_norm(out, name + ("bn2",), planes)
+            conv(out, name + ("conv3",), 1, 1, planes, planes * 4,
+                 bias=False)
+            batch_norm(out, name + ("bn3",), planes * 4)
             if (b == 0 and stage > 1) or inplanes != planes * 4:
-                conv((name, "downsample_conv"), 1, inplanes, planes * 4)
-                bn((name, "downsample_bn"), planes * 4)
+                conv(out, name + ("downsample_conv",), 1, 1, inplanes,
+                     planes * 4, bias=False)
+                batch_norm(out, name + ("downsample_bn",), planes * 4)
             inplanes = planes * 4
     embed = width * 32
     out.append((pre + ("attnpool",), "positional_embedding", "pos",
                 (pos_rows, embed)))
     for name, cout in (("q_proj", embed), ("k_proj", embed),
                        ("v_proj", embed), ("c_proj", output_dim)):
-        dense(pre + ("attnpool", name), embed, cout)
+        dense(out, pre + ("attnpool", name), embed, cout)
     for name, classes in heads:
-        dense((name,), output_dim, classes)
+        dense(out, (name,), output_dim, classes)
     return out
 
 
-def _value(root: np.ndarray, path: Path, kind: str,
+def _value(root: np.ndarray, path: Path, count: int, kind: str,
            shape: Tuple[int, ...]) -> np.ndarray:
     if kind == "zeros":
         return np.zeros(shape, np.float32)
     if kind == "ones":
         return np.ones(shape, np.float32)
-    # the kernel and the embedding are each their scope's first parameter
-    k = param_key(root, path, 1)
-    if kind == "kernel":
+    k = param_key(root, path, count)
+    if kind == "lecun":
         return lecun_normal(k, shape)
-    return jr.normal(k, shape) / np.float32(shape[1] ** 0.5)
+    if kind == "normal":
+        return jr.normal(k, shape, INIT_STD)
+    if kind == "bn_scale":
+        return jr.normal(k, shape, INIT_STD) + np.float32(1)
+    if kind == "lstm":
+        bound = np.float32(2) * (np.float32(1)
+                                 / np.sqrt(np.float32(shape[-1] // 4)))
+        return jr.uniform(k, shape) * bound
+    if kind == "pos":
+        return jr.normal(k, shape) / np.float32(shape[1] ** 0.5)
+    raise ValueError(f"unknown init {kind}")
 
 
-def flax_tree(seed: int, layers: Sequence[int], width: int, pos_rows: int,
-              output_dim: int, heads: Sequence[Tuple[str, int]] = ()
-              ) -> Tuple[dict, dict]:
-    """JAX's ``model.init(jax.random.key(seed), ...)`` as nested dicts of
-    numpy arrays: (params, batch_stats)."""
-    root = jr.key(seed)
-    spec = _spec(layers, width, pos_rows, output_dim, heads)
+def flax_tree(root: np.ndarray, spec: Sequence[Leaf]) -> Tuple[dict, dict]:
+    """JAX's ``model.init`` under the key ``root`` of the model ``spec``
+    describes, as nested dicts of numpy arrays: (params, batch_stats).
+    A parameter's count is its place among its scope's parameters (every
+    ``self.param`` draws a key, zeros too; batch statistics draw none)."""
+    counts: Dict[Path, int] = {}
+    jobs = []
+    for path, leaf, kind, shape in spec:
+        count = 0
+        if not leaf.startswith("stats/"):
+            count = counts[path] = counts.get(path, 0) + 1
+        jobs.append((path, count, kind, shape))
     # the host library releases the interpreter lock: tensors side by side
     with ThreadPoolExecutor(max(1, torch.get_num_threads())) as pool:
-        values = list(pool.map(lambda s: _value(root, s[0], s[2], s[3]),
-                               spec))
+        values = list(pool.map(lambda j: _value(root, *j), jobs))
     params: dict = {}
     stats: dict = {}
     for (path, leaf, _, _), v in zip(spec, values):
@@ -170,8 +222,8 @@ def encoder_state(seed: int, layers: Tuple[int, ...], width: int,
     # this module
     from art_sbir_tpu_torch.models import port_weights as PW
 
-    params, stats = flax_tree(seed, layers, width, pos_rows, output_dim,
-                              heads)
+    params, stats = flax_tree(jr.key(seed), _spec(layers, width, pos_rows,
+                                                  output_dim, heads))
     if heads:
         return PW.modified_resnet_with_classification_from_flax(
             params, stats, layers)
@@ -206,7 +258,7 @@ def digest_mismatches(state: Mapping[str, torch.Tensor], want: Mapping
     magnitudes past what values each within that many ulp allow (a
     value within ``u`` ulp lies within ``u * 2^-23`` of itself,
     relatively; squares within twice that)."""
-    have = digest(state, len(next(iter(want.values()))["head"]))
+    have = digest(state, max(len(w["head"]) for w in want.values()))
     bad = [f"{k}: missing" for k in sorted(set(want) - set(have))]
     bad += [f"{k}: not in the record" for k in sorted(set(have) - set(want))]
     for k in sorted(set(want) & set(have)):

@@ -26,19 +26,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from art_sbir_tpu_torch.models.layers import flax_init
+from art_sbir_tpu_torch.models import resnet
 from art_sbir_tpu_torch.models.pix2pix import Dropout
-from art_sbir_tpu_torch.models.resnet import BatchNorm2d
+from art_sbir_tpu_torch.models.resnet import BatchNorm2d, Conv2d
+
 
 class BasicConv2d(nn.Module):
+    """A bias-free conv, its BatchNorm (eval mode: on the conv's float32
+    accumulator, :func:`~art_sbir_tpu_torch.models.resnet.conv_bn`) and a
+    ReLU."""
+
     def __init__(self, cin: int, cout: int, kernel, stride=1, padding=0):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride=stride,
-                              padding=padding, bias=False)
+        self.conv = Conv2d(cin, cout, kernel, stride=stride, padding=padding)
         self.bn = BatchNorm2d(cout, eps=1e-3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+        return F.relu(resnet.conv_bn(self.conv, self.bn, x))
 
 
 def _pool3(x: torch.Tensor) -> torch.Tensor:
@@ -215,9 +219,14 @@ class InceptionV3(nn.Module):
 def create_inception(num_classes: int = 1000, use_aux: bool = True,
                      every_feat: bool = False, dropout_rate: float = 0.5,
                      seed: int = 0) -> InceptionV3:
-    """A seeded fresh init in JAX's distributions
-    (:func:`~art_sbir_tpu_torch.models.layers.flax_init`: truncated
+    """JAX's fresh init under ``jax.random.key(seed)`` (flax's
     ``lecun_normal`` convs and dense kernels, zero biases, identity
-    BatchNorm), on the CPU."""
-    return flax_init(InceptionV3(num_classes, use_aux, every_feat,
-                                 dropout_rate), seed)
+    BatchNorm; ``AuxLogits`` as a train-mode init makes it), drawn on the
+    host without JAX (:mod:`~art_sbir_tpu_torch.models.flax_families`),
+    on the CPU."""
+    from art_sbir_tpu_torch.models import flax_families
+
+    model = InceptionV3(num_classes, use_aux, every_feat, dropout_rate)
+    model.load_state_dict(flax_families.inception_v3(
+        seed, num_classes, model.AuxLogits is not None))
+    return model

@@ -37,12 +37,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from art_sbir_tpu_torch.models.layers import Conv2d, InstanceNorm
-from art_sbir_tpu_torch.models.resnet import BatchNorm2d
+from art_sbir_tpu_torch.core.device import native_ieee_f32
+from art_sbir_tpu_torch.models.layers import InstanceNorm
+from art_sbir_tpu_torch.models.resnet import (BatchNorm2d, Conv2d, Sequential,
+                                             float32_accumulator)
 from art_sbir_tpu_torch.parallel.tensor import whole
-
-INIT_STD = 0.02  # reference init_weights 'normal' (pix2pix_model.py:388-420)
-
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """A transposed conv whose float32 weight and bias are cast to the
@@ -53,23 +52,42 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     kernel is ``(kh, kw, out, in)``): the rank's slice of the input goes
     through them and the partial outputs are summed over the model group;
     the bias, sharded on the output channels, is gathered and added
-    once."""
+    once.
+
+    ``to_bn``: the conv feeds a BatchNorm (``resnet.py::conv_bn``); in
+    eval mode a bf16 input then gives the float32 accumulator, as the
+    encoder's :class:`~art_sbir_tpu_torch.models.resnet.Conv2d` does
+    (jitted XLA fuses a flax transposed conv and its BN as it fuses a
+    conv and its BN). An IEEE float32 one on the card runs without cuDNN
+    (``core/device.py::native_ieee_f32``)."""
 
     def _apply_to(self, x: torch.Tensor, weight: torch.Tensor,
-                  bias) -> torch.Tensor:
+                  bias, dtype: torch.dtype) -> torch.Tensor:
+        """The transposed conv of ``x``, its operands rounded to ``x``'s
+        dtype, computed in ``dtype``."""
         return F.conv_transpose2d(
-            x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
+            x.to(dtype), weight.to(x.dtype).to(dtype),
+            None if bias is None else bias.to(x.dtype).to(dtype),
             self.stride, self.padding, self.output_padding, self.groups,
             self.dilation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, to_bn: bool = False) -> torch.Tensor:
+        acc = torch.promote_types(x.dtype, torch.float32)
+        if not to_bn or self.training or acc == x.dtype:
+            with native_ieee_f32(x):
+                return self._forward(x, x.dtype)
+        with float32_accumulator():
+            return self._forward(x, acc)
+
+    def _forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         tp = getattr(self, "tp", None)
         (bias,) = whole(self, "bias")
         if tp is None or "weight" not in self.tp_dims:
-            return self._apply_to(x, self.weight, bias)
-        y = tp.reduce(self._apply_to(tp.scatter(x, 1), self.weight, None))
-        return y if bias is None else y + bias.to(y.dtype)[None, :, None,
-                                                         None]
+            return self._apply_to(x, self.weight, bias, dtype)
+        y = tp.reduce(self._apply_to(tp.scatter(x, 1), self.weight, None,
+                                     dtype))
+        return y if bias is None else y + bias.to(x.dtype).to(y.dtype)[
+            None, :, None, None]
 
 
 class Dropout(nn.Module):
@@ -121,7 +139,9 @@ def _use_bias(norm: str) -> bool:
 
 class _Net(nn.Module):
     """Casts the input to ``dtype`` (when set) and the output back to at
-    least float32."""
+    least float32. ``geometry``: the net's constructor arguments but the
+    dtype (its fresh init is drawn from them,
+    ``models/flax_families.py::pix2pix``)."""
 
     def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -142,11 +162,11 @@ class ResnetBlock(nn.Module):
                  use_dropout: bool = False):
         super().__init__()
         ub = _use_bias(norm)
-        self.conv_block = nn.Sequential(
-            nn.ReflectionPad2d(1), Conv2d(dim, dim, 3, bias=ub),
+        self.conv_block = Sequential(
+            nn.ReflectionPad2d(1), Conv2d(dim, dim, 3, padding=0, bias=ub),
             norm_layer(norm, dim), nn.ReLU(),
             Dropout(0.5) if use_dropout else nn.Identity(),
-            nn.ReflectionPad2d(1), Conv2d(dim, dim, 3, bias=ub),
+            nn.ReflectionPad2d(1), Conv2d(dim, dim, 3, padding=0, bias=ub),
             norm_layer(norm, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -159,8 +179,11 @@ class ResnetGenerator(_Net):
                  use_dropout: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__(dtype)
+        self.geometry = dict(input_nc=input_nc, output_nc=output_nc,
+                             ngf=ngf, norm=norm, n_blocks=n_blocks)
         ub = _use_bias(norm)
-        layers = [nn.ReflectionPad2d(3), Conv2d(input_nc, ngf, 7, bias=ub),
+        layers = [nn.ReflectionPad2d(3),
+                  Conv2d(input_nc, ngf, 7, padding=0, bias=ub),
                   norm_layer(norm, ngf), nn.ReLU()]
         for i in range(2):  # downsampling
             c = ngf * 2 ** i
@@ -173,9 +196,10 @@ class ResnetGenerator(_Net):
             layers += [ConvTranspose2d(c, c // 2, 3, stride=2, padding=1,
                                        output_padding=1, bias=ub),
                        norm_layer(norm, c // 2), nn.ReLU()]
-        layers += [nn.ReflectionPad2d(3), Conv2d(ngf, output_nc, 7),
+        layers += [nn.ReflectionPad2d(3),
+                   Conv2d(ngf, output_nc, 7, padding=0, bias=True),
                    nn.Tanh()]
-        self.model = nn.Sequential(*layers)
+        self.model = Sequential(*layers)
 
     def body(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x)
@@ -212,7 +236,7 @@ class UnetSkipBlock(nn.Module):
                       submodule, nn.ReLU(), up, norm_layer(norm, outer_nc)]
             if use_dropout:
                 layers.append(Dropout(0.5))
-        self.model = nn.Sequential(*layers)
+        self.model = Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.outermost:
@@ -226,6 +250,8 @@ class UnetGenerator(_Net):
                  use_dropout: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__(dtype)
+        self.geometry = dict(input_nc=input_nc, output_nc=output_nc,
+                             ngf=ngf, norm=norm, num_downs=num_downs)
         block = UnetSkipBlock(ngf * 8, ngf * 8, innermost=True, norm=norm)
         for _ in range(num_downs - 5):
             block = UnetSkipBlock(ngf * 8, ngf * 8, submodule=block,
@@ -249,8 +275,10 @@ class NLayerDiscriminator(_Net):
     def __init__(self, input_nc: int = 4, ndf: int = 64, n_layers: int = 3,
                  norm: str = "batch", dtype: Optional[torch.dtype] = None):
         super().__init__(dtype)
+        self.geometry = dict(input_nc=input_nc, ndf=ndf, norm=norm,
+                             n_layers=n_layers)
         ub = _use_bias(norm)
-        layers = [Conv2d(input_nc, ndf, 4, stride=2, padding=1),
+        layers = [Conv2d(input_nc, ndf, 4, stride=2, padding=1, bias=True),
                   nn.LeakyReLU(0.2)]
         nf = 1
         for n in range(1, n_layers + 1):
@@ -259,8 +287,8 @@ class NLayerDiscriminator(_Net):
                               stride=2 if n < n_layers else 1, padding=1,
                               bias=ub),
                        norm_layer(norm, ndf * nf), nn.LeakyReLU(0.2)]
-        layers.append(Conv2d(ndf * nf, 1, 4, padding=1))
-        self.model = nn.Sequential(*layers)
+        layers.append(Conv2d(ndf * nf, 1, 4, padding=1, bias=True))
+        self.model = Sequential(*layers)
 
     def body(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x)
@@ -273,9 +301,10 @@ class PixelDiscriminator(_Net):
     def __init__(self, input_nc: int = 4, ndf: int = 64, norm: str = "batch",
                  dtype: Optional[torch.dtype] = None):
         super().__init__(dtype)
+        self.geometry = dict(input_nc=input_nc, ndf=ndf, norm=norm)
         ub = _use_bias(norm)
-        self.net = nn.Sequential(
-            Conv2d(input_nc, ndf, 1), nn.LeakyReLU(0.2),
+        self.net = Sequential(
+            Conv2d(input_nc, ndf, 1, bias=True), nn.LeakyReLU(0.2),
             Conv2d(ndf, ndf * 2, 1, bias=ub), norm_layer(norm, ndf * 2),
             nn.LeakyReLU(0.2), Conv2d(ndf * 2, 1, 1, bias=ub))
 
@@ -311,27 +340,6 @@ def define_d(net_d: str, ndf: int = 64, n_layers_d: int = 3,
         return PixelDiscriminator(input_nc, ndf, norm, dtype)
     raise NotImplementedError(
         f"Discriminator model name [{net_d}] is not recognized")
-
-
-@torch.no_grad()
-def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """The reference's 'normal' init (`pix2pix_model.py:388-420`, JAX
-    ``pix2pix.py:25,39-42``): conv and transposed-conv weights N(0, 0.02),
-    biases 0, batch-norm scales N(1, 0.02) and shifts 0, drawn in module
-    order from ``generator`` (a CPU ``torch.Generator``), so the weights
-    are the same on every device. JAX's ``jax.random`` stream cannot be
-    matched."""
-    for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
-            mod.weight.copy_(INIT_STD * torch.randn(mod.weight.shape,
-                                                    generator=generator))
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.BatchNorm2d):
-            mod.weight.copy_(1.0 + INIT_STD * torch.randn(
-                mod.weight.shape, generator=generator))
-            mod.bias.zero_()
-    return model
 
 
 def set_dropout_generator(model: nn.Module,

@@ -141,6 +141,35 @@ def drawing_from_flax(params: Mapping, n_residual_blocks: int = 3
     return sd
 
 
+def global_generator2_from_flax(params: Mapping, batch_stats: Mapping,
+                                **config) -> StateDict:
+    """Flax ``GlobalGenerator2`` (params, batch_stats) -> the port's
+    ``model.<i>`` layout. flax names its convs, transposed convs and
+    BatchNorms by class in creation order, the port's module order
+    (``config``: the port model's ``n_downsampling``, ``n_blocks`` and
+    ``n_upsampling``)."""
+    from art_sbir_tpu_torch.models.drawing import GlobalGenerator2
+    from art_sbir_tpu_torch.models.resnet import BatchNorm2d
+
+    kinds = ((nn.ConvTranspose2d, "ConvTranspose"), (nn.Conv2d, "Conv"),
+             (BatchNorm2d, "BatchNorm"))
+    counts = {flax: 0 for _, flax in kinds}
+    sd: StateDict = {}
+    with torch.device("meta"):  # the module order, no weights
+        model = GlobalGenerator2(**config)
+    for name, mod in model.named_modules():
+        flax = next((f for cls, f in kinds if isinstance(mod, cls)), None)
+        if flax is None:
+            continue
+        key = f"{flax}_{counts[flax]}"
+        counts[flax] += 1
+        if flax == "BatchNorm":
+            _bn(sd, name, params[key], batch_stats[key])
+        else:
+            _conv(sd, name, params[key])
+    return sd
+
+
 ADAIN_ENCODER_CONVS = (0, 2, 5, 9, 12, 16, 19, 22, 25, 29)
 ADAIN_DECODER_CONVS = (1, 5, 8, 11, 14, 18, 21, 25, 28)
 ADAIN_ENCODER_LAST = 30  # relu4_1: vgg_normalised.pth's keys past it go

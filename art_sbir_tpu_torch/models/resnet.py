@@ -27,6 +27,7 @@ producing the ``output_dim`` (1024) embedding.
 
 from __future__ import annotations
 
+import contextlib
 from collections import OrderedDict
 from typing import Sequence
 
@@ -34,38 +35,55 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from art_sbir_tpu_torch.core.device import resolve_device
+from art_sbir_tpu_torch.core.device import native_ieee_f32, resolve_device
 from art_sbir_tpu_torch.models.flax_draw import encoder_state
 from art_sbir_tpu_torch.models.layers import BN_MOMENTUM
 from art_sbir_tpu_torch.parallel.tensor import whole
 
 
 class Conv2d(nn.Conv2d):
-    """Bias-free conv whose float32 weight is cast to the input's dtype.
+    """A conv whose float32 weight and bias are cast to the input's dtype
+    (``padding`` defaults to ``kernel // 2``, and there is no bias unless
+    asked for).
 
-    In eval mode a bf16 input gives the float32 accumulator, for the BN
-    that always follows it (:func:`conv_bn`): the operands keep their bf16
-    values, the products and the sums run in float32 and nothing is
-    rounded after them. cuDNN runs that conv in TF32, which holds every
-    bf16 operand exactly, whatever the process set for its float32 work
-    (``core/device.py::ieee_f32``). Train mode, and a float32 input, give
-    the input's dtype."""
+    ``to_bn``: the conv feeds a BatchNorm (:func:`conv_bn`). Then in eval
+    mode a bf16 input gives the float32 accumulator: the operands keep
+    their bf16 values, the products and the sums run in float32 and
+    nothing is rounded after them. cuDNN runs that conv in TF32, which
+    holds every bf16 operand exactly, whatever the process set for its
+    float32 work (``core/device.py::ieee_f32``). Otherwise, in train mode
+    and for a float32 input, the output is in the input's dtype; an IEEE
+    float32 conv on the card runs without cuDNN
+    (``core/device.py::native_ieee_f32``)."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, kernel, stride: int = 1,
+                 padding=None, bias: bool = False):
         super().__init__(cin, cout, kernel, stride=stride,
-                         padding=kernel // 2, bias=False)
+                         padding=kernel // 2 if padding is None else padding,
+                         bias=bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, to_bn: bool = False) -> torch.Tensor:
         w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
         acc = torch.promote_types(x.dtype, torch.float32)
-        if self.training or acc == x.dtype:
-            return self._conv_forward(x, w, None)
-        tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            return self._conv_forward(x.to(acc), w.to(acc), None)
-        finally:
-            torch.backends.cudnn.allow_tf32 = tf32
+        if not to_bn or self.training or acc == x.dtype:
+            with native_ieee_f32(x):
+                return self._conv_forward(x, w, b)
+        with float32_accumulator():
+            return self._conv_forward(x.to(acc), w.to(acc),
+                                      None if b is None else b.to(acc))
+
+
+@contextlib.contextmanager
+def float32_accumulator():
+    """cuDNN's TF32 on for the convs inside: exact for bf16 operands (a
+    float32 conv of bf16 values is the bf16 conv's accumulator)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 class Linear(nn.Linear):
@@ -78,7 +96,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     float32 state.
 
     Train mode normalizes by the batch's biased statistics in float32 (or
-    the input's dtype where it is wider) and
+    the input's dtype where it is wider; an IEEE float32 input on the
+    card without cuDNN, ``core/device.py::native_ieee_f32``) and
     updates the running statistics as flax's ``nn.BatchNorm`` does:
     ``running = (1 - m) * running + m * batch`` with the BIASED batch
     variance. torch's own update takes the unbiased variance (n / (n - 1)
@@ -137,8 +156,9 @@ class BatchNorm2d(nn.BatchNorm2d):
             if self.sync:
                 out, mean, var = self._global_norm(xf, weight, bias)
             else:
-                out = F.batch_norm(xf, None, None, weight, bias,
-                                   True, 0.0, self.eps)
+                with native_ieee_f32(x):  # a bf16 model's keeps cuDNN
+                    out = F.batch_norm(xf, None, None, weight, bias,
+                                       True, 0.0, self.eps)
                 with torch.no_grad():
                     var, mean = torch.var_mean(xf, dim=(0, 2, 3),
                                                correction=0)
@@ -158,20 +178,45 @@ class BatchNorm2d(nn.BatchNorm2d):
             # flax's dtype=bfloat16: normalize in float32, cast once
             return F.batch_norm(x, running_mean, running_var, weight, bias,
                                 False, 0.0, self.eps)
+        # the fold in x's dtype (float32, or wider; bf16 parameters, as a
+        # model cast whole to bf16 holds, are widened to it)
+        weight, bias, running_mean, running_var = (
+            t.to(x.dtype) for t in (weight, bias, running_mean, running_var))
         scale = weight * torch.rsqrt(running_var + self.eps)
         shift = bias - running_mean * scale
-        return torch.addcmul(shift.to(x.dtype)[None, :, None, None], x,
-                             scale.to(x.dtype)[None, :, None, None])
+        return torch.addcmul(shift[None, :, None, None], x,
+                             scale[None, :, None, None])
 
 
-def conv_bn(conv: Conv2d, bn: BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+def conv_bn(conv: nn.Module, bn: BatchNorm2d, x: torch.Tensor
+            ) -> torch.Tensor:
     """``bn(conv(x))`` in ``x``'s dtype, as XLA compiles flax's pair. In
     eval mode BN, a per-channel affine map there, is fused into the
     convolution and normalizes its float32 accumulator, so a bf16 pair
     rounds once: rounding the conv's output first would lose the low bits
     that BN's subtraction of the running mean keeps. In train mode the
-    conv's output is rounded before the batch statistics, as there."""
-    return bn(conv(x)).to(x.dtype)
+    conv's output is rounded before the batch statistics, as there.
+    ``conv``: a :class:`Conv2d`, or pix2pix's transposed conv (XLA fuses
+    that pair the same way)."""
+    return bn(conv(x, to_bn=True)).to(x.dtype)
+
+
+class Sequential(nn.Sequential):
+    """``nn.Sequential`` that runs each conv directly followed by a
+    :class:`BatchNorm2d` through :func:`conv_bn`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mods = list(self)
+        i = 0
+        while i < len(mods):
+            if (i + 1 < len(mods) and isinstance(mods[i + 1], BatchNorm2d)
+                    and isinstance(mods[i], (nn.Conv2d, nn.ConvTranspose2d))):
+                x = conv_bn(mods[i], mods[i + 1], x)
+                i += 2
+            else:
+                x = mods[i](x)
+                i += 1
+        return x
 
 
 class Bottleneck(nn.Module):

@@ -24,7 +24,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from art_sbir_tpu_torch.models.layers import flax_init, lecun_normal_
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -112,20 +111,17 @@ class ResidualAttentionBlock(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
-@torch.no_grad()
-def init_weights(block: nn.Module, seed: int = 0) -> nn.Module:
-    """JAX's init of the block (flax's ``MultiHeadDotProductAttention`` and
-    ``Dense`` defaults: truncated ``lecun_normal`` kernels, zero biases;
-    LayerNorm scale 1, bias 0), from a ``torch.Generator`` seeded with
-    ``seed``."""
-    gen = torch.Generator().manual_seed(seed)
-    flax_init(block, gen=gen)
-    for mod in block.modules():
-        if isinstance(mod, MultiheadAttention):
-            lecun_normal_(mod.in_proj_weight, gen)  # fan_in D for q, k, v
-            mod.in_proj_bias.zero_()
-        elif isinstance(mod, nn.LayerNorm):
-            mod.reset_parameters()
+def init_weights(block: ResidualAttentionBlock, seed: int = 0
+                 ) -> ResidualAttentionBlock:
+    """JAX's init of the block under ``jax.random.key(seed)`` (flax's
+    ``MultiHeadDotProductAttention`` and ``Dense`` defaults: truncated
+    ``lecun_normal`` kernels, zero biases; LayerNorm scale 1, bias 0),
+    drawn on the host without JAX
+    (:mod:`~art_sbir_tpu_torch.models.flax_families`)."""
+    from art_sbir_tpu_torch.models import flax_families
+
+    block.load_state_dict(flax_families.residual_attention_block(
+        seed, block.ln_1.normalized_shape[0]))
     return block
 
 

@@ -10,7 +10,7 @@ between the stages (the map of JAX ``torch_port.py::port_vgg16_features``).
 A 256 px input gives an (512, 8, 8) map, the grid the decoder attends over.
 
 ``dtype=torch.bfloat16`` runs the convs in bf16 on float32 parameters (a
-cast a call, :class:`~art_sbir_tpu_torch.models.layers.Conv2d`): JAX's
+cast a call, :class:`~art_sbir_tpu_torch.models.resnet.Conv2d`): JAX's
 ``VGGFeatures(dtype=bfloat16)``, whose float32 parameters are cast to the
 compute dtype; the output is bf16. Every conv is called as a module, so
 tensor parallelism's column-parallel swap reaches each of them.
@@ -30,7 +30,7 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
-from art_sbir_tpu_torch.models.layers import Conv2d
+from art_sbir_tpu_torch.models.resnet import Conv2d
 
 # torchvision vgg16, configuration "D"
 VGG16_CFG: Sequence = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
@@ -46,7 +46,7 @@ class VGGFeatures(nn.Sequential):
             if v == "M":
                 layers.append(nn.MaxPool2d(2, 2))
             else:
-                layers += [Conv2d(cin, v, 3, padding=1), nn.ReLU()]
+                layers += [Conv2d(cin, v, 3, padding=1, bias=True), nn.ReLU()]
                 cin = v
         super().__init__(*layers)
         self.dtype = dtype

@@ -47,8 +47,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from art_sbir_tpu_torch.core.device import resolve_device
+from art_sbir_tpu_torch.models import flax_families
 from art_sbir_tpu_torch.models.pix2pix import (GANLoss, define_d, define_g,
-                                               init_weights,
                                                set_dropout_generator)
 from art_sbir_tpu_torch.parallel.multihost import (mean_over_ranks,
                                                    reduce_gradients,
@@ -87,8 +87,11 @@ class Pix2PixConfig:
 class Pix2Pix:
     """G and D with their Adam optimizers. Batches are NCHW: ``A`` (B,
     input_nc, H, W) and ``B`` (B, output_nc, H, W), both in [0, 1]. The
-    weights are drawn from a CPU ``torch.Generator`` seeded with ``seed``,
-    G's then D's (:func:`~art_sbir_tpu_torch.models.pix2pix.init_weights`).
+    weights are JAX's init for ``seed`` (JAX ``train/gan.py:79-81``: G's
+    from the first key of ``split(key(seed))``, D's from the second),
+    drawn on the host without JAX
+    (:mod:`~art_sbir_tpu_torch.models.flax_families`), so they are the
+    same on every device and every rank.
     """
 
     def __init__(self, cfg: Pix2PixConfig, seed: int = 0, device=None):
@@ -96,13 +99,14 @@ class Pix2Pix:
         self.device = resolve_device(device)
         self.criterion = GANLoss(cfg.gan_mode)
         compute = torch.bfloat16 if cfg.bf16 else None
-        gen = torch.Generator().manual_seed(seed)
-        self.net_g = init_weights(define_g(
-            cfg.net_g, cfg.output_nc, cfg.ngf, cfg.norm, cfg.use_dropout,
-            compute, cfg.input_nc), gen).to(self.device)
-        self.net_d = init_weights(define_d(
-            cfg.net_d, cfg.ndf, cfg.n_layers_d, cfg.norm, compute,
-            cfg.input_nc + cfg.output_nc), gen).to(self.device)
+        self.net_g = define_g(cfg.net_g, cfg.output_nc, cfg.ngf, cfg.norm,
+                              cfg.use_dropout, compute, cfg.input_nc)
+        self.net_d = define_d(cfg.net_d, cfg.ndf, cfg.n_layers_d, cfg.norm,
+                              compute, cfg.input_nc + cfg.output_nc)
+        for net, key in zip((self.net_g, self.net_d),
+                            flax_families.pix2pix_keys(seed)):
+            net.load_state_dict(flax_families.pix2pix(key, net))
+            net.to(self.device)
         self.tp: Optional[ModelShard] = None  # see tensor_parallel
         self._optimizers()
 

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from art_sbir_tpu_torch.core.device import resolve_device
-from art_sbir_tpu_torch.models.layers import flax_init
+from art_sbir_tpu_torch.models import flax_families
 from art_sbir_tpu_torch.models.photo2sketch import Photo2Sketch
 from art_sbir_tpu_torch.ops.gmm import (kl_divergence_to_standard_normal,
                                         sketch_reconstruction_loss)
@@ -129,16 +129,18 @@ def clip_by_global_norm(grads, max_norm: float,
 class VAETrainer:
     """The VAE and its Adam optimizer. Batches hold ``photo`` (B, 3, S, S),
     ImageNet-normalized, and ``sketch_vector`` (B, T, 5). The weights are
-    drawn in JAX's distributions by :func:`flax_init` from a
-    ``torch.Generator`` seeded with ``seed`` (JAX's ``jax.random`` stream
-    itself cannot be matched)."""
+    JAX's init under ``jax.random.key(seed)`` (JAX ``train/vae.py:91``,
+    the key ``cli/photo2sketch.py`` passes), drawn on the host without
+    JAX (:mod:`~art_sbir_tpu_torch.models.flax_families`)."""
 
     def __init__(self, cfg: VAEConfig, seed: int = 0, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        model = flax_init(Photo2Sketch(
+        model = Photo2Sketch(
             cfg.z_size, cfg.dec_rnn_size, cfg.num_mixture,
-            dtype=torch.bfloat16 if cfg.bf16_encoder else None), seed)
+            dtype=torch.bfloat16 if cfg.bf16_encoder else None)
+        model.load_state_dict(flax_families.photo2sketch(
+            seed, cfg.z_size, cfg.dec_rnn_size, cfg.num_mixture))
         self.model = model.to(self.device)
         self.optimizer = torch_adam(self.model.parameters(),
                                     cfg.learning_rate, betas=(0.5, 0.999))

@@ -4171,8 +4171,7 @@ def phase_drawings(state) -> None:
     from art_sbir_tpu_torch.data.loader import decode_paths
     from art_sbir_tpu_torch.data.synthetic import (make_synthetic_kaggle,
                                                    make_synthetic_sketchy)
-    from art_sbir_tpu_torch.models.drawing import DrawingGenerator
-    from art_sbir_tpu_torch.models.layers import flax_init
+    from art_sbir_tpu_torch.models import flax_families
 
     check(state["pil"], "PIL is installed: the phase writes its corpora "
           "with it")
@@ -4181,8 +4180,7 @@ def phase_drawings(state) -> None:
     tmp = Path(state["tmp"]) / "drawings"
     tmp.mkdir()
     pth = tmp / "contour.pth"
-    torch.save(flax_init(DrawingGenerator(), seed=0).state_dict(),
-               pth)
+    torch.save(flax_families.drawing_generator(0), pth)
     dev = torch.device("cuda")
     gen = drawings.load_generator(str(pth), dev)
     gen16 = drawings.load_generator(str(pth), dev, bf16=True)
@@ -4574,7 +4572,8 @@ def _pix2pix_timed(net_g: str, rng) -> dict:
     bounds: losses rel 0.1, abs 0.05; samples a mean under 0.05); then
     each form's median step (CUDA events), images/s, peak memory, share
     of its peak from the convolutions' FLOPs, the device's busy share
-    over 5 profiled steps and the kernel split of one step."""
+    over 5 profiled steps and the kernel split of one step, and its
+    eval-mode ``generate`` time at ``PIX_B`` (``generate_ms``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4645,7 +4644,11 @@ def _pix2pix_timed(net_g: str, rng) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
         busy_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
                       if ev.device_type == DeviceType.CUDA) / 1e3
+        with torch.no_grad():  # G in eval mode (its BN on the convs'
+            # float32 accumulators in bf16, models/resnet.py::conv_bn)
+            gen_ms = time_ms(lambda: model.generate(batch["A"]), reps=10)
         out[form] = {
+            "generate_ms": gen_ms,
             "step_ms_median": ms, "step_ms_all": times[3:],
             "images_per_s": PIX_B * 1e3 / ms,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -5523,6 +5526,40 @@ def _encoder_init_digest() -> dict:
             "ulp_bound": flax_draw.DRAW_ULP}
 
 
+def _families_init_digest() -> dict:
+    """Every other family's seed-0 fresh init at the full width of its
+    entry point (pix2pix's G and D, the VAE, the drawing generator, the
+    AdaIN pair, InceptionV3 with its aux head, the CLIP block at width
+    512; ``models/flax_families.py::seed0_draws``), drawn on the card's
+    host, each timed whole and printed, and held to
+    ``goldens/torch_jax_init_families_seed0.json`` (JAX's own inits,
+    ``tests/test_torch_jax_init_families.py``) by ``digest_mismatches``'
+    rule."""
+    from art_sbir_tpu_torch.models import flax_draw, flax_families
+
+    want = json.loads((ROOT / "goldens" / "torch_jax_init_families_seed0"
+                       ".json").read_text())
+    draws = flax_families.seed0_draws()
+    check(sorted(draws) == sorted(want), f"the digest's families "
+          f"{sorted(want)} are the ones drawn {sorted(draws)}")
+    flax_families.clear_caches()
+    out = {}
+    for name, draw in draws.items():
+        t0 = time.perf_counter()
+        sd = draw()
+        draw_s = time.perf_counter() - t0
+        bad = flax_draw.digest_mismatches(sd, want[name])
+        print(f"inventory: {name} seed-0 init drawn in {draw_s:.3f} s, "
+              f"{len(bad)} departures from JAX's digest", flush=True)
+        check(not bad, f"{name}'s seed-0 init against JAX's digest: "
+              f"{len(bad)} departures, first {bad[:3]}")
+        out[name] = {"tensors": len(sd), "float_values": sum(
+            t.numel() for t in sd.values() if t.is_floating_point()),
+            "draw_s": draw_s, "departures": len(bad)}
+    flax_families.clear_caches()
+    return out
+
+
 def phase_inventory(state) -> None:
     """InceptionV3, the CLIP transformer block, ``clip_preprocess`` and
     ``gram_matrix`` on the card (the phase list at the top)."""
@@ -5541,6 +5578,7 @@ def phase_inventory(state) -> None:
     gen = torch.Generator().manual_seed(17)
     line = {"phase": "inventory", "ok": True}
     line["encoder_init"] = _encoder_init_digest()
+    line["families_init"] = _families_init_digest()
 
     x = torch.rand(INCEPTION_B, 3, 299, 299, generator=gen)
     x_cuda = x.to(cuda)

@@ -9,9 +9,13 @@ a conv's output before the BN that follows, the port's eval mode skips
 too (``models/resnet.py::conv_bn``): on the thin encoder below the port
 then lies as near float64 as jitted JAX (0.99x on the mean of the six
 cases, 1.06x at most; 1.21x and 1.35x with the conv's output rounded,
-as the port did before). The pix2pix generator and train mode still
-round it (the generator 1.21x jitted JAX on the mean): logged in
-ROADMAP.md §3, not held here.
+as the port did before). The pix2pix nets hand BN the float32
+accumulator of their convs and transposed convs too (jitted XLA fuses
+both pairs: a transposed conv and its BN lie within half a bf16 ulp of
+the float32 accumulator's normalization, and hundreds of ulps from the
+rounded one's), as do InceptionV3's ``BasicConv2d`` and
+``GlobalGenerator2``; train mode still rounds the conv's output
+(ROADMAP.md §3).
 
 Audit, op by op (the port's ``compute_dtype=bfloat16`` against flax's
 ``dtype=bfloat16``; parameters and BN statistics float32 in both):
@@ -45,15 +49,23 @@ heads, loss            float32 on the float32 feature     the same
 
 The tests: (a) one eval-mode BN layer with statistics far from 0 and 1
 equals flax's to one bf16 ulp of the output, and a conv with its BN
-jitted flax's (XLA's fusion) to one ulp; (b) the thin encoder and
-(c) the thin pix2pix generator in eval mode, their BN statistics set to
-the batch's own (one float32 train-mode pass at momentum 1, as a trained
-net normalizes), 3 seeds x 2 input offsets: the port's relative L2
-distance to its float64 forward is at most 1.25x JAX's bf16 distance in
-each case and 1.10x on the mean (the old fold: 1.46x at most, 1.26x on
-the mean of the encoder's); (d) one bf16 train step (three train-mode
-forwards, the triplet loss, the backward): the port's loss and gradient
-lie no farther from float64 than 1.25x JAX's bf16 step.
+jitted flax's (XLA's fusion) to one ulp; (b) the thin encoder, (c) the
+thin pix2pix generator and (e) InceptionV3 at its smallest input (75
+px) in eval mode, from JAX's fresh init for the seed, their BN
+statistics set to the batch's own (one float32 train-mode pass at
+momentum 1, as a trained net normalizes), 3 seeds x 2 input offsets:
+the port's relative L2 distance to its float64 forward is at most 1.25x
+JAX's bf16 distance in each case and 1.10x on the mean (the old fold:
+1.46x at most, 1.26x on the mean of the encoder's). The encoder is held
+to JAX with every op rounding (below); the generator and InceptionV3 to
+jitted JAX, XLA's default (the generator with its conv's output rounded
+before BN, as the port did before: 1.21x on the mean, 1.30x at most).
+flax's ``InceptionV3`` has no compute dtype: its bf16 form, on both
+sides, is the whole model cast to bf16 (parameters, statistics, input),
+where flax's BN computes in bf16 and jitted XLA keeps that rounding.
+(d) one bf16 train step (three train-mode forwards, the triplet loss,
+the backward): the port's loss and gradient lie no farther from float64
+than 1.25x JAX's bf16 step.
 """
 
 import functools
@@ -65,11 +77,15 @@ import pytest
 import torch
 from flax import linen as nn
 
+from art_sbir_tpu.models import inception as JI
 from art_sbir_tpu.models import pix2pix as JP
 from art_sbir_tpu.models import torch_port as TP
+from art_sbir_tpu.models.layers import ConvTranspose as FlaxConvTranspose
 from art_sbir_tpu.models.resnet import ModifiedResNet as FlaxResNet
 from art_sbir_tpu.train import losses as JL
 from art_sbir_tpu.train import triplet as JT
+from art_sbir_tpu_torch.models import flax_families as FF
+from art_sbir_tpu_torch.models import inception as PI
 from art_sbir_tpu_torch.models import pix2pix as PP
 from art_sbir_tpu_torch.models import port_weights as PW
 from art_sbir_tpu_torch.models import resnet as R
@@ -89,16 +105,25 @@ CASE_BOUND, MEAN_BOUND = 1.25, 1.10
 _COMPILED = {}
 
 
-def strict(name: str, fn, *args):
+def strict(name: str, fn, *args, excess_precision: bool = False):
     """``fn(*args)``, compiled once per ``name`` (every call of a name has
-    the same shapes) with every op rounding to its dtype."""
+    the same shapes) with every op rounding to its dtype, or with XLA's
+    default (``excess_precision``: a fusion may skip the bf16 roundings
+    inside it, as ``jax.jit`` compiles)."""
     if name not in _COMPILED:
         _COMPILED[name] = jax.jit(fn).lower(*args).compile(
-            compiler_options={"xla_allow_excess_precision": False})
+            compiler_options={
+                "xla_allow_excess_precision": excess_precision})
     return _COMPILED[name](*args)
 
 
+def jitted(name: str, fn, *args):
+    """``fn(*args)`` as ``jax.jit`` compiles it, once per ``name``."""
+    return strict(name, fn, *args, excess_precision=True)
+
+
 def rel(got, want) -> float:
+    got, want = np.ravel(got), np.ravel(want)
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
@@ -121,10 +146,18 @@ def numpy_sd(sd: dict) -> dict:
             if not k.endswith("num_batches_tracked")}
 
 
+def flat(out) -> np.ndarray:
+    """A forward's output (an array, or a tuple of them) as one float64
+    vector."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return np.concatenate([torch.as_tensor(o).double().numpy().ravel()
+                           for o in outs])
+
+
 def forward(model: torch.nn.Module, sd: dict, x: torch.Tensor) -> np.ndarray:
     model.load_state_dict(sd)
     with torch.no_grad():
-        return model.eval()(x).double().numpy()
+        return flat(model.eval()(x))
 
 
 def bf16_ulp(v: np.ndarray) -> np.ndarray:
@@ -169,22 +202,25 @@ def test_eval_batchnorm_bf16_is_flax():
     assert np.all(np.abs(got - want) <= bf16_ulp(want))
 
 
-def test_eval_conv_bn_bf16_is_jitted_flax():
-    """A conv and its BN in eval mode, running means up to 30 sigma from
-    0: jitted flax hands BN the conv's float32 result (XLA's fusion), and
-    so does the port's ``conv_bn``; rounding the conv's output
-    first misses by hundreds of ulps where the subtraction cancels."""
+def conv_bn_case(transposed: bool) -> tuple:
+    """(port's ``conv_bn``, the port with the conv's output rounded first,
+    jitted flax) of a bf16 conv, or transposed conv (pix2pix's up path),
+    and its BN in eval mode, running means up to 30 sigma from 0."""
     rng = np.random.default_rng(0)
     cin, c = 8, 16
-    w = (rng.standard_normal((c, cin, 3, 3)) / np.sqrt(cin * 9)).astype(
-        np.float32)
     x = (1.0 + rng.standard_normal((4, 8, 8, cin))).astype(np.float32)
-    conv = R.Conv2d(cin, c, 3).eval()
+    if transposed:
+        conv = PP.ConvTranspose2d(cin, c, 3, stride=2, padding=1,
+                                  output_padding=1, bias=False).eval()
+    else:
+        conv = R.Conv2d(cin, c, 3).eval()
+    w = (rng.standard_normal(conv.weight.shape) / np.sqrt(cin * 9)).astype(
+        np.float32)
     with torch.no_grad():
         conv.weight.copy_(torch.from_numpy(w))
     xt = torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2)
     with torch.no_grad():
-        y = conv(xt)
+        y = conv(xt, to_bn=True)
     # the running statistics: the batch's mean, a sigma 5-20x narrower
     mean = y.mean(dim=(0, 2, 3)).numpy()
     sigma = (y.std(dim=(0, 2, 3)).numpy()
@@ -195,11 +231,17 @@ def test_eval_conv_bn_bf16_is_jitted_flax():
     class ConvBN(nn.Module):
         @nn.compact
         def __call__(self, x):
-            y = nn.Conv(c, (3, 3), padding=1, use_bias=False,
-                        dtype=jnp.bfloat16)(x)
+            if transposed:
+                y = FlaxConvTranspose(c, 3, stride=2, padding=1,
+                                      output_padding=1, use_bias=False,
+                                      dtype=jnp.bfloat16, name="Conv_0")(x)
+            else:
+                y = nn.Conv(c, (3, 3), padding=1, use_bias=False,
+                            dtype=jnp.bfloat16)(x)
             return nn.BatchNorm(use_running_average=True, epsilon=1e-5,
                                 dtype=jnp.bfloat16)(y)
 
+    # both kernels go (2, 3, 1, 0): HWIO, and the transposed (k, k, out, in)
     v = {"params": {"Conv_0": {"kernel": w.transpose(2, 3, 1, 0)},
                     "BatchNorm_0": {"scale": scale, "bias": bias}},
          "batch_stats": {"BatchNorm_0": {"mean": mean, "var": sigma ** 2}}}
@@ -212,9 +254,28 @@ def test_eval_conv_bn_bf16_is_jitted_flax():
         "num_batches_tracked": torch.tensor(0)})
     with torch.no_grad():
         got = R.conv_bn(conv, bn, xt)
+        rounded = bn(conv(xt)).to(torch.bfloat16)
     assert got.dtype == torch.bfloat16
-    got = got.float().permute(0, 2, 3, 1).numpy()
+    return tuple(t.float().permute(0, 2, 3, 1).numpy()
+                 for t in (got, rounded)) + (want,)
+
+
+def test_eval_conv_bn_bf16_is_jitted_flax():
+    """A conv and its BN in eval mode: jitted flax hands BN the conv's
+    float32 result (XLA's fusion), and so does the port's ``conv_bn``;
+    rounding the conv's output first misses by hundreds of ulps where the
+    subtraction cancels."""
+    got, rounded, want = conv_bn_case(transposed=False)
     assert np.all(np.abs(got - want) <= bf16_ulp(want))
+    assert np.max(np.abs(rounded - want) / bf16_ulp(want)) > 100
+
+
+def test_eval_conv_transpose_bn_bf16_is_jitted_flax():
+    """The same for pix2pix's transposed conv and its BN: XLA fuses that
+    pair too (JAX ``layers.py::ConvTranspose`` is one convolution)."""
+    got, rounded, want = conv_bn_case(transposed=True)
+    assert np.all(np.abs(got - want) <= bf16_ulp(want))
+    assert np.max(np.abs(rounded - want) / bf16_ulp(want)) > 100
 
 
 # ------------------------------------------- (b), (c) eval-mode forwards
@@ -242,8 +303,8 @@ def encoder_case(seed: int, offset: float) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def generator_case(seed: int, offset: float) -> tuple:
-    """The same for the thin pix2pix ResnetGenerator (batch norm, the
-    port's N(0, 0.02) init from ``seed``) at 64 px."""
+    """The same for the thin pix2pix ResnetGenerator (batch norm, JAX's G
+    init for ``--seed``) at 64 px, against jitted JAX."""
     x = offset + np.random.default_rng(seed).uniform(
         -1, 1, (2, 64, 64, 3)).astype(np.float32)
     xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
@@ -251,18 +312,87 @@ def generator_case(seed: int, offset: float) -> tuple:
     def net(dtype=None):
         return PP.ResnetGenerator(3, 1, NGF, BLOCKS, "batch", dtype=dtype)
 
-    sd = calibrate(PP.init_weights(net(), torch.Generator().manual_seed(
-        seed)), xt)
+    g = net()
+    g.load_state_dict(FF.pix2pix(FF.pix2pix_keys(seed)[0], g))
+    sd = calibrate(g, xt)
     ref = forward(net(torch.float64).double(), sd, xt)
     got = forward(net(torch.bfloat16), sd, xt)
     params, stats = TP.port_resnet_generator(numpy_sd(sd), BLOCKS)
     model = JP.ResnetGenerator(1, NGF, BLOCKS, "batch", False, jnp.bfloat16)
-    want = strict("generator", lambda v, x: model.apply(v, x, train=False),
+    want = jitted("generator", lambda v, x: model.apply(v, x, train=False),
                   {"params": params, "batch_stats": stats}, x)
     return rel(got, ref), rel(np.asarray(want).transpose(0, 3, 1, 2), ref)
 
 
-CASE_FNS = {"encoder": encoder_case, "generator": generator_case}
+INCEPTION_CLASSES = 10
+
+
+def inception_to_flax(sd: dict) -> dict:
+    """The port's InceptionV3 state dict (no ``AuxLogits``) -> flax's
+    variables: the inverse of ``port_weights.inception_v3_from_flax``."""
+    params, stats = {}, {}
+
+    def basic(prefix, tree_p, tree_s, name):
+        tree_p[name] = {
+            "Conv_0": {"kernel": sd[f"{prefix}.conv.weight"].transpose(
+                2, 3, 1, 0)},
+            "BatchNorm_0": {"scale": sd[f"{prefix}.bn.weight"],
+                            "bias": sd[f"{prefix}.bn.bias"]}}
+        tree_s[name] = {"BatchNorm_0": {
+            "mean": sd[f"{prefix}.bn.running_mean"],
+            "var": sd[f"{prefix}.bn.running_var"]}}
+
+    for i, (name, *_) in enumerate(PI.STEM):
+        basic(name, params, stats, f"BasicConv2d_{i}")
+    seen = {}
+    for name, block, args in PI.MIXED:
+        kind = block.__name__
+        flax_name = f"{kind}_{seen.get(kind, 0)}"
+        seen[kind] = seen.get(kind, 0) + 1
+        params[flax_name], stats[flax_name] = {}, {}
+        with torch.device("meta"):
+            children = [n for n, _ in block(*args).named_children()]
+        for j, child in enumerate(children):
+            basic(f"{name}.{child}", params[flax_name], stats[flax_name],
+                  f"BasicConv2d_{j}")
+    params["fc"] = {"kernel": sd["fc.weight"].T, "bias": sd["fc.bias"]}
+    return {"params": params, "batch_stats": stats}
+
+
+@functools.lru_cache(maxsize=None)
+def inception_case(seed: int, offset: float) -> tuple:
+    """The same for InceptionV3 (JAX's init for ``seed``, its logits and
+    the Mixed_6c features) at 75 px, the whole model cast to bf16 on both
+    sides, against jitted JAX. The statistics are those of 16 images, the
+    first 2 of which go through: at 75 px the last blocks' maps are 1x1,
+    and the statistics of 2 images there would leave the float32 forward
+    itself 9% from float64 (1.4e-5 with 16)."""
+    x = offset + np.random.default_rng(seed).standard_normal(
+        (16, 75, 75, 3)).astype(np.float32)
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+
+    def net():
+        return PI.InceptionV3(INCEPTION_CLASSES, every_feat=True)
+
+    m = net()
+    m.load_state_dict(FF.inception_v3(seed, INCEPTION_CLASSES, aux=False))
+    sd = calibrate(m, xt)
+    x, xt = x[:2], xt[:2]
+    ref = forward(net().double(), sd, xt.double())
+    got = forward(net().to(torch.bfloat16), sd, xt.to(torch.bfloat16))
+    v = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16),
+                               inception_to_flax(numpy_sd(sd)))
+    model = JI.InceptionV3(INCEPTION_CLASSES, every_feat=True)
+    logits, feat = jitted("inception",
+                          lambda v, x: model.apply(v, x, train=False), v,
+                          jnp.asarray(x, jnp.bfloat16))
+    want = flat((np.asarray(logits.astype(jnp.float32)),
+                 np.asarray(feat.astype(jnp.float32)).transpose(0, 3, 1, 2)))
+    return rel(got, ref), rel(want, ref)
+
+
+CASE_FNS = {"encoder": encoder_case, "generator": generator_case,
+            "inception": inception_case}
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"seed{c[0]}-x{c[1]:g}")
@@ -498,7 +628,7 @@ if __name__ == "__main__":
         ways = {"port": (fused, eval_bn), "conv_rounded": (rounded, eval_bn),
                 "old_fold": (rounded, old_fold)}
         for jax_op_by_op in (True, False):
-            strict = op_by_op if jax_op_by_op else (
+            strict = jitted = op_by_op if jax_op_by_op else (
                 lambda name, fn, *args: jax.jit(fn)(*args))
             for port, (R.conv_bn, R.BatchNorm2d.forward) in ways.items():
                 _COMPILED.clear()

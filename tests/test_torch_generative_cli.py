@@ -27,9 +27,8 @@ from art_sbir_tpu_torch.data import get_datasets
 from art_sbir_tpu_torch.data.synthetic import (make_synthetic_kaggle,
                                                make_synthetic_sketchy)
 from art_sbir_tpu_torch.data.unpaired import UnpairedImageCatalog
+from art_sbir_tpu_torch.models import flax_families
 from art_sbir_tpu_torch.models.adain_net import AdaINDecoder, AdaINEncoder
-from art_sbir_tpu_torch.models.drawing import DrawingGenerator
-from art_sbir_tpu_torch.models.layers import flax_init
 from tests.torch_threads import two_torch_threads  # noqa: F401
 
 
@@ -67,8 +66,7 @@ def drawing_runs(tmp_path_factory):
     ``--bf16``."""
     base = tmp_path_factory.mktemp("drawings")
     pth = base / "contour.pth"
-    torch.save(flax_init(DrawingGenerator(), seed=0).state_dict(),
-               pth)
+    torch.save(flax_families.drawing_generator(0), pth)
     roots = _corpora(base)
     common = ["--image_size", str(SIZE), "-b", "4", "--model", str(pth)]
     stats = {}
@@ -119,7 +117,7 @@ def test_drawings_model_flag(tmp_path):
     refused, naming the converter."""
     from art_sbir_tpu_torch.core.checkpoint import save_state_dict
 
-    sd = flax_init(DrawingGenerator(), seed=4).state_dict()
+    sd = flax_families.drawing_generator(4)
     save_state_dict(tmp_path / "g.pt", sd)
     gen = drawings.load_generator(str(tmp_path / "g.pt"), torch.device("cpu"))
     assert all(torch.equal(v, sd[k]) for k, v in gen.state_dict().items())
@@ -335,9 +333,8 @@ def test_cuda_generators_match_the_cpu(tmp_path):
     ieee_f32()
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.random((2, 3, SIZE, SIZE)).astype(np.float32))
-    gen = flax_init(DrawingGenerator(), seed=0).eval()
-    enc = flax_init(AdaINEncoder(), seed=0).eval()
-    dec = flax_init(AdaINDecoder(), seed=1).eval()
+    gen = drawings.load_generator(None, torch.device("cpu"))
+    enc, dec = artwork_gen.load_adain(None, torch.device("cpu"))
     with torch.no_grad():
         cpu = [gen(x), style_transfer(enc, dec, x, x.flip(0))]
         card = [gen.cuda()(x.cuda()),

@@ -27,6 +27,8 @@ from art_sbir_tpu.ops import adain as JOA
 from art_sbir_tpu.ops import dilate as JDL
 from art_sbir_tpu_torch.models import adain_net as PA
 from art_sbir_tpu_torch.models import drawing as PD
+from art_sbir_tpu_torch.models import flax_draw as FD
+from art_sbir_tpu_torch.models import flax_families as FF
 from art_sbir_tpu_torch.models import layers as PL
 from art_sbir_tpu_torch.models import port_weights as PW
 from art_sbir_tpu_torch.models.resnet import BatchNorm2d
@@ -136,15 +138,17 @@ def test_conv_transpose_geometry_matches_jax(rng, k, s, p, op, size):
 
 
 def test_torch_default_init_is_seeded():
-    """The generators' fresh init (``flax_init``, the JAX package's
-    distributions) is a function of the seed alone."""
-    a = PL.flax_init(PD.DrawingGenerator(), seed=0).state_dict()
-    b = PL.flax_init(PD.DrawingGenerator(), seed=0).state_dict()
-    c = PL.flax_init(PD.DrawingGenerator(), seed=1).state_dict()
+    """The generators' fresh init (JAX's own, ``flax_families``) is a
+    function of the seed alone, drawn anew."""
+    a = FF.drawing_generator(0)
+    FF.drawing_generator.cache_clear()
+    b = FF.drawing_generator(0)
+    c = FF.drawing_generator(1)
+    assert a is not b
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["model0.1.weight"], c["model0.1.weight"])
     # flax's truncated lecun normal: |w| <= 2 / 0.8796 / sqrt(fan_in)
-    bound = 2.0 / PL.TRUNC_NORMAL_STD / np.sqrt(3 * 49)
+    bound = 2.0 / FD.TRUNC_NORMAL_STD / np.sqrt(3 * 49)
     assert float(a["model0.1.weight"].abs().max()) <= bound
 
 
@@ -176,7 +180,8 @@ def _flax_names(model: nn.Module):
              BatchNorm2d: "BatchNorm"}
     counts = dict.fromkeys(kinds.values(), 0)
     for name, mod in model.named_modules():
-        flax = kinds.get(type(mod))
+        flax = next((f for cls, f in kinds.items() if isinstance(mod, cls)),
+                    None)
         if flax is not None:
             yield name, f"{flax}_{counts[flax]}"
             counts[flax] += 1
@@ -464,7 +469,8 @@ def test_adain_loader_drops_keys_past_relu4_1(tmp_path, capsys):
     lacks raises."""
     vgg = _full_vgg_normalised()
     assert max(int(k.split(".")[0]) for k in vgg.state_dict()) == 51
-    dec = PL.flax_init(PA.AdaINDecoder(), seed=5)
+    dec = PA.AdaINDecoder()
+    dec.load_state_dict(FF.adain(0, 5)[1])
     torch.save(vgg.state_dict(), tmp_path / "vgg_normalised.pth")
     torch.save(dec, tmp_path / "decoder.pth")  # a whole module
     enc_sd, dec_sd = PW.load_adain_pth(str(tmp_path))

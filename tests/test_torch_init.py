@@ -1,36 +1,28 @@
-"""The port's fresh inits against the JAX package's, tensor by tensor, on
-the CPU.
+"""The port's fresh inits are the JAX package's, tensor by tensor, on the
+CPU.
 
-JAX's ``model.init(jax.random.key(0))`` is carried into the port's layout
-by ``models/port_weights.py``'s ``*_from_flax`` (so the LSTM's stored
-``kernel - k`` is compared as the effective weight).
+JAX's ``model.init`` (jitted: an eager flax init compiles op by op,
+several times slower) under the keys the JAX CLIs use is carried into the
+port's layout by ``models/port_weights.py``'s ``*_from_flax`` (so the
+LSTM's stored ``kernel - k`` is compared as the effective weight) and
+held to the port's seeded init by ``tests/test_torch_jax_init.py``'s
+rule: the key sets equal, constants (biases, identity BatchNorm, its
+statistics) exactly, every drawn value within ``flax_draw.DRAW_ULP``
+float32 ulp (the inverse error function's rounding) and under 3% of them
+differing at all. Each family at thin widths where it has a knob, for two
+seeds:
 
-The triplet encoder (``ModifiedResNet``, with and without its heads)
-draws JAX's own init (``models/flax_draw.py``): each tensor equals JAX's,
-constants exactly and drawn tensors within ``flax_draw.DRAW_ULP`` float32
-ulp (the inverse error function's rounding;
-``tests/test_torch_jax_init.py`` holds more shapes and seeds).
+* the triplet encoder (``models/flax_draw.py``), with and without heads;
+* the VAE through ``VAETrainer(cfg, seed)`` (``key(seed)``, JAX
+  ``train/vae.py:91``);
+* the drawing generator and AdaIN (``key(0)``, and ``key(0)`` and
+  ``key(1)``, through the CLIs' loaders) and other keys;
+  ``GlobalGenerator2``;
+* the CLIP block through ``transformer.init_weights``.
 
-The other families (the VAE, the drawing generator, AdaIN, InceptionV3,
-the CLIP block) draw from a CPU ``torch.Generator``
-(``models/layers.py::flax_init``), which cannot match ``jax.random``'s
-threefry, so each of their tensors is held to JAX's by its distribution:
-beside the port's seeded fresh init of the same model each tensor must
-have
-
-* the same family: constant, uniform, normal truncated at two of its
-  stds (flax's ``lecun_normal``) or normal, told apart by their kurtosis
-  (1.8, 2.37 and 3; the sample's spread is under 0.08 at 4,096
-  elements) on tensors of at least 4,096 elements;
-* a std within 3% of JAX's on those tensors;
-* max |w| * sqrt(fan_in) <= 2 / 0.8796 + 1e-4 = 2.2737 wherever JAX's
-  kernel is a truncated normal;
-* the same value wherever JAX's is constant (zero biases, identity
-  BatchNorm).
-
-Widths are cut where the model has a knob (the ResNet's width and depth,
-the VAE's decoder) and kept where it has none; JAX's inits are jitted,
-on small inputs.
+pix2pix is held in ``tests/test_torch_pix2pix_init.py``; InceptionV3, and
+each family at full width against a committed digest of JAX's seed-0
+init, in ``tests/test_torch_jax_init_families.py``.
 """
 
 import functools
@@ -41,61 +33,28 @@ import numpy as np
 import pytest
 import torch
 
-from art_sbir_tpu_torch.models import layers as PL
+from art_sbir_tpu_torch.models import flax_families as FF
 from art_sbir_tpu_torch.models import port_weights as PW
+from tests.test_torch_jax_init import compare
 from tests.torch_threads import two_torch_threads  # noqa: F401
 
-
-BOUND = 2.0 / PL.TRUNC_NORMAL_STD  # 2.2737: flax's truncation, in stds
-BIG = 4096
+SEEDS = [0, 1]
 
 
-def family(w: np.ndarray) -> str:
-    w = w.astype(np.float64).ravel()
-    if np.all(w == w[0]):
-        return "constant"
-    c = w - w.mean()
-    kurtosis = np.mean(c ** 4) / np.mean(c ** 2) ** 2
-    if kurtosis < 2.1:
-        return "uniform"
-    if kurtosis < 2.7:
-        return "truncated normal"
-    return "normal"
+@functools.lru_cache(maxsize=None)
+def _jit_init(model, **static):
+    """A jitted ``model.init`` for one model (flax modules hash by their
+    fields): compiled once, called for each key."""
+    return jax.jit(functools.partial(model.init, **static))
 
 
-def compare(jax_sd, port_sd):
-    """Every rule of the module docstring, key by key; returns the counts
-    of tensors checked by family and by bound."""
-    assert set(jax_sd) <= set(port_sd), sorted(set(jax_sd) - set(port_sd))
-    n_family = n_bound = 0
-    for key, jw in jax_sd.items():
-        if key.endswith("num_batches_tracked"):
-            continue
-        jw = np.asarray(jw, np.float64)
-        pw = port_sd[key].detach().double().numpy()
-        assert jw.shape == pw.shape, key
-        if np.all(jw == jw.ravel()[0]):
-            np.testing.assert_array_equal(pw, jw, err_msg=key)
-            continue
-        if jw.size >= BIG:
-            assert family(pw) == family(jw), (key, family(pw), family(jw))
-            assert abs(pw.std() / jw.std() - 1) < 0.03, (key, pw.std(),
-                                                         jw.std())
-            n_family += 1
-        fan_in = jw[0].size if jw.ndim >= 2 else 0
-        truncated = (jw.ndim >= 2 and "lstm" not in key
-                     and np.abs(jw).max() * fan_in ** 0.5 <= BOUND + 1e-4)
-        if truncated:
-            assert np.abs(pw).max() * fan_in ** 0.5 <= BOUND + 1e-4, key
-            n_bound += 1
-    return n_family, n_bound
+def _init(model, key, *args, **static):
+    return _jit_init(model, **static)(key, *args)
 
 
-def _init(model, *args, **kw):
-    """``model.init(jax.random.key(0), ...)``, jitted (an eager flax init
-    compiles op by op, several times slower)."""
-    init = jax.jit(model.init, static_argnames=tuple(kw))
-    return init(jax.random.key(0), *args, **kw)
+def _held(want: dict, have: dict) -> None:
+    got = compare(want, have)
+    assert got["share"] < 0.03, got
 
 
 GEO = dict(layers=(1, 1, 1, 1), width=32, input_resolution=64,
@@ -108,7 +67,8 @@ def _jax_resnet_with_heads():
 
     jm = jax_encoder(with_classification=True, num_classes=300,
                      dtype=jnp.float32, **GEO)
-    return _init(jm, jnp.zeros((1, 64, 64, 3)), train=False)
+    return _init(jm, jax.random.key(0), jnp.zeros((1, 64, 64, 3)),
+                 train=False)
 
 
 @pytest.mark.parametrize("with_classification", [False, True])
@@ -127,7 +87,7 @@ def test_modified_resnet_init(with_classification):
         jsd = PW.modified_resnet_with_classification_from_flax(
             v["params"], v["batch_stats"], GEO["layers"])
     else:
-        v = _init(jax_encoder(dtype=jnp.float32, **GEO),
+        v = _init(jax_encoder(dtype=jnp.float32, **GEO), jax.random.key(0),
                   jnp.zeros((1, 64, 64, 3)), train=False)
         jsd = PW.modified_resnet_from_flax(v["params"], v["batch_stats"],
                                            GEO["layers"])
@@ -150,86 +110,113 @@ def test_modified_resnet_init(with_classification):
         drawn += 1
     assert drawn >= 20
     # the positional embedding keeps N(0, 1) / sqrt(C), untruncated
-    assert family(port["attnpool.positional_embedding"].numpy()) == "normal"
+    pos = port["attnpool.positional_embedding"].numpy().astype(np.float64)
+    c = pos.ravel() - pos.mean()
+    assert np.mean(c ** 4) / np.mean(c ** 2) ** 2 >= 2.7  # a normal's 3
 
 
-def test_photo2sketch_init():
+@pytest.mark.parametrize("seed", SEEDS)
+def test_photo2sketch_init(seed):
+    """``VAETrainer(cfg, seed)`` against ``Photo2Sketch.init(key(seed))``
+    (the decoder's leaves made inside its ``nn.scan``, the LSTM's four in
+    one scope)."""
     from art_sbir_tpu.models.photo2sketch import Photo2Sketch
     from art_sbir_tpu_torch.train.vae import VAEConfig, VAETrainer
 
     z, hidden, m, t = 16, 64, 3, 4
-    jm = Photo2Sketch(z_size=z, dec_rnn_size=hidden, num_mixture=m,
-                      max_seq_len=t)
-    v = _init(jm, jnp.zeros((1, 32, 32, 3)), jnp.zeros((1, t, 5)),
-              jax.random.key(1))
-    jsd = PW.photo2sketch_from_flax(v["params"])
+    v = _init(Photo2Sketch(z_size=z, dec_rnn_size=hidden, num_mixture=m,
+                           max_seq_len=t), jax.random.key(seed),
+              jnp.zeros((1, 32, 32, 3)), jnp.zeros((1, t, 5)),
+              jax.random.key(0))
     trainer = VAETrainer(VAEConfig(z_size=z, dec_rnn_size=hidden,
-                                   num_mixture=m), seed=0, device="cpu")
-    n_family, n_bound = compare(jsd, trainer.model.state_dict())
-    assert n_family >= 15 and n_bound >= 15
-    lstm = trainer.model.Sketch_Decoder.lstm.weight_hh_l0.detach().numpy()
-    assert family(lstm) == "uniform"
-    assert np.abs(lstm).max() <= 1 / hidden ** 0.5
+                                   num_mixture=m), seed=seed, device="cpu")
+    _held(PW.photo2sketch_from_flax(v["params"]),
+          trainer.model.state_dict())
 
 
-def test_drawing_and_adain_inits():
+# ------------------------------------------------ the drawing generators
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_drawing_and_adain_inits(seed):
+    """``DrawingGenerator`` under ``key(seed)``, AdaIN's encoder under
+    ``key(seed)`` and its decoder under ``key(seed + 1)``; seed 0 through
+    the CLIs' loaders (``--model`` omitted), whose keys those are."""
     from art_sbir_tpu.models.adain_net import AdaINDecoder, AdaINEncoder
     from art_sbir_tpu.models.drawing import DrawingGenerator
     from art_sbir_tpu_torch.cli import artwork_gen, drawings
 
-    v = _init(DrawingGenerator(), jnp.zeros((1, 32, 32, 3)))
-    gen = drawings.load_generator(None, torch.device("cpu"))
-    n_family, n_bound = compare(PW.drawing_from_flax(v["params"]),
-                                gen.state_dict())
-    assert n_family >= 8 and n_bound >= 8
-    # the transposed convs keep JAX's N(0, 0.02) (layers.py::ConvTranspose)
-    assert family(gen.model3[0].weight.detach().numpy()) == "normal"
+    cpu = torch.device("cpu")
+    v = _init(DrawingGenerator(), jax.random.key(seed),
+              jnp.zeros((1, 32, 32, 3)))
+    gen = (drawings.load_generator(None, cpu).state_dict() if seed == 0
+           else FF.drawing_generator(seed))
+    _held(PW.drawing_from_flax(v["params"]), gen)
 
-    enc_v = _init(AdaINEncoder(), jnp.zeros((1, 32, 32, 3)))
-    dec_v = _init(AdaINDecoder(), jnp.zeros((1, 4, 4, 512)))
-    jenc, jdec = PW.adain_from_flax(enc_v["params"], dec_v["params"])
-    enc, dec = artwork_gen.load_adain(None, torch.device("cpu"))
-    for jsd, port in ((jenc, enc), (jdec, dec)):
-        n_family, n_bound = compare(jsd, port.state_dict())
-        assert n_family >= 7 and n_bound >= 8
-
-
-def test_inception_init():
-    from art_sbir_tpu.models.inception import InceptionAux, InceptionV3
-    from art_sbir_tpu_torch.models.inception import create_inception
-
-    jm = InceptionV3(num_classes=10)
-    v = _init(jm, jnp.zeros((1, 75, 75, 3)), train=False)
-    aux = _init(InceptionAux(10), jnp.zeros((1, 17, 17, 768)), train=True)
-    params = {**v["params"], "AuxLogits": aux["params"]}
-    stats = {**v["batch_stats"], "AuxLogits": aux["batch_stats"]}
-    jsd = PW.inception_v3_from_flax(params, stats)
-    port = create_inception(num_classes=10, seed=0)
-    assert set(jsd) == set(port.state_dict())
-    n_family, n_bound = compare(jsd, port.state_dict())
-    assert n_family >= 90 and n_bound >= 95
+    enc_v = _init(AdaINEncoder(), jax.random.key(seed),
+                  jnp.zeros((1, 32, 32, 3)))
+    dec_v = _init(AdaINDecoder(), jax.random.key(seed + 1),
+                  jnp.zeros((1, 4, 4, 512)))
+    if seed == 0:
+        port = tuple(m.state_dict()
+                     for m in artwork_gen.load_adain(None, cpu))
+    else:
+        port = FF.adain(seed, seed + 1)
+    for want, have in zip(PW.adain_from_flax(enc_v["params"],
+                                             dec_v["params"]), port):
+        _held(want, have)
 
 
-def test_transformer_block_init():
+@pytest.mark.parametrize("seed", SEEDS)
+def test_global_generator2_init(seed):
+    """``GlobalGenerator2`` at ``ngf`` 4 with 2 blocks: its auto-named
+    convs, transposed convs and BatchNorms; the draw loads into the
+    port's model."""
+    from art_sbir_tpu.models.drawing import GlobalGenerator2
+    from art_sbir_tpu_torch.models import drawing as PD
+
+    geo = dict(ngf=4, n_blocks=2)
+    v = _init(GlobalGenerator2(**geo), jax.random.key(seed),
+              jnp.zeros((1, 5, 5, 3)), train=False)
+    have = FF.global_generator2(seed, **geo)
+    PD.GlobalGenerator2(**geo).load_state_dict(have)
+    _held(PW.global_generator2_from_flax(v["params"], v["batch_stats"],
+                                         **geo), have)
+
+
+# -------------------------------------------------------- the CLIP block
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_transformer_block_init(seed):
+    """``init_weights`` against ``ResidualAttentionBlock.init(key(seed))``
+    at width 128 with 4 heads (q, k, v and out drawn flat)."""
     from art_sbir_tpu.models.transformer import ResidualAttentionBlock
     from art_sbir_tpu_torch.models import transformer as PT
 
     v = _init(ResidualAttentionBlock(d_model=128, n_head=4),
-              jnp.zeros((1, 5, 128)))
-    jsd = PW.residual_attention_block_from_flax(v["params"])
-    port = PT.init_weights(PT.ResidualAttentionBlock(128, 4), seed=0)
-    n_family, n_bound = compare(jsd, port.state_dict())
-    assert n_family >= 4 and n_bound >= 4
+              jax.random.key(seed), jnp.zeros((1, 5, 128)))
+    port = PT.init_weights(PT.ResidualAttentionBlock(128, 4), seed=seed)
+    _held(PW.residual_attention_block_from_flax(v["params"]),
+          port.state_dict())
 
 
-def test_flax_init_is_seeded_and_device_independent():
-    """One seed, one set of weights: the generator is the CPU's, whatever
-    the model's dtype or memory format (VGG is channels-last)."""
-    from art_sbir_tpu_torch.models.vgg import VGGFeatures
+def test_jax_draw_is_seeded_and_device_independent():
+    """One seed, one set of weights: the draw runs on the host, whatever
+    the model's dtype or memory format (the VAE's VGG is channels-last,
+    and stays so), and seeds differ."""
+    from art_sbir_tpu_torch.models.photo2sketch import Photo2Sketch
 
-    a = PL.flax_init(VGGFeatures(), seed=3).state_dict()
-    b = PL.flax_init(VGGFeatures().to(torch.bfloat16), seed=3).state_dict()
-    c = PL.flax_init(VGGFeatures(), seed=4).state_dict()
-    for k in a:
-        torch.testing.assert_close(b[k].float(), a[k], rtol=2 ** -8, atol=0)
-    assert not torch.equal(a["0.weight"], c["0.weight"])
+    a = FF.photo2sketch(3, 8, 16, 2)
+    model = Photo2Sketch(8, 16, 2).to(torch.bfloat16)
+    model.load_state_dict(a)
+    conv = model.Image_Encoder.feature[0].weight
+    assert conv.is_contiguous(memory_format=torch.channels_last)
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, a[k].to(v.dtype), rtol=0, atol=0)
+    FF.photo2sketch.cache_clear()
+    b = FF.photo2sketch(3, 8, 16, 2)
+    c = FF.photo2sketch(4, 8, 16, 2)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    w = "Image_Encoder.feature.0.weight"
+    assert not torch.equal(a[w], c[w])

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from art_sbir_tpu_torch.models import flax_families
 from art_sbir_tpu_torch.models import pix2pix as PP
 from art_sbir_tpu_torch.models import resnet as R
 from art_sbir_tpu_torch.parallel import mesh as M
@@ -167,9 +168,8 @@ def _pix2pix(net: str) -> Pix2Pix:
     m = Pix2Pix(Pix2PixConfig(net_g=net, image_size=32, ngf=8, ndf=8),
                 seed=0, device="cpu")
     if net == "unet_256":
-        m.net_g = PP.init_weights(
-            PP.UnetGenerator(3, 1, 5, 8, "batch", use_dropout=True),
-            torch.Generator().manual_seed(1))
+        m.net_g = PP.UnetGenerator(3, 1, 5, 8, "batch", use_dropout=True)
+        m.net_g.load_state_dict(flax_families.pix2pix(1, m.net_g))
     m.net_g.double()
     m.net_d.double()
     m._optimizers()
